@@ -36,6 +36,7 @@ from .data import load_served, write_labels
 from .models import SwinUnetR
 from .parallel import BucketedInference, window_starts
 from .utils import load_reference_checkpoint
+from .utils.device import resolve_device
 
 # Worker processes for the host IO of serving (NIfTI decode and encode).
 # In threads this work slowed the main thread's GIL-releasing torch calls
@@ -115,13 +116,15 @@ def resolve_io(inputs: List[str], output: str) -> List[Tuple[Path, Path]]:
 def make_runner(conf: dict, model: SwinUnetR, chunk: Optional[int] = None,
                 stride=None, device_windowing: bool = True,
                 coverage: str = "pad") -> BucketedInference:
-    """Serving runner around ``model`` (already on its device).
+    """Serving runner around ``model`` (already on its device; put in
+    eval mode here).
 
     ``device_windowing``: volumes are uploaded raw and windowed on the
     device (pad value -1000 HU, air); otherwise they arrive windowed on
     the host (pad value 0).  ``coverage="pad"`` segments every voxel;
     ``"crop"`` reproduces the reference's center-crop grid.
     """
+    model.eval()
     device = next(model.parameters()).device
 
     def apply_fn(batch: torch.Tensor) -> torch.Tensor:
@@ -249,9 +252,11 @@ def load_conf(path: str, **overrides) -> dict:
     return conf
 
 
-def build_model(conf: dict, state_dict=None, device="cpu") -> SwinUnetR:
+def build_model(conf: dict, state_dict=None, device="cuda") -> SwinUnetR:
     """The downstream model of ``conf``, loaded (strictly) from a
-    reference-schema state dict, on ``device``, in eval mode."""
+    reference-schema state dict, on ``device`` (the card unless
+    ``"cpu"`` is asked for; raises without CUDA), in eval mode."""
+    device = resolve_device(device)
     model = SwinUnetR(ModelConfig.from_mapping(
         {**conf, "training_mode": "downstream"}))
     if state_dict is not None:
@@ -284,8 +289,9 @@ def main(argv=None):
                         default=None,
                         help="trunk dtype (default: the config's); the CUDA "
                              "kernels need bfloat16")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda when available)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: cuda; fails without a "
+                             "card unless --device cpu)")
     args = parser.parse_args(argv)
     overrides = {}
     if args.use_encoder_prompting:
@@ -295,8 +301,8 @@ def main(argv=None):
     if args.compute_dtype:
         overrides["compute_dtype"] = args.compute_dtype
     conf = load_conf(args.configs, **overrides)
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    model = build_model(conf, load_reference_checkpoint(args.ckpt), device)
+    model = build_model(conf, load_reference_checkpoint(args.ckpt),
+                        args.device)
     pairs = resolve_io(args.input, args.output)
     n_done, n_failed = serve_volumes(
         conf, model, pairs, chunk=args.chunk, stride=args.stride_factor,

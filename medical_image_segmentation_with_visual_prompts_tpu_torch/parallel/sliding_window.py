@@ -18,6 +18,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 def resolve_stride(window: Sequence[int], stride=None) -> Tuple[int, ...]:
     """None -> roi/2; a float f -> ``max(1, round(w*f))`` per axis; a
@@ -132,8 +134,7 @@ class BucketedInference:
         self.preprocess = preprocess
         self.coverage = coverage
         self.pad_value = pad_value
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         self.gauss = torch.from_numpy(gaussian_importance(self.window))[
             ..., None].to(self.device)
         self._waccs = OrderedDict()   # (bucket, dims) -> blend weights

@@ -84,7 +84,8 @@ def test_stitched_probabilities_match_jax(stride, coverage):
                                   pad_value=-1.0)
     want = np.asarray(jr(vol))
     pr = sw.BucketedInference(_stand_in(torch), ROI, None, 3, stride=stride,
-                              coverage=coverage, pad_value=-1.0)
+                              coverage=coverage, pad_value=-1.0,
+                              device="cpu")
     got = pr(vol).numpy()
     assert got.shape == want.shape == (*vol.shape[:3], 3)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
@@ -95,9 +96,10 @@ def test_chunking_does_not_change_the_stitch():
     vol = np.random.default_rng(1).uniform(
         -1, 1, size=(40, 36, 20, 1)).astype(np.float32)
     whole = sw.BucketedInference(_stand_in(torch), ROI, None, 3,
-                                 stride=0.5, coverage="pad")(vol)
+                                 stride=0.5, coverage="pad",
+                                 device="cpu")(vol)
     chunked = sw.BucketedInference(_stand_in(torch), ROI, 5, 3, stride=0.5,
-                                   coverage="pad")(vol)
+                                   coverage="pad", device="cpu")(vol)
     torch.testing.assert_close(whole, chunked, atol=1e-6, rtol=0)
 
 
