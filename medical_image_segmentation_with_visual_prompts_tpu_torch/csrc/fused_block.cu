@@ -10,9 +10,13 @@
 //                                              prompt tokens, projected
 //                                              by the wrapper
 //   s   = (q.k * scale + bias[h, i, j]) * (lab_i == lab_j || lab_j < 0)
-//   a   = softmax(s) v                         max-subtracted, fp32 stats
-//   x1  = x + a Wproj + bproj
+//   a   = (softmax(s) * keep_a) v              max-subtracted, fp32 stats
+//   x1  = x + (a Wproj + bproj) * keep_p
 //   out = x1 + LN2(x1) Wmlp + bmlp             stored as bf16
+//
+// keep_a and keep_p are the counter-based dropout masks of ops/prng.py
+// (fused_block_common.cuh), hashed from the element index as the JAX
+// kernel hashes it; with zero rates the dropout code never runs.
 //
 // What bounds it on the H100: the matrix products (five C-wide GEMMs per
 // row plus heads x N x head_dim twice for attention) and how many windows
@@ -28,74 +32,9 @@
 // registers and feeds P to P.V as bf16.  Row strides are padded so the
 // fragment loads are free of bank conflicts.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "fused_block_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr int kNT = 8;  // n-tiles (of 8 columns) per warp GEMM chunk
-
-// acc[mt][nt] = A[r0 + 16 mt .. +16, 0..K) @ Bt[n0 + 8 nt .. +8, 0..K)^T
-// for the warp's `mtiles` row tiles and `ntiles` <= kNT column tiles.
-// A: shared memory, row-major, stride lda; Bt: device memory, [N][K].
-__device__ __forceinline__ void warp_gemm(float (&acc)[2][kNT][4],
-                                          const bf16* A, int lda, int r0,
-                                          int mtiles, const bf16* Bt, int ldb,
-                                          int n0, int ntiles, int K, int lane) {
-  const int g = lane / 4, cq = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const bf16* a0 = A + (r0 + mt * 16 + g) * lda + k0 + 2 * cq;
-      af[mt][0] = lds32(a0);
-      af[mt][1] = lds32(a0 + 8 * lda);
-      af[mt][2] = lds32(a0 + 8);
-      af[mt][3] = lds32(a0 + 8 * lda + 8);
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      if (nt < ntiles) {
-        const bf16* b = Bt + (size_t)(n0 + nt * 8 + g) * ldb + k0 + 2 * cq;
-        const uint32_t b0 = ldg32(b), b1 = ldg32(b + 8);
-        mma16816(acc[0][nt], af[0], b0, b1);
-        if (mtiles > 1) mma16816(acc[1][nt], af[1], b0, b1);
-      }
-    }
-  }
-}
 
 struct BlockArgs {
   const bf16* x;        // [BP, M, C]
@@ -114,14 +53,8 @@ struct BlockArgs {
   const float* bmlp;
   int m, c, heads, n_ext, p_windows;
   float scale;
+  DropArgs drop;
 };
-
-constexpr float kEps = 1e-6f;
-constexpr int kKeyChunk = 64;  // keys per online-softmax step
-
-__host__ __device__ constexpr int pad16(int v) { return (v + 15) / 16 * 16; }
-
-__host__ __device__ inline size_t align16(size_t v) { return (v + 15) / 16 * 16; }
 
 // Shared-memory layout, in bytes.  Region 1 holds LN1(x), the head's Q,
 // K and V^T tiles and the key labels during the projections and
@@ -152,8 +85,14 @@ struct Smem {
   }
 };
 
-template <int DH>
-__global__ void fused_swin_block_kernel(const BlockArgs a) {
+// DROP: the dropout code is compiled in only for calls with a nonzero
+// rate.  MAXT: the largest CTA the instantiation takes.  At 256 threads
+// (M <= 256, the flagship's windows) the compiler is held to 128
+// registers so that two CTAs fit on an SM: at 130 registers one CTA of
+// the 64x64x4 stages runs per SM and the launch takes twice as long.
+template <int DH, bool DROP, int MAXT>
+__global__ void __launch_bounds__(MAXT, MAXT <= 256 ? 2 : 1)
+    fused_swin_block_kernel(const BlockArgs a) {
   constexpr int DHK = pad16(DH);
   constexpr int KSTEPS = DHK / 16;   // k-steps of QK^T
   constexpr int DTILES = DHK / 8;    // n-tiles of a head's q/k/v and P.V
@@ -175,6 +114,7 @@ __global__ void fused_swin_block_kernel(const BlockArgs a) {
   const bf16 zero = __float2bfloat16_rn(0.f);
   const int warp = i / 32, lane = i % 32, g = lane / 4, cq = lane % 4;
   const int r0 = warp * 32;                       // the warp's first row
+  const int dgap = a.drop.drop_cols - N;          // JAX alignment columns
   const int mtiles = r0 + 16 < M ? 2 : 1;         // its 16-row tiles
 
   // ---- LN1 of the thread's row -> y (bf16, row-major) ----
@@ -276,6 +216,12 @@ __global__ void fused_swin_block_kernel(const BlockArgs a) {
       const int lab_b = (masked && vb) ? slab[rb] : 0;
       const float* bias_a = a.bias + ((size_t)h * M + (va ? ra : 0)) * N;
       const float* bias_b = a.bias + ((size_t)h * M + (vb ? rb : 0)) * N;
+      // Dropout counter bases of the two rows (uint32 arithmetic wraps
+      // exactly as the JAX kernel's).
+      const uint32_t drow_a = (((uint32_t)win * a.heads + h) * M + ra) *
+                              (uint32_t)a.drop.drop_cols;
+      const uint32_t drow_b = (((uint32_t)win * a.heads + h) * M + rb) *
+                              (uint32_t)a.drop.drop_cols;
       float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
       float o[DTILES][4];
 #pragma unroll
@@ -343,6 +289,20 @@ __global__ void fused_swin_block_kernel(const BlockArgs a) {
               l_a += p[u][0] + p[u][1];
               l_b += p[u][2] + p[u][3];
             }
+            if (DROP && a.drop.thr_a) {
+              // Attention dropout after the softmax statistics, before the
+              // bf16 cast that feeds P.V (l keeps the undropped sum).
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int j = j0 + kk * 16 + u * 8 + 2 * cq + (e & 1);
+                  p[u][e] *= keep_value(
+                      a.drop.seed_a,
+                      (e < 2 ? drow_a : drow_b) + drop_col(j, M, dgap),
+                      a.drop.thr_a, a.drop.keep_a);
+                }
+            }
             const uint32_t pa[4] = {pack2(p[0][0], p[0][1]), pack2(p[0][2], p[0][3]),
                                     pack2(p[1][0], p[1][1]), pack2(p[1][2], p[1][3])};
             const int jk = j0 + kk * 16 + 2 * cq;
@@ -387,9 +347,15 @@ __global__ void fused_swin_block_kernel(const BlockArgs a) {
           if (mt < mtiles && nt < ntiles && r < M) {
             const float2 xv = __bfloat1622float2(
                 *reinterpret_cast<const __nv_bfloat162*>(xw + (size_t)r * C + col));
-            sx1[r * XS + col] = xv.x + (acc[mt][nt][2 * hf] + __ldg(a.bproj + col));
-            sx1[r * XS + col + 1] =
-                xv.y + (acc[mt][nt][2 * hf + 1] + __ldg(a.bproj + col + 1));
+            float p0 = acc[mt][nt][2 * hf] + __ldg(a.bproj + col);
+            float p1 = acc[mt][nt][2 * hf + 1] + __ldg(a.bproj + col + 1);
+            if (DROP && a.drop.thr_p) {   // projection dropout
+              const uint32_t base = ((uint32_t)win * M + r) * C + col;
+              p0 *= keep_value(a.drop.seed_p, base, a.drop.thr_p, a.drop.keep_p);
+              p1 *= keep_value(a.drop.seed_p, base + 1, a.drop.thr_p, a.drop.keep_p);
+            }
+            sx1[r * XS + col] = xv.x + p0;
+            sx1[r * XS + col + 1] = xv.y + p1;
           }
         }
   }
@@ -436,17 +402,27 @@ __global__ void fused_swin_block_kernel(const BlockArgs a) {
   }
 }
 
-template <int DH>
-cudaError_t launch(const BlockArgs& a, int bp, cudaStream_t stream) {
+template <int DH, bool DROP, int MAXT>
+cudaError_t launch_as(const BlockArgs& a, int bp, cudaStream_t stream) {
   const int threads = (a.m + 31) / 32 * 32;
   const Smem L(a.m, a.c, a.m + a.n_ext, pad16(DH), threads);
   if (L.total > 227 * 1024) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_swin_block_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
+      fused_swin_block_kernel<DH, DROP, MAXT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return err;
-  fused_swin_block_kernel<DH><<<bp, threads, L.total, stream>>>(a);
+  fused_swin_block_kernel<DH, DROP, MAXT><<<bp, threads, L.total, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch(const BlockArgs& a, int bp, cudaStream_t stream) {
+  const bool drop = a.drop.thr_a || a.drop.thr_p;
+  if (a.m <= 256)
+    return drop ? launch_as<DH, true, 256>(a, bp, stream)
+                : launch_as<DH, false, 256>(a, bp, stream);
+  return drop ? launch_as<DH, true, 1024>(a, bp, stream)
+              : launch_as<DH, false, 1024>(a, bp, stream);
 }
 
 }  // namespace
@@ -457,9 +433,11 @@ extern "C" cudaError_t mivp_fused_swin_block(
     const void* ln1_b, const void* wproj, const void* bproj,
     const void* ln2_s, const void* ln2_b, const void* wmlp, const void* bmlp,
     int bp, int m, int c, int heads, int dh, int n_ext, int p_windows,
-    float scale, void* stream) {
+    float scale, unsigned seed_a, unsigned seed_p, unsigned thr_a,
+    unsigned thr_p, float keep_a, float keep_p, int drop_cols,
+    void* stream) {
   if (m < 1 || m > 1024 || c % 16 != 0 || heads * dh != c || bp < 1 ||
-      (labels != nullptr && p_windows < 1))
+      (labels != nullptr && p_windows < 1) || drop_cols < m + n_ext)
     return cudaErrorInvalidValue;
   BlockArgs a;
   a.x = static_cast<const bf16*>(x);
@@ -482,6 +460,7 @@ extern "C" cudaError_t mivp_fused_swin_block(
   a.n_ext = n_ext;
   a.p_windows = p_windows;
   a.scale = scale;
+  a.drop = DropArgs{seed_a, seed_p, thr_a, thr_p, keep_a, keep_p, drop_cols};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 8: return launch<8>(a, bp, s);

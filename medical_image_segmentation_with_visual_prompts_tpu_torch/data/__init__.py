@@ -1,7 +1,10 @@
+from .datasets import DataLoader, Dataset, get_fit_loader_downstream
 from .nifti import load_nifti, save_nifti
 from .transforms import (load_image, load_image_raw, load_served,
-                         orient_ras, scale_intensity_range, write_labels)
+                         orient_ras, scale_intensity_range,
+                         transform_downstream_fit, write_labels)
 
-__all__ = ["load_image", "load_image_raw", "load_nifti", "load_served",
+__all__ = ["DataLoader", "Dataset", "get_fit_loader_downstream",
+           "load_image", "load_image_raw", "load_nifti", "load_served",
            "orient_ras", "save_nifti", "scale_intensity_range",
-           "write_labels"]
+           "transform_downstream_fit", "write_labels"]

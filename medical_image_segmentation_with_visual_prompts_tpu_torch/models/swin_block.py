@@ -18,9 +18,23 @@ symmetric; other geometries pad materially.
 
 Everything a block call needs besides ``x`` -- the assembled bias
 ``[H, M, N]``, the labels ``[P, N]`` and the extra K/V rows -- depends
-only on the parameters and the geometry, so it is built once per
-geometry and cached (the counterpart of the JAX ``bias_cache``); the
-cache is dropped when any parameter or the prompt tokens change.
+only on the parameters and the geometry.  Without grad it is built once
+per geometry and cached (the counterpart of the JAX ``bias_cache``); the
+cache is dropped when any parameter or the prompt tokens change.  With
+grad enabled it is built on every call and keeps its graph, so the
+gradient reaches the prompt tokens and the positional-bias parameters.
+
+Training: in train mode with a nonzero rate, each block call draws two
+uint32 dropout seeds from the generator :meth:`set_dropout_generator`
+gave it (the counterpart of the JAX ``make_rng("dropout")``) and the
+fused block applies counter-based attention and projection dropout.
+``use_checkpoint`` needs no ``torch.utils.checkpoint`` here: the block's
+autograd Function already saves only its inputs (the windowed ``x``, the
+operands, the labels and the seeds) and recomputes the rest in the
+backward kernel, which is what the JAX package's per-block remat buys;
+the gathers around it save indices only.  So a training step runs the
+forward kernel once and the backward kernel once per block (the JAX
+package's remat runs its forward kernel twice).
 """
 
 from __future__ import annotations
@@ -32,8 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_block import (FOLD_COUNT, FOLD_KEY, FOLD_NONE,
-                               block_reference, fused_swin_block,
+from ..ops.fused_block import (FOLD_COUNT, FOLD_KEY, FOLD_NONE, NO_DROPOUT,
+                               Dropout, block_reference, fused_swin_block,
                                labels_tensor, make_operands)
 from ..ops.windows import (compute_paddings, content_indices, fold_geometry,
                            gather_indices, get_attn_labels, unpad_paddings)
@@ -74,9 +88,13 @@ class SwinTransformerBlock(nn.Module):
                  tokens_per_prompt: int,
                  shift_size: Optional[Sequence[int]] = None,
                  pad_mode: str = "reference",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.hidden_channels = hidden_channels
+        self.attn_drop = float(attn_drop)
+        self.proj_drop = float(proj_drop)
+        self.dropout_generator = None
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
         self.shift_size = tuple(shift_size) if shift_size is not None \
@@ -112,9 +130,28 @@ class SwinTransformerBlock(nn.Module):
             "wmlp": self.mlp.weight.t(), "bmlp": self.mlp.bias,
         }
 
+    def set_dropout_generator(self, generator: torch.Generator) -> None:
+        """The generator the block draws its dropout seeds from."""
+        self.dropout_generator = generator
+
+    def dropout(self) -> Dropout:
+        """This call's dropout: fresh seeds in train mode, else none."""
+        if not self.training or (self.attn_drop == 0.0
+                                 and self.proj_drop == 0.0):
+            return NO_DROPOUT
+        if self.dropout_generator is None:
+            raise RuntimeError("SwinTransformerBlock: training with dropout "
+                               "needs set_dropout_generator()")
+        seeds = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64,
+                              generator=self.dropout_generator).tolist()
+        return Dropout(tuple(seeds), self.attn_drop, self.proj_drop)
+
     def _operands(self, key, tokens, build):
-        """Cached (ops, labels) for one geometry; dropped when a
-        parameter or the prompt tokens change (in place or moved)."""
+        """(ops, labels) for one geometry: built afresh with its graph
+        when grad is enabled, else cached and dropped when a parameter or
+        the prompt tokens change (in place or moved)."""
+        if torch.is_grad_enabled():
+            return build()
         watched = list(self.parameters()) + \
             ([] if tokens is None else [tokens])
         stamp = tuple((t.data_ptr(), t._version) for t in watched)
@@ -138,7 +175,7 @@ class SwinTransformerBlock(nn.Module):
         """x: ``[B, H, W, D, C]``; tokens: ``[I, C]`` prompt tokens or None."""
         x_win, ops, labels, undo = self.windows(x, tokens)
         fn = fused_swin_block if self.use_kernels else block_reference
-        return undo(fn(x_win, ops, labels))
+        return undo(fn(x_win, ops, labels, self.dropout()))
 
     def windows(self, x: torch.Tensor, tokens: Optional[torch.Tensor] = None):
         """The block call for ``x``: ``(x_win, ops, labels, undo)`` -- the
@@ -243,7 +280,8 @@ class ConsecutiveSwinBlocks(nn.Module):
                  down: bool = True, merge_last_dim: bool = True,
                  out_channels: Optional[int] = None,
                  pad_mode: str = "reference",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         shift = tuple(s // 2 for s in window_size)
         self.swin_blocks = nn.ModuleList([
@@ -251,7 +289,8 @@ class ConsecutiveSwinBlocks(nn.Module):
                 hidden_channels, window_size, pos_bias_embed_dim, num_heads,
                 max_prompts, tokens_per_prompt,
                 shift_size=(0, 0, 0) if i == 0 else shift,
-                pad_mode=pad_mode, dtype=dtype)
+                pad_mode=pad_mode, dtype=dtype, attn_drop=attn_drop,
+                proj_drop=proj_drop)
             for i in range(2)])
         self.merge = PatchMerging(
             hidden_channels,

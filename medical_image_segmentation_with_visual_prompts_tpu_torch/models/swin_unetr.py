@@ -1,4 +1,4 @@
-"""SwinUnetR, downstream (serving) path.
+"""SwinUnetR, downstream path: serving and prompt-tuning training.
 
 Counterpart of the JAX package's ``models/swin_unetr.py`` for
 ``training_mode="downstream"`` with the flagship decoder
@@ -15,8 +15,14 @@ Counterpart of the JAX package's ``models/swin_unetr.py`` for
 Prompt tokens are ``[tokens, C]`` parameters, two per stage (window and
 shifted block) for encoder and decoder.  Attribute names follow the
 reference's torch keys, so ``load_state_dict`` takes a reference-schema
-state dict (``utils/weights.py``).  Inference only: BatchNorms use their
-running statistics.  Layout: channels-last ``[B, H, W, D, C]``.
+state dict (``utils/weights.py``).  ``eval()`` (serving): BatchNorms use
+their running statistics, dropout is off, the decoder convs run the pair
+kernel.  ``train()`` (the default of a new module, as in torch): batch
+statistics with the running-statistic update, counter-based dropout at
+the config's ``attn_drop``/``proj_drop`` with seeds drawn from
+:attr:`dropout_generator`, and the JAX package's training decoder path.
+``use_checkpoint`` is read and needs no extra work (``swin_block.py``).
+Layout: channels-last ``[B, H, W, D, C]``.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from .unet_blocks import SwinUpBlock, batch_norm, conv3d, same_conv
 
 
 class SwinUnetR(nn.Module):
-    def __init__(self, conf: ModelConfig):
+    def __init__(self, conf: ModelConfig, dropout_seed: int = 0):
         super().__init__()
         if conf.training_mode != "downstream" or \
                 conf.unetr_res_block != "none" or \
@@ -57,7 +63,8 @@ class SwinUnetR(nn.Module):
                 hc[i], conf.num_heads_encoder * 2 ** i,
                 conf.pos_bias_embed_dim, conf.max_prompts,
                 conf.tokens_per_prompt_encoder, ws, down=True,
-                merge_last_dim=i < 1, pad_mode=conf.pad_mode, dtype=dt)
+                merge_last_dim=i < 1, pad_mode=conf.pad_mode, dtype=dt,
+                attn_drop=conf.attn_drop, proj_drop=conf.proj_drop)
             for i in range(depth)])
 
         self.prompt_tokens = nn.Module()
@@ -80,12 +87,18 @@ class SwinUnetR(nn.Module):
                         (2, 2, 1 if i < depth - 1 else 2), (3, 3, 3),
                         conf.pos_bias_embed_dim, conf.num_heads_decoder, ws,
                         conf.max_prompts, conf.tokens_per_prompt_decoder,
-                        pad_mode=conf.pad_mode, dtype=dt)
+                        pad_mode=conf.pad_mode, dtype=dt,
+                        attn_drop=conf.attn_drop, proj_drop=conf.proj_drop)
             for i in range(depth)])
         self.extra_heads = nn.ModuleDict({"downstream": nn.Sequential(
             nn.BatchNorm3d(hc[0], eps=1e-5, momentum=0.1),
             same_conv(hc[0], conf.output_channels_downstream))})
-        self.eval()
+        self.use_checkpoint = conf.use_checkpoint
+        # Dropout seeds of every block call come from this generator.
+        self.dropout_generator = torch.Generator().manual_seed(dropout_seed)
+        for m in self.modules():
+            if hasattr(m, "set_dropout_generator"):
+                m.set_dropout_generator(self.dropout_generator)
 
     def set_kernels(self, enabled: bool) -> "SwinUnetR":
         """Route the blocks and the decoder convs through the CUDA kernel

@@ -1,11 +1,13 @@
 """Decoder building blocks.
 
-Counterpart of the JAX package's ``models/unet_blocks.py`` on the
-serving path: channels-last 3D convs, the inference BatchNorm fold, and
-``SwinUpBlock`` -- trilinear upsample (``align_corners=False``), crop to
-the skip, ``conv(leaky(bn(concat(x, skip))))`` through the pair-input
-conv of ``ops/conv_fused.py`` (the concat is never built), then a
-no-down Swin block pair with the decoder prompts.
+Counterpart of the JAX package's ``models/unet_blocks.py``: channels-
+last 3D convs, BatchNorm (the inference fold, or batch statistics in
+training), and ``SwinUpBlock`` -- trilinear upsample
+(``align_corners=False``), crop to the skip, ``conv(leaky(bn(concat(x,
+skip))))``, then a no-down Swin block pair with the decoder prompts.  In
+eval mode the conv is the pair-input kernel of ``ops/conv_fused.py`` (the
+concat is never built); in train mode, as in the JAX package, the concat,
+the batch-statistics BatchNorm, LeakyReLU(0.01) and a library conv.
 """
 
 from __future__ import annotations
@@ -46,9 +48,29 @@ def bn_fold(norm: nn.BatchNorm3d):
 
 
 def batch_norm(x: torch.Tensor, norm: nn.BatchNorm3d) -> torch.Tensor:
-    """Inference BatchNorm of a channels-last tensor, in fp32."""
-    scale, shift = bn_fold(norm)
-    return x.float() * scale + shift
+    """BatchNorm of a channels-last tensor, in fp32.
+
+    Eval mode: the running statistics (:func:`bn_fold`).  Train mode: the
+    batch statistics as flax computes them -- mean and the *biased*
+    variance ``max(E[x^2] - E[x]^2, 0)`` over every axis but the channel
+    -- and the running statistics updated in place with them, by hand:
+    ``F.batch_norm`` would store the unbiased variance.  torch's momentum
+    0.1 is flax's 0.9.
+    """
+    if not norm.training:
+        scale, shift = bn_fold(norm)
+        return x.float() * scale + shift
+    xf = x.float()
+    dims = tuple(range(xf.dim() - 1))
+    mean = xf.mean(dims)
+    var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        m = norm.momentum
+        norm.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        norm.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        norm.num_batches_tracked.add_(1)
+    return (xf - mean) * torch.rsqrt(var + norm.eps) * norm.weight.float() \
+        + norm.bias.float()
 
 
 class ConvConcat(nn.Module):
@@ -65,7 +87,8 @@ class SwinUpBlock(nn.Module):
                  pos_bias_embed_dim: int, num_heads: int,
                  window_size: Sequence[int], max_prompts: int,
                  tokens_per_prompt: int, pad_mode: str = "reference",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         if tuple(kernel_size) != (3, 3, 3):
             raise NotImplementedError("SwinUpBlock: the port runs the 3x3x3 "
@@ -78,7 +101,7 @@ class SwinUpBlock(nn.Module):
         self.swin_layer = ConsecutiveSwinBlocks(
             out_channels, num_heads, pos_bias_embed_dim, max_prompts,
             tokens_per_prompt, window_size, down=False, pad_mode=pad_mode,
-            dtype=dtype)
+            dtype=dtype, attn_drop=attn_drop, proj_drop=proj_drop)
         self._w27 = None
 
     def _kernel_weight(self) -> torch.Tensor:
@@ -93,8 +116,14 @@ class SwinUpBlock(nn.Module):
         x = upsample_trilinear(x, self.strides, align_corners=False)
         x = x[:, :skip.shape[1], :skip.shape[2], :skip.shape[3]].contiguous()
         skip = skip.to(x.dtype).contiguous()
-        scale, shift = bn_fold(self.norm_concat)
         conv = self.conv_concat.conv
+        if self.training:
+            # Training (as the JAX package): concat, BatchNorm on batch
+            # statistics, LeakyReLU, then the conv.
+            y = F.leaky_relu(batch_norm(torch.cat([x, skip], -1),
+                                        self.norm_concat), 0.01)
+            return self.swin_layer(conv3d(y.to(x.dtype), conv), tokens)
+        scale, shift = bn_fold(self.norm_concat)
         if self.use_kernels:
             w27 = self._kernel_weight() if x.is_cuda else None
             x = conv3x3_fused_pair(x, skip, conv.weight, conv.bias, scale,

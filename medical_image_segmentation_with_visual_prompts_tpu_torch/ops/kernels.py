@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 On first use every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface under
+(``sm_90a``), one process per source and all at once, and the objects
+are linked into one shared library with a plain C interface under
 ``build/kernels/`` at the repository root, named by a hash of the
-sources and flags, and loaded with ``ctypes``.  Every pointer and the
-stream cross as ``c_void_p``; every C entry returns its
+sources, headers and flags, and loaded with ``ctypes``.  Every pointer
+and the stream cross as ``c_void_p``; every C entry returns its
 ``cudaError_t``, and :func:`check` raises when it is not 0.
 
 Nothing here runs at import time: the CPU test suite imports every
@@ -25,17 +26,26 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
+# Dropout arguments: seed_a, seed_p, threshold_a, threshold_p, scale_a,
+# scale_p, drop_cols (ops/fused_block.py::Dropout.kernel_args).
+_DROP = [_U] * 4 + [_F, _F, _I]
 # C signatures of the entries in csrc/ (restype: cudaError_t as int).
 SIGNATURES = {
     # x, out, wqkv, ext_kv, bias, labels, ln1_s, ln1_b, wproj, bproj,
     # ln2_s, ln2_b, wmlp, bmlp, bp, m, c, heads, dh, n_ext, p_windows,
-    # scale, stream
-    "mivp_fused_swin_block": [_P] * 14 + [_I] * 7 + [_F, _P],
+    # scale, dropout, stream
+    "mivp_fused_swin_block": [_P] * 14 + [_I] * 7 + [_F] + _DROP + [_P],
+    # x, dout, dx, wqkv, wqkv_t, ext_kv, bias, labels, ln1_s, ln1_b, wproj,
+    # wproj_io, bproj, ln2_s, ln2_b, wmlp, wmlp_io, bmlp, 4 workspaces,
+    # 13 gradient outputs, bp, m, c, heads, dh, n_ext, p_windows, scale,
+    # dropout, stream
+    "mivp_fused_block_bwd": [_P] * 35 + [_I] * 7 + [_F] + _DROP + [_P],
     # xa, xb, w, bias, scale, shift, out, voxels, h, w, d, ca, cb, co,
     # stream
     "mivp_conv3x3_pair": [_P] * 7 + [_I] * 7 + [_P],
@@ -63,28 +73,49 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD / f"libmivp_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every compiler process; raise with the failures' output."""
+    errors = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)}\n{out}\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link."""
     global build_seconds
     lib = library_path()
     if lib.exists():
         return lib
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
+    tag = f"{lib.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    compiles, objs = [], []
+    for src in _sources():
+        obj = _BUILD / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    _run(compiles)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *(str(o) for o in objs)]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True))])
     os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
     build_seconds = time.perf_counter() - t0
     return lib
 

@@ -1,6 +1,8 @@
 """PyTorch port: entry points run on the CUDA card unless the caller asks
 for the CPU, and raise -- never fall back -- when there is no card."""
 
+from argparse import Namespace
+
 import pytest
 import torch
 
@@ -11,6 +13,8 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
     SwinUnetR
 from medical_image_segmentation_with_visual_prompts_tpu_torch.parallel import \
     BucketedInference
+from medical_image_segmentation_with_visual_prompts_tpu_torch.train import \
+    SegmentationTrainer
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
     resolve_device
 from test_torch_swin_unetr import tiny_conf
@@ -61,3 +65,14 @@ def test_bucketed_inference_needs_cuda_or_an_explicit_cpu(no_cuda):
         BucketedInference(fn, (8, 8, 4))
     assert BucketedInference(fn, (8, 8, 4), device="cpu").device.type == "cpu"
 
+
+def test_trainer_needs_cuda_or_an_explicit_cpu(no_cuda):
+    hp = Namespace(**tiny_conf())
+    with pytest.raises(RuntimeError, match=NO_CUDA):
+        SegmentationTrainer(hp, SwinUnetR, None, None)
+    tr = SegmentationTrainer(hp, SwinUnetR, None, None, device="cpu")
+    assert next(tr.model.parameters()).device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="prompt checkpoints"):
+        SegmentationTrainer(Namespace(**tiny_conf(
+            save_ckpt_prompt_tokens=True)), SwinUnetR, None, None,
+            device="cpu")

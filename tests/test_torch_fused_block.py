@@ -169,8 +169,12 @@ def test_wrapper_rejects_bad_calls_before_any_launch():
         fb.fused_swin_block(x, ops, labels[:, :-1])
     with pytest.raises(ValueError, match="bias must be"):
         fb.fused_swin_block(x[:, :, :8].contiguous(), ops, labels)
-    with pytest.raises(ValueError, match="x_win requires grad"):
-        fb.fused_swin_block(x.clone().requires_grad_(), ops, labels)
+    # A tensor that requires grad now trains through the block (CPU:
+    # the autograd of the plain version), still with no kernel launch.
+    xg = x.clone().requires_grad_()
+    fb.fused_swin_block(xg, ops, labels).square().sum().backward()
+    assert xg.grad is not None and xg.grad.abs().sum() > 0
+    assert torch.isfinite(xg.grad).all()
     with pytest.raises(ValueError, match="x_win must be on a CUDA device"):
         fb.check_kernel_args(x.bfloat16(), ops, labels)
     with torch.inference_mode():

@@ -8,7 +8,10 @@ so it runs there without this directory's conftest::
 Without a CUDA device every test skips.  Tolerance: 4 bf16 ulps of the
 largest output (2^-6 relative to it), the bound ``chip_smoke.py``
 states: kernel and plain version both use bf16 operands and fp32 sums,
-and a sum in another order flips at most a few bf16 roundings.
+and a sum in another order flips at most a few bf16 roundings.  The
+backward kernel's gradients are held to ``GRAD_TOL`` of each gradient's
+largest magnitude: it rounds P, dS and the row gradients to bf16 where
+the plain version (autograd of ``block_reference``) keeps fp32.
 """
 
 import pytest
@@ -18,8 +21,12 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     conv_fused as cf
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     fused_block as fb
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
+    fused_block_bwd as fbb
 
 TOL = 2.0 ** -6
+GRAD_TOL = 2.0 ** -5
+DROP = fb.Dropout((2024, 77), 0.1, 0.1)
 
 
 @pytest.fixture
@@ -65,7 +72,7 @@ def _block_case(dev, b, p, m, c, heads, fold_mode, shifted, n_tok, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,heads,m", [
     (16, 2, 32), (32, 2, 48), (48, 4, 64), (96, 8, 100), (96, 4, 128),
-    (64, 2, 40), (128, 2, 64), (192, 4, 128)])
+    (64, 2, 40), (128, 2, 64), (192, 4, 128), (32, 2, 320)])
 @pytest.mark.parametrize("fold_mode,shifted,n_tok", [
     (fb.FOLD_NONE, False, 0), (fb.FOLD_NONE, True, 5),
     (fb.FOLD_KEY, False, 7), (fb.FOLD_COUNT, True, 3)])
@@ -124,3 +131,50 @@ def test_conv3x3_pair_rejects_unaligned_channels(dev):
     z = torch.zeros(24, device=dev)
     with pytest.raises(ValueError, match="multiples of 16"):
         cf.conv3x3_fused_pair(xa, xb, w, torch.zeros(16, device=dev), z, z)
+
+
+TRAIN_SHAPES = [(16, 2, 32), (48, 4, 64), (96, 8, 100), (96, 4, 128),
+                (192, 4, 128), (48, 4, 256)]
+TRAIN_CASES = [(fb.FOLD_NONE, False, 0), (fb.FOLD_NONE, True, 5),
+               (fb.FOLD_KEY, False, 7), (fb.FOLD_COUNT, True, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,m", TRAIN_SHAPES)
+@pytest.mark.parametrize("fold_mode,shifted,n_tok", TRAIN_CASES)
+def test_dropout_forward_kernel_matches_plain(dev, c, heads, m, fold_mode,
+                                              shifted, n_tok):
+    x, ops, labels = _block_case(dev, 2, 3, m, c, heads, fold_mode, shifted,
+                                 n_tok, seed=3)
+    with torch.inference_mode():
+        ref = fb.block_reference(x, ops, labels, DROP)
+        got = fb.fused_swin_block(x, ops, labels, DROP)
+        torch.cuda.synchronize()
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,m", TRAIN_SHAPES)
+@pytest.mark.parametrize("fold_mode,shifted,n_tok", TRAIN_CASES)
+def test_block_backward_kernel_matches_plain(dev, c, heads, m, fold_mode,
+                                             shifted, n_tok):
+    x, ops, labels = _block_case(dev, 2, 3, m, c, heads, fold_mode, shifted,
+                                 n_tok, seed=4)
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(9)
+                       ).to(dev, torch.bfloat16)
+    ref_dx, ref = fbb.block_backward_reference(x, dout, ops, labels, DROP)
+    before = fbb.block_backward.launches
+    dx, got = fbb.block_backward(x, dout, ops, labels, DROP)
+    torch.cuda.synchronize()
+    assert fbb.block_backward.launches == before + 1
+    names = ["x", "bias", "ext_k", "ext_v", *fb.PARAM_KEYS]
+    for name, g, r in zip(names, (dx, *got), (ref_dx, *ref)):
+        if r is None:
+            assert g is None, name
+            continue
+        g, r = g.float(), r.float()
+        assert torch.isfinite(g).all(), name
+        err = (g - r).abs().max().item()
+        scale = r.abs().max().item()
+        print(f"{name}: err {err:.4g} of max {scale:.4g}")
+        assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)

@@ -90,7 +90,7 @@ def port_model(conf: dict, state_dict) -> SwinUnetR:
     model = SwinUnetR(ModelConfig.from_mapping(conf))
     result = model.load_state_dict(state_dict, strict=True)
     assert not result.missing_keys and not result.unexpected_keys
-    return model
+    return model.eval()
 
 
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
@@ -138,7 +138,7 @@ def test_bf16_trunk_tracks_fp32(pair):
 
 def test_operand_cache_follows_parameter_updates():
     conf = tiny_conf()
-    model = SwinUnetR(ModelConfig.from_mapping(conf))
+    model = SwinUnetR(ModelConfig.from_mapping(conf)).eval()
     init_weights(model, torch.Generator().manual_seed(0))
     x = torch.rand((1, *conf["roi_size"], 1),
                    generator=torch.Generator().manual_seed(1))
@@ -147,7 +147,7 @@ def test_operand_cache_follows_parameter_updates():
     with torch.no_grad():
         model.encoder_blocks[0].swin_blocks[0].attn.to_v.weight.mul_(2.0)
         model.prompt_tokens.dec[3].add_(0.5)
-    fresh = SwinUnetR(ModelConfig.from_mapping(conf))
+    fresh = SwinUnetR(ModelConfig.from_mapping(conf)).eval()
     fresh.load_state_dict(model.state_dict())
     with torch.inference_mode():
         after, want = model(x), fresh(x)
