@@ -6,14 +6,23 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` (first use) and drives
-the port's two paths:
+the port's three paths:
 
 * serving: B1 (fused Swin block) and B2 (pair-input decoder conv) against
   their plain PyTorch versions at every shape the flagship serving path
-  gives them, the flagship model (seeded random weights, bf16 trunk) on a
-  27-window batch with and without the kernels, then a seeded
-  320x320x24 int16 CT volume served through ``infer.make_runner`` /
-  ``infer.serve_volumes`` (stride 0.75, 27 windows);
+  gives them (and B3, B2's one-input form, which no model calls), the
+  flagship model (seeded random weights, bf16 trunk) on a 27-window batch
+  with and without the kernels, then a seeded 320x320x24 int16 CT volume
+  served through ``infer.make_runner`` / ``infer.serve_volumes`` (stride
+  0.75, 27 windows);
+* unfused serving (``SwinUnetR.set_fused_block(False)``, the
+  ``MIVP_NO_FUSED_BLOCK=1`` path): the window-attention kernels B6
+  (projections in the kernel), B7 and B8 against their plain versions at
+  every geometry of that path, shifted and unshifted, timed beside one
+  ``scaled_dot_product_attention`` call where it computes the same
+  function; the same flagship model through the unfused blocks (kernels
+  vs plain, and vs the fused path), and the same volume served through
+  it;
 * training: B1 with counter-hash dropout and B4 (the block backward)
   against their plain versions at the six flagship block geometries at
   batch 2, then ``train.SegmentationTrainer.train()`` on a seeded
@@ -88,6 +97,10 @@ BLOCK_GEOMETRIES = (
     ("dec1", 96, 4, (32, 32, 2)),
     ("dec2", 48, 4, (64, 64, 4)),
 )
+# Unfused serving: the 12 blocks pad the depth-2 stages to 4 (no pad
+# folding), so every call has M 256 and N 320; B6 runs at C <= 128 (8 per
+# forward), B8 at C 192 (4 per forward).
+UNFUSED_LAUNCHES = {"B6": 8, "B8": 4, "B2": 3}
 # (name, Ca, Cb, Co, spatial dims) of the 3 decoder pair convs.
 CONV_SHAPES = (
     ("dec0", 384, 192, 192, (16, 16, 2)),
@@ -163,6 +176,20 @@ def block_bwd_work(x_win, ops, labels):
     nbytes = fwd_bytes + bp * m * c * 2 + (5 * c * c * 4 + 6 * c * 4
                                            + h * m * n * 4 + 2 * e * c * 4)
     return 3 * fwd_flops, nbytes
+
+
+def attention_work(bp, m, n, c, heads, labels, proj: bool):
+    """(flops, bytes) of one B6 (``proj``) or B7/B8 call: the two
+    attention products per head, plus B6's q/k/v projections; bf16 y (B6)
+    or q/k/v in, the bf16 weights (B6), the fp32 bias, int32 labels, the
+    bf16 output."""
+    flops = 4 * bp * m * n * c + (2 * bp * (m + 2 * n) * c * c if proj
+                                  else 0)
+    ins = bp * n * c * 2 + 3 * c * c * 2 if proj else \
+        bp * (m + 2 * n) * c * 2
+    nbytes = (ins + heads * m * n * 4 + bp * m * c * 2
+              + (0 if labels is None else labels.numel() * 4))
+    return flops, nbytes
 
 
 def check_close(name: str, got, ref, failures: list,
@@ -283,10 +310,170 @@ def phase_convs(gen_seed: int = SEED + 1):
         print(f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
         ms += t_k
         plain_ms += t_p
+    b3 = phase_conv_one_input(g, failures)
     if failures:
         raise RuntimeError("phase B2 failed: " + "; ".join(failures))
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound": bound}
+            "bound": bound}, b3
+
+
+def phase_conv_one_input(g, failures):
+    """B3 (B2's kernel with one input) at 48->48 on 64x64x4, with the BN +
+    LeakyReLU prologue and without either; the second is timed beside the
+    cuDNN conv that computes the same function."""
+    import torch
+    import torch.nn.functional as F
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .conv_fused import conv3x3_fused, conv_reference, kernel_weight
+    ci = co = 48
+    dims = (64, 64, 4)
+    x = torch.randn((BATCH, *dims, ci), generator=g).to("cuda", torch.bfloat16)
+    w = (torch.randn((co, ci, 3, 3, 3), generator=g) * (27 * ci) ** -0.5).cuda()
+    bias = (0.1 * torch.randn(co, generator=g)).cuda()
+    scale = (0.5 + torch.rand(ci, generator=g)).cuda()
+    shift = (1.0 + torch.randn(ci, generator=g)).cuda()
+    w27 = kernel_weight(w)
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound": Bound(),
+           "library_ms": None}
+    vox = BATCH * dims[0] * dims[1] * dims[2]
+    for prologue in (True, False):
+        args = (scale, shift, True) if prologue else (None, None, False)
+        with torch.inference_mode():
+            ref = conv_reference(x, w, bias, *args)
+            out = conv3x3_fused(x, w, bias, *args, w27=w27)
+            torch.cuda.synchronize()
+            tag = (f"B3 {ci}->{co} @{'x'.join(map(str, dims))} "
+                   f"{'BN+LeakyReLU' if prologue else 'no prologue'}")
+            res["max_abs_err"] = max(res["max_abs_err"],
+                                     check_close(tag, out, ref, failures))
+            t_k = cuda_ms(lambda: conv3x3_fused(x, w, bias, *args, w27=w27))
+            t_p = cuda_ms(lambda: conv_reference(x, w, bias, *args))
+            line = f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
+            if not prologue:
+                xc = x.permute(0, 4, 1, 2, 3)
+                wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+                t_l = cuda_ms(lambda: F.conv3d(xc, wb, bb, padding=1))
+                res["library_ms"] = t_l
+                line += f", cuDNN conv3d {t_l:.4f} ms"
+        res["bound"].add(2 * vox * co * 27 * ci,
+                         vox * ci * 2 + 27 * ci * co * 2 + co * 4
+                         + (ci * 8 if prologue else 0) + vox * co * 2)
+        print(line)
+        res["ms"] += t_k
+        res["plain_ms"] += t_p
+    return res
+
+
+def phase_attention(gen_seed: int = SEED + 7):
+    """B6, B7 and B8 at the 12 block calls of an unfused flagship forward
+    (27 windows), each held to its plain version.  B6 and B8 run as the
+    unfused blocks call them; B7 runs at B6's geometries on q/k/v that the
+    plain linear layers projected.  Unshifted B7/B8 calls are also timed
+    as one ``scaled_dot_product_attention`` call (the same function with
+    an additive bias; the shifted calls' multiplicative mask has no such
+    call, nor does B6's in-kernel projection)."""
+    import torch
+    import torch.nn.functional as F
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        .window_attention import linear
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import window_attention as wa
+    print("phase B6-B8: window attention vs plain versions (bf16, unfused "
+          "serving, 27 windows)")
+    failures = []
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound": Bound(), "library_ms": 0.0, "ms_unshifted": 0.0}
+           for k in ("B6", "B7", "B8")}
+    g = torch.Generator().manual_seed(gen_seed)
+
+    def run(key, tag, kernel, plain, work, library=None):
+        r = res[key]
+        ref = plain()
+        out = kernel()
+        torch.cuda.synchronize()
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               check_close(f"{key} {tag}", out, ref, failures))
+        t_k = cuda_ms(kernel)
+        t_p = cuda_ms(plain, 3)
+        r["bound"].add(*work)
+        one = Bound()
+        one.add(*work)
+        line = (f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                f"{one.ms:.4f} ms ({one.by})")
+        if library is not None:
+            t_l = cuda_ms(library)
+            r["library_ms"] += t_l
+            r["ms_unshifted"] += t_k
+            line += f", scaled_dot_product_attention {t_l:.4f} ms"
+        print(line)
+        r["ms"] += t_k
+        r["plain_ms"] += t_p
+
+    for name, c, heads, dims in BLOCK_GEOMETRIES:
+        for shift in ((0, 0, 0), (4, 4, 2)):
+            blk = make_block(c, heads, shift, g)
+            blk.fused_block = False
+            x = torch.randn((BATCH, *dims, c), generator=g).to(
+                "cuda", torch.bfloat16)
+            tok = (0.5 * torch.randn((64, c), generator=g)).cuda()
+            at = blk.attn
+            scale = (c // heads) ** -0.5
+            with torch.inference_mode():
+                x_win, bias, labels, _ = blk.windows(x, tok)
+                y = blk.attn_input(x_win, tok)
+                b, pw, n = y.shape[:3]
+                m = x_win.shape[2]
+                bp = b * pw
+                tag = (f"{name} C{c} h{heads} BP{bp} M{m} N{n} "
+                       f"{'shift' if labels is not None else 'noshift'}")
+                q = linear(y[:, :, :m], at.to_q).contiguous()
+                k = linear(y, at.to_k).contiguous()
+                v = linear(y, at.to_v).contiguous()
+                lib = None
+                if labels is None:
+                    sp = lambda t: t.view(bp, t.shape[2], heads, -1) \
+                        .transpose(1, 2)  # noqa: E731
+                    qs, ks, vs = sp(q), sp(k), sp(v)
+                    bias16 = bias.to(torch.bfloat16)[None]
+                    lib = lambda: F.scaled_dot_product_attention(  # noqa
+                        qs, ks, vs, attn_mask=bias16, scale=scale)
+                if c <= 128:
+                    ws = tuple(lin.weight.t() for lin in
+                               (at.to_q, at.to_k, at.to_v))
+                    wqkv = at.kernel_weight()
+                    run("B6", tag,
+                        lambda: wa.fused_window_attention_packed_qkv(
+                            y, *ws, m, bias, labels, scale, heads,
+                            wqkv=wqkv),
+                        lambda: wa.fused_window_attention_packed_qkv_reference(
+                            y, *ws, m, bias, labels, scale, heads),
+                        attention_work(bp, m, n, c, heads, labels, True))
+                    run("B7", tag,
+                        lambda: wa.fused_window_attention_packed(
+                            q, k, v, bias, labels, scale, heads),
+                        lambda: wa.fused_window_attention_packed_reference(
+                            q, k, v, bias, labels, scale, heads),
+                        attention_work(bp, m, n, c, heads, labels, False),
+                        lib)
+                else:
+                    hs = lambda t: t.view(b, pw, t.shape[2], heads, -1)  # noqa
+                    run("B8", tag,
+                        lambda: wa.fused_window_attention(
+                            hs(q), hs(k), hs(v), bias, labels, scale),
+                        lambda: wa.fused_window_attention_reference(
+                            hs(q), hs(k), hs(v), bias, labels, scale),
+                        attention_work(bp, m, n, c, heads, labels, False),
+                        lib)
+    if failures:
+        raise RuntimeError("phase B6-B8 failed: " + "; ".join(failures))
+    for key, r in res.items():
+        line = (f"  {key}: {r['ms']:.4f} ms per forward (plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound'].ms:.4f})")
+        if r["ms_unshifted"]:
+            line += (f"; unshifted calls {r['ms_unshifted']:.4f} ms vs "
+                     f"scaled_dot_product_attention {r['library_ms']:.4f} ms")
+        print(line)
+    return res
 
 
 def phase_blocks_train(gen_seed: int = SEED + 5):
@@ -362,13 +549,24 @@ def phase_blocks_train(gen_seed: int = SEED + 5):
 
 def counters():
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
-        .conv_fused import conv3x3_fused_pair
+        import window_attention as wa
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .conv_fused import conv3x3_fused, conv3x3_fused_pair
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .fused_block import fused_swin_block
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .fused_block_bwd import block_backward
     return {"B1": fused_swin_block, "B2": conv3x3_fused_pair,
-            "B4": block_backward}
+            "B3": conv3x3_fused, "B4": block_backward,
+            "B6": wa.fused_window_attention_packed_qkv,
+            "B7": wa.fused_window_attention_packed,
+            "B8": wa.fused_window_attention}
+
+
+def expect(per_step: dict, times: int = 1) -> dict:
+    """Every counter's expected launches: ``per_step`` times ``times``,
+    0 for the kernels it does not name."""
+    return {k: per_step.get(k, 0) * times for k in counters()}
 
 
 def reset_counters():
@@ -393,51 +591,79 @@ def flagship_model():
     return model.cuda().eval()
 
 
-def phase_model(model):
-    """Flagship forward on a 27-window batch: kernels vs plain versions."""
+def argmax_agreement(name: str, y, ref) -> float:
+    """Share of voxels whose argmax class agrees; prints the logit and
+    probability differences beside it."""
     import torch
-    print("phase model: flagship SwinUnetR, bf16 trunk, [27, 128, 128, 8, 1]")
+    diff = (y - ref).abs()
+    agree = (y.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    dp = (torch.softmax(y, -1) - torch.softmax(ref, -1)).abs()
+    print(f"  logits vs {name}: max_abs {diff.max().item():.6g}, mean_abs "
+          f"{diff.mean().item():.6g}, max |logit| "
+          f"{ref.abs().max().item():.4g}; probs max_abs "
+          f"{dp.max().item():.6g}; argmax agreement {agree:.6f} "
+          f"(min {MODEL_MIN_ARGMAX_AGREEMENT})")
+    return agree
+
+
+def phase_model(model, per_forward: dict, fused: bool = True):
+    """Flagship forward on a 27-window batch: kernels vs plain versions;
+    the unfused blocks also against the fused ones on the same weights.
+    Returns the kernel forward's ms (CUDA events)."""
+    import torch
+    label = "fused blocks" if fused else "unfused blocks"
+    print(f"phase model{'' if fused else '-unfused'}: flagship SwinUnetR, "
+          f"{label}, bf16 trunk, [27, 128, 128, 8, 1]")
     g = torch.Generator().manual_seed(SEED + 3)
     x = torch.rand((BATCH, 128, 128, 8, 1), generator=g).cuda()
+    model.set_fused_block(fused)
     with torch.inference_mode():
         y_plain = model.set_kernels(False)(x)
         model.set_kernels(True)
         reset_counters()
         y = model(x)
         torch.cuda.synchronize()
-    got = read_counters()
-    print(f"  launches per forward: {got}")
+        got = read_counters()
+        fwd_ms = cuda_ms(lambda: model(x), 5)
+        y_fused = None if fused else model.set_fused_block(True)(x)
+        model.set_fused_block(fused)
+    print(f"  launches per forward: {got}; forward {fwd_ms:.4f} ms "
+          "(CUDA events)")
     failures = []
-    if got != {"B1": 12, "B2": 3, "B4": 0}:
-        failures.append(f"expected 12 B1, 3 B2 and 0 B4 launches, got {got}")
+    if got != expect(per_forward):
+        failures.append(f"expected launches {expect(per_forward)}, got {got}")
     if tuple(y.shape) != (BATCH, 128, 128, 8, 2) or \
             not torch.isfinite(y).all():
         failures.append(f"bad logits: shape {tuple(y.shape)}, finite "
                         f"{bool(torch.isfinite(y).all())}")
-    diff = (y - y_plain).abs()
-    agree = (y.argmax(-1) == y_plain.argmax(-1)).float().mean().item()
-    dp = (torch.softmax(y, -1) - torch.softmax(y_plain, -1)).abs()
-    print(f"  logits vs plain: max_abs {diff.max().item():.6g}, mean_abs "
-          f"{diff.mean().item():.6g}, max |logit| "
-          f"{y_plain.abs().max().item():.4g}; probs max_abs "
-          f"{dp.max().item():.6g}; argmax agreement {agree:.6f} "
-          f"(min {MODEL_MIN_ARGMAX_AGREEMENT})")
-    if not agree >= MODEL_MIN_ARGMAX_AGREEMENT:
-        failures.append(f"argmax agreement {agree} < "
-                        f"{MODEL_MIN_ARGMAX_AGREEMENT}")
+    refs = [("plain", y_plain)] + ([] if y_fused is None
+                                   else [("fused blocks", y_fused)])
+    for name, ref in refs:
+        agree = argmax_agreement(name, y, ref)
+        if not agree >= MODEL_MIN_ARGMAX_AGREEMENT:
+            failures.append(f"argmax agreement vs {name} {agree} < "
+                            f"{MODEL_MIN_ARGMAX_AGREEMENT}")
     if failures:
-        raise RuntimeError("phase model failed: " + "; ".join(failures))
+        raise RuntimeError(f"phase model ({label}) failed: "
+                           + "; ".join(failures))
+    return fwd_ms
 
 
-def phase_serve(model, card: str):
-    """Serve a seeded 320x320x24 int16 volume; kernels vs plain labels."""
+def phase_serve(model, card: str, per_volume: dict, fused: bool = True):
+    """Serve a seeded 320x320x24 int16 volume; kernels vs plain labels.
+    Returns the launches of the timed run and the served volumes per
+    second from disk and in memory."""
     import numpy as np
     import torch
     from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
         import load_nifti, save_nifti
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        .transforms import load_served
     from medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
-        import make_runner, serve_volumes
-    print("phase serve: 320x320x24 int16 CT, stride 0.75, coverage crop")
+        import make_runner, predict_device, serve_volumes
+    label = "fused blocks" if fused else "unfused blocks"
+    print(f"phase serve{'' if fused else '-unfused'}: 320x320x24 int16 CT, "
+          f"stride 0.75, coverage crop, {label}")
     rng = np.random.default_rng(SEED + 4)
     hu = rng.normal(40.0, 300.0, size=(320, 320, 24))
     zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n) for n in (320, 320, 24)),
@@ -445,6 +671,7 @@ def phase_serve(model, card: str):
     hu += 800.0 * ((zz ** 2 + yy ** 2 + (xx / 2) ** 2) < 0.3)
     vol = np.clip(hu, -1024, 3071).astype(np.int16)
     conf = {"roi_size": [128, 128, 8]}
+    model.set_fused_block(fused)
     runner = make_runner(conf, model, chunk=None, stride=0.75,
                          device_windowing=True, coverage="crop")
     with tempfile.TemporaryDirectory() as tmp:
@@ -473,16 +700,25 @@ def phase_serve(model, card: str):
             raise RuntimeError(f"phase serve failed: served {done}")
         plain = load_nifti(str(plain_dst))[0]
         labels = [load_nifti(str(d))[0] for _, d in pairs]
+        decoded = load_served(str(src), True)     # as serve_volumes feeds it
+    # In memory: the stitched forward, argmax and label download only.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_REPEATS):
+        predict_device(runner, conf["roi_size"], decoded)[0].cpu()
+    dt_mem = time.perf_counter() - t0
     vps = SERVE_REPEATS / dt
+    vps_mem = SERVE_REPEATS / dt_mem
     agree = min(float((lab == plain).mean()) for lab in labels)
     print(f"  served {SERVE_REPEATS} volumes in {dt:.4f} s: {vps:.4f} vol/s "
-          f"on {card} (from disk, pipelined host IO)")
+          f"on {card} (from disk, pipelined host IO); in memory "
+          f"{vps_mem:.4f} vol/s")
     print(f"  launches during the served run: {launches}")
     print(f"  label agreement vs plain path: {agree:.6f} "
           f"(min {SERVE_MIN_LABEL_AGREEMENT}); foreground share "
           f"{float((plain > 0).mean()):.4f}")
     failures = []
-    want = {"B1": 12 * SERVE_REPEATS, "B2": 3 * SERVE_REPEATS, "B4": 0}
+    want = expect(per_volume, SERVE_REPEATS)
     if launches != want:
         failures.append(f"launches {launches}, expected {want}")
     if not agree >= SERVE_MIN_LABEL_AGREEMENT:
@@ -490,8 +726,9 @@ def phase_serve(model, card: str):
     if labels[0].shape != (320, 320, 24):
         failures.append(f"label volume shape {labels[0].shape}")
     if failures:
-        raise RuntimeError("phase serve failed: " + "; ".join(failures))
-    return launches, vps
+        raise RuntimeError(f"phase serve ({label}) failed: "
+                           + "; ".join(failures))
+    return launches, vps, vps_mem
 
 
 def write_train_set(root: Path) -> None:
@@ -653,7 +890,7 @@ def phase_train(card: str):
         steps = len(tr.losses)
         print(f"  kernels: {steps} steps in {wall:.3f} s, launches {launches}")
         print(f"  plain versions: launches {plain_launches}")
-        want = {"B1": 12 * steps, "B2": 0, "B4": 12 * steps}
+        want = expect({"B1": 12, "B4": 12}, steps)
         if steps < 5:
             failures.append(f"only {steps} training steps")
         if launches != want:
@@ -696,13 +933,13 @@ def phase_train(card: str):
     return launches, k_ms, p_ms
 
 
-def kernel_entry(name, source, replaces, launches, by_path, m):
+def kernel_entry(name, source, replaces, launches, by_path, m, **extra):
     bound = m["bound"]
     return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
             "replaces": f"{JAX_PKG}/{replaces}", "launches": launches,
             "launches_by_path": by_path, "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound.ms,
-            "bound_by": bound.by, "library_ms": None}
+            "bound_by": bound.by, "library_ms": m.get("library_ms"), **extra}
 
 
 def main() -> int:
@@ -716,23 +953,38 @@ def main() -> int:
         import kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
     lib = kernels.library()
-    print(f"kernels ready in {time.perf_counter() - t0:.2f} s "
+    print(f"kernels ready in {time.perf_counter() - start:.2f} s "
           f"(nvcc build {kernels.build_seconds} s): {lib._name}")
 
+    def clock(phase):
+        print(f"[{time.perf_counter() - start:.1f} s] {phase}")
+
     b1 = phase_blocks()
-    b2 = phase_convs()
+    clock("B1 done")
+    b2, b3 = phase_convs()
+    clock("B2, B3 done")
+    attn = phase_attention()
+    clock("B6-B8 done")
     b1_train, b4 = phase_blocks_train()
+    clock("blocks-train done")
     model = flagship_model()
-    phase_model(model)
-    serve_launches, _ = phase_serve(model, card)
+    fused = {"B1": 12, "B2": 3}
+    fwd_ms = phase_model(model, fused)
+    serve_launches, vps, vps_mem = phase_serve(model, card, fused)
+    clock("model, serve done")
+    ufwd_ms = phase_model(model, UNFUSED_LAUNCHES, fused=False)
+    unfused_launches, uvps, uvps_mem = phase_serve(
+        model, card, UNFUSED_LAUNCHES, fused=False)
+    clock("model-unfused, serve-unfused done")
     del model
     train_launches, _, _ = phase_train(card)
+    clock("train done")
 
     print("serve-path times are per 27-window flagship forward, train-path "
           "times per training step of batch 2 (sums over the path's calls), "
@@ -740,10 +992,19 @@ def main() -> int:
     print(f"B1 on the serve path: {b1['ms']:.4f} ms (plain "
           f"{b1['plain_ms']:.4f}, bound {b1['bound'].ms:.4f} "
           f"({b1['bound'].by}), max_abs_err {b1['max_abs_err']:.6g})")
+    print(f"fused vs unfused blocks: forward {fwd_ms:.4f} vs {ufwd_ms:.4f} "
+          f"ms; B1 {b1['ms']:.4f} ms vs B6 + B8 "
+          f"{attn['B6']['ms'] + attn['B8']['ms']:.4f} ms per forward; served "
+          f"vol/s from disk {vps:.4f} vs {uvps:.4f}, in memory "
+          f"{vps_mem:.4f} vs {uvps_mem:.4f}")
 
     def paths(key):
-        return {"serve": serve_launches[key], "train": train_launches[key]}
+        return {"serve": serve_launches[key],
+                "serve_unfused": unfused_launches[key],
+                "train": train_launches[key]}
 
+    no_library = ("no single PyTorch call: the in-kernel projections (B6) "
+                  "and the multiplicative mask (shifted calls)")
     print(json.dumps({"kernels": [
         kernel_entry("fused_swin_block", "fused_block.cu",
                      "ops/fused_block.py:554", train_launches["B1"],
@@ -756,9 +1017,30 @@ def main() -> int:
         kernel_entry("conv3x3_fused_pair", "conv3x3_pair.cu",
                      "ops/conv_pallas.py:270", serve_launches["B2"],
                      paths("B2"), b2),
+        kernel_entry("conv3x3_fused", "conv3x3_pair.cu",
+                     "ops/conv_pallas.py:41", 0, paths("B3"), b3,
+                     library_scope="cuDNN conv3d of the no-prologue call "
+                     "only; no model calls B3"),
         kernel_entry("fused_block_bwd", "fused_block_bwd.cu",
                      "ops/fused_block_bwd.py:158", train_launches["B4"],
                      paths("B4"), b4),
+        kernel_entry("window_attention_packed_qkv", "window_attention.cu",
+                     "ops/window_attention_pallas.py:388",
+                     unfused_launches["B6"], paths("B6"),
+                     attn["B6"] | {"library_ms": None},
+                     library_null_reason=no_library),
+        kernel_entry("window_attention_packed", "window_attention.cu",
+                     "ops/window_attention_pallas.py:195", 0, paths("B7"),
+                     attn["B7"], ms_unshifted=attn["B7"]["ms_unshifted"],
+                     library_scope="scaled_dot_product_attention of the "
+                     "unshifted calls only (the shifted calls' "
+                     "multiplicative mask has none); no model calls B7"),
+        kernel_entry("window_attention", "window_attention.cu",
+                     "ops/window_attention_pallas.py:39",
+                     unfused_launches["B8"], paths("B8"), attn["B8"],
+                     ms_unshifted=attn["B8"]["ms_unshifted"],
+                     library_scope="scaled_dot_product_attention of the "
+                     "unshifted calls only"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

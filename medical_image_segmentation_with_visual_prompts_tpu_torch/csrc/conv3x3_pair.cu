@@ -1,16 +1,19 @@
-// Pair-input 3x3x3 decoder conv with a BN + LeakyReLU prologue, for
-// Hopper (sm_90a).
+// 3x3x3 decoder conv with an optional BN + LeakyReLU prologue on one or
+// two inputs, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_kernel_pair` of the JAX package
-// (medical_image_segmentation_with_visual_prompts_tpu/ops/conv_pallas.py,
-// launched by `_forward_pair`).  It computes
+// Replaces two TPU kernels of the JAX package
+// (medical_image_segmentation_with_visual_prompts_tpu/ops/conv_pallas.py):
+// `_kernel_pair` (B2, launched by `_forward_pair`) and its one-input form
+// `_kernel` (B3, launched by `_forward`).  It computes
 //
-//   out = conv3x3x3_same(leaky(concat(xa, xb) * scale + shift)) + bias
+//   out = conv3x3x3_same(act(concat(xa, xb) * scale + shift)) + bias
 //
 // on channels-last inputs without building the concat: the prologue
 // reads each tap's voxel from xa or xb, applies the folded BatchNorm
-// affine and LeakyReLU(0.01), and rounds to bf16.  Out-of-range taps
-// contribute 0 (zero padding AFTER the prologue, not leaky(shift)).
+// affine (AFFINE) and LeakyReLU(0.01) (LEAKY), and rounds to bf16.
+// Out-of-range taps contribute 0 (zero padding AFTER the prologue, not
+// act(shift)).  B3 is the same kernel with no xb (cb = 0); its "no
+// prologue" and "no LeakyReLU" forms are the template flags.
 //
 // What bounds it on the H100: the bytes of xa/xb read per tap -- every
 // input voxel is read by 27 output voxels -- and, at these small channel
@@ -39,16 +42,16 @@ constexpr int kThreads = 256;
 
 struct ConvArgs {
   const bf16* xa;       // [V, Ca]
-  const bf16* xb;       // [V, Cb]
+  const bf16* xb;       // [V, Cb], or null when cb = 0
   const bf16* w;        // [27, Ca + Cb, Co]
   const float* bias;    // [Co]
-  const float* scale;   // [Ca + Cb]
-  const float* shift;   // [Ca + Cb]
+  const float* scale;   // [Ca + Cb] (AFFINE)
+  const float* shift;   // [Ca + Cb] (AFFINE)
   bf16* out;            // [V, Co]
   int voxels, h, w_, d, ca, cb, co;
 };
 
-template <int NF>
+template <int NF, bool AFFINE, bool LEAKY>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_pair_kernel(const ConvArgs a) {
   constexpr int BN = 16 * NF;
@@ -98,11 +101,16 @@ conv3x3_pair_kernel(const ConvArgs a) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const float2 f = __bfloat1622float2(hv[k]);
-          float y0 = f.x * __ldg(a.scale + c + 2 * k) + __ldg(a.shift + c + 2 * k);
-          float y1 = f.y * __ldg(a.scale + c + 2 * k + 1) + __ldg(a.shift + c + 2 * k + 1);
-          y0 = y0 >= 0.f ? y0 : 0.01f * y0;
-          y1 = y1 >= 0.f ? y1 : 0.01f * y1;
-          hp[k] = __floats2bfloat162_rn(y0, y1);
+          float y0 = f.x, y1 = f.y;
+          if (AFFINE) {
+            y0 = y0 * __ldg(a.scale + c + 2 * k) + __ldg(a.shift + c + 2 * k);
+            y1 = y1 * __ldg(a.scale + c + 2 * k + 1) + __ldg(a.shift + c + 2 * k + 1);
+          }
+          if (LEAKY) {
+            y0 = y0 >= 0.f ? y0 : 0.01f * y0;
+            y1 = y1 >= 0.f ? y1 : 0.01f * y1;
+          }
+          hp[k] = (AFFINE || LEAKY) ? __floats2bfloat162_rn(y0, y1) : hv[k];
         }
       }
       *reinterpret_cast<uint4*>(s_a + r * BK + half * 8) = packed;
@@ -140,20 +148,35 @@ conv3x3_pair_kernel(const ConvArgs a) {
   }
 }
 
-template <int NF>
-cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
+template <int NF, bool AFFINE, bool LEAKY>
+cudaError_t launch_as(const ConvArgs& a, cudaStream_t stream) {
   dim3 grid((a.voxels + BM - 1) / BM, a.co / (16 * NF));
-  conv3x3_pair_kernel<NF><<<grid, kThreads, 0, stream>>>(a);
+  conv3x3_pair_kernel<NF, AFFINE, LEAKY><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int NF>
+cudaError_t launch(const ConvArgs& a, bool affine, bool leaky,
+                   cudaStream_t s) {
+  if (affine)
+    return leaky ? launch_as<NF, true, true>(a, s)
+                 : launch_as<NF, true, false>(a, s);
+  return leaky ? launch_as<NF, false, true>(a, s)
+               : launch_as<NF, false, false>(a, s);
 }
 
 }  // namespace
 
-extern "C" cudaError_t mivp_conv3x3_pair(
+// B2 with xb (cb > 0), B3 without (xb null, cb = 0).  affine: apply
+// scale/shift; leaky: apply LeakyReLU(0.01) after it.
+extern "C" cudaError_t mivp_conv3x3(
     const void* xa, const void* xb, const void* w, const void* bias,
     const void* scale, const void* shift, void* out, int voxels, int h,
-    int w_, int d, int ca, int cb, int co, void* stream) {
-  if (voxels < 1 || ca % BK != 0 || cb % BK != 0 || co % 16 != 0 ||
+    int w_, int d, int ca, int cb, int co, int affine, int leaky,
+    void* stream) {
+  if (voxels < 1 || ca < BK || ca % BK != 0 || cb % BK != 0 ||
+      co % 16 != 0 || (cb > 0) != (xb != nullptr) ||
+      (affine && (scale == nullptr || shift == nullptr)) ||
       (long)voxels != (long)voxels / ((long)h * w_ * d) * h * w_ * d)
     return cudaErrorInvalidValue;
   ConvArgs a{static_cast<const bf16*>(xa), static_cast<const bf16*>(xb),
@@ -161,7 +184,7 @@ extern "C" cudaError_t mivp_conv3x3_pair(
              static_cast<const float*>(scale), static_cast<const float*>(shift),
              static_cast<bf16*>(out), voxels, h, w_, d, ca, cb, co};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (co % 48 == 0) return launch<3>(a, s);
-  if (co % 32 == 0) return launch<2>(a, s);
-  return launch<1>(a, s);
+  if (co % 48 == 0) return launch<3>(a, affine, leaky, s);
+  if (co % 32 == 0) return launch<2>(a, affine, leaky, s);
+  return launch<1>(a, affine, leaky, s);
 }

@@ -29,7 +29,8 @@
 // head's q/k/v width is padded to a multiple of 16 (the k-step), which
 // answers the head-dim-12 question by padding rather than head packing.
 // Attention keeps an online max-subtracted softmax over 64-key chunks in
-// registers and feeds P to P.V as bf16.  Row strides are padded so the
+// registers and feeds P to P.V as bf16 (attend_tile in
+// fused_block_common.cuh, shared with window_attention.cu).  Row strides are padded so the
 // fragment loads are free of bank conflicts.
 
 #include "fused_block_common.cuh"
@@ -94,7 +95,6 @@ template <int DH, bool DROP, int MAXT>
 __global__ void __launch_bounds__(MAXT, MAXT <= 256 ? 2 : 1)
     fused_swin_block_kernel(const BlockArgs a) {
   constexpr int DHK = pad16(DH);
-  constexpr int KSTEPS = DHK / 16;   // k-steps of QK^T
   constexpr int DTILES = DHK / 8;    // n-tiles of a head's q/k/v and P.V
   extern __shared__ __align__(16) unsigned char smem[];
   const int M = a.m, C = a.c, E = a.n_ext, N = a.m + a.n_ext;
@@ -201,132 +201,26 @@ __global__ void __launch_bounds__(MAXT, MAXT <= 256 ? 2 : 1)
 #pragma unroll 1
     for (int mt = 0; mt < mtiles; ++mt) {
       const int t0 = r0 + mt * 16;
-      uint32_t qa[KSTEPS][4];
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const bf16* q0 = sq + (t0 + g) * QS + ks * 16 + 2 * cq;
-        qa[ks][0] = lds32(q0);
-        qa[ks][1] = lds32(q0 + 8 * QS);
-        qa[ks][2] = lds32(q0 + 8);
-        qa[ks][3] = lds32(q0 + 8 * QS + 8);
-      }
       const int ra = t0 + g, rb = t0 + g + 8;
-      const bool va = ra < M, vb = rb < M;
-      const int lab_a = (masked && va) ? slab[ra] : 0;
-      const int lab_b = (masked && vb) ? slab[rb] : 0;
-      const float* bias_a = a.bias + ((size_t)h * M + (va ? ra : 0)) * N;
-      const float* bias_b = a.bias + ((size_t)h * M + (vb ? rb : 0)) * N;
       // Dropout counter bases of the two rows (uint32 arithmetic wraps
       // exactly as the JAX kernel's).
-      const uint32_t drow_a = (((uint32_t)win * a.heads + h) * M + ra) *
-                              (uint32_t)a.drop.drop_cols;
-      const uint32_t drow_b = (((uint32_t)win * a.heads + h) * M + rb) *
-                              (uint32_t)a.drop.drop_cols;
-      float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+      const AttnDrop dr{
+          a.drop.seed_a, a.drop.thr_a, a.drop.keep_a,
+          (((uint32_t)win * a.heads + h) * M + ra) * (uint32_t)a.drop.drop_cols,
+          (((uint32_t)win * a.heads + h) * M + rb) * (uint32_t)a.drop.drop_cols,
+          M, dgap};
       float o[DTILES][4];
-#pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt)
-        o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-
-#pragma unroll 1
-      for (int j0 = 0; j0 < NPAD; j0 += kKeyChunk) {
-        const int ntiles = min(kKeyChunk, NPAD - j0) / 8;  // even
-        float s[kKeyChunk / 8][4];
-        float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-        for (int nt = 0; nt < kKeyChunk / 8; ++nt) {
-          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = -INFINITY;
-          if (nt < ntiles) {
-            float sc[4] = {0.f, 0.f, 0.f, 0.f};
-            const bf16* k0 = sk + (j0 + nt * 8 + g) * QS + 2 * cq;
-#pragma unroll
-            for (int ks = 0; ks < KSTEPS; ++ks)
-              mma16816(sc, qa[ks], lds32(k0 + ks * 16), lds32(k0 + ks * 16 + 8));
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int j = j0 + nt * 8 + 2 * cq + (e & 1);
-              if (j < N) {
-                const bool top = e < 2;
-                float v = sc[e] * a.scale + __ldg((top ? bias_a : bias_b) + j);
-                if (masked) {
-                  const int lj = slab[j];
-                  if (!(lj == (top ? lab_a : lab_b) || lj < 0)) v = 0.f;
-                }
-                s[nt][e] = v;
-              }
-            }
-            mx_a = fmaxf(mx_a, fmaxf(s[nt][0], s[nt][1]));
-            mx_b = fmaxf(mx_b, fmaxf(s[nt][2], s[nt][3]));
-          }
-        }
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-        const float new_a = fmaxf(m_a, mx_a), new_b = fmaxf(m_b, mx_b);
-        const float corr_a = __expf(m_a - new_a), corr_b = __expf(m_b - new_b);
-        m_a = new_a;
-        m_b = new_b;
-        l_a *= corr_a;
-        l_b *= corr_b;
-#pragma unroll
-        for (int dt = 0; dt < DTILES; ++dt) {
-          o[dt][0] *= corr_a;
-          o[dt][1] *= corr_a;
-          o[dt][2] *= corr_b;
-          o[dt][3] *= corr_b;
-        }
-#pragma unroll
-        for (int kk = 0; kk < kKeyChunk / 16; ++kk) {
-          if (2 * kk < ntiles) {
-            float p[2][4];
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              p[u][0] = __expf(s[2 * kk + u][0] - new_a);
-              p[u][1] = __expf(s[2 * kk + u][1] - new_a);
-              p[u][2] = __expf(s[2 * kk + u][2] - new_b);
-              p[u][3] = __expf(s[2 * kk + u][3] - new_b);
-              l_a += p[u][0] + p[u][1];
-              l_b += p[u][2] + p[u][3];
-            }
-            if (DROP && a.drop.thr_a) {
-              // Attention dropout after the softmax statistics, before the
-              // bf16 cast that feeds P.V (l keeps the undropped sum).
-#pragma unroll
-              for (int u = 0; u < 2; ++u)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                  const int j = j0 + kk * 16 + u * 8 + 2 * cq + (e & 1);
-                  p[u][e] *= keep_value(
-                      a.drop.seed_a,
-                      (e < 2 ? drow_a : drow_b) + drop_col(j, M, dgap),
-                      a.drop.thr_a, a.drop.keep_a);
-                }
-            }
-            const uint32_t pa[4] = {pack2(p[0][0], p[0][1]), pack2(p[0][2], p[0][3]),
-                                    pack2(p[1][0], p[1][1]), pack2(p[1][2], p[1][3])};
-            const int jk = j0 + kk * 16 + 2 * cq;
-#pragma unroll
-            for (int dt = 0; dt < DTILES; ++dt) {
-              const bf16* v0 = svt + (dt * 8 + g) * VS + jk;
-              mma16816(o[dt], pa, lds32(v0), lds32(v0 + 8));
-            }
-          }
-        }
-      }
-      l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-      l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-      l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-      l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-      const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+      attend_tile<DHK, DROP>(o, sq, sk, QS, svt, VS, slab, masked,
+                             a.bias + (size_t)h * M * N, t0, M, N, NPAD,
+                             a.scale, dr, lane);
 #pragma unroll
       for (int dt = 0; dt < DTILES; ++dt) {
         const int d = dt * 8 + 2 * cq;   // DH is even: d < DH => d + 1 < DH
         if (d < DH) {
           *reinterpret_cast<uint32_t*>(sa + ra * CS + h * DH + d) =
-              pack2(o[dt][0] * inv_a, o[dt][1] * inv_a);
+              pack2(o[dt][0], o[dt][1]);
           *reinterpret_cast<uint32_t*>(sa + rb * CS + h * DH + d) =
-              pack2(o[dt][2] * inv_b, o[dt][3] * inv_b);
+              pack2(o[dt][2], o[dt][3]);
         }
       }
     }

@@ -1,8 +1,10 @@
 // Device functions shared by the fused Swin block forward
-// (fused_block.cu) and backward (fused_block_bwd.cu) kernels: bf16
-// packing, the m16n8k16 tensor-core product and the warp GEMMs built on
-// it, the shared-memory row padding, and the counter-based dropout hash
-// (the murmur3 finalizer of ops/prng.py, bit for bit).
+// (fused_block.cu), its backward (fused_block_bwd.cu) and the window
+// attention kernels (window_attention.cu): bf16 packing, the m16n8k16
+// tensor-core product and the warp GEMMs built on it, the shared-memory
+// row padding, the counter-based dropout hash (the murmur3 finalizer of
+// ops/prng.py, bit for bit), and one head's attention of a 16-row tile
+// (label-equality mask, online fp32 softmax).
 
 #pragma once
 
@@ -138,6 +140,158 @@ struct DropArgs {
 
 __device__ __forceinline__ uint32_t drop_col(int j, int m, int gap) {
   return (uint32_t)(j > m ? j + gap : j);
+}
+
+// Attention dropout of one 16-row tile (B1's training path): the seed,
+// threshold and keep scale, the counter bases of the lane's rows a and b,
+// and the fold geometry of drop_col (m, gap).
+struct AttnDrop {
+  uint32_t seed, thr;
+  float keep;
+  uint32_t row_a, row_b;
+  int m, gap;
+};
+
+// Attention of one head for the 16 query rows t0..t0+15 of a warp, on
+// tensor cores.  Each lane quad holds rows a = t0 + g and b = t0 + g + 8:
+//
+//   s = (q.k * scale + bias[i, j]) * (lab_i == lab_j || lab_j < 0)
+//   o = softmax(s) v        fp32, max-subtracted, online over 64-key
+//                           chunks; P fed to P.V as bf16
+//
+// Shared memory: Q rows (stride qs) and K rows [npad][qs] of DHK bf16
+// (the head dim zero-padded to the k-step), V^T [DHK][vs]; key rows n..npad
+// of K and V^T are zero.  bias: the head's [m, n] fp32 rows in device
+// memory; slab: the window's key labels (read only when `masked`).  On
+// return o[dt] holds the normalised output of row a (o[dt][0..1]) and row b
+// (o[dt][2..3]) at head columns dt * 8 + 2 * (lane % 4) + {0, 1}.
+template <int DHK, bool DROP>
+__device__ __forceinline__ void attend_tile(
+    float (&o)[DHK / 8][4], const bf16* sq, const bf16* sk, int qs,
+    const bf16* svt, int vs, const int* slab, bool masked,
+    const float* bias, int t0, int m, int n, int npad, float scale,
+    const AttnDrop& dr, int lane) {
+  constexpr int KSTEPS = DHK / 16;   // k-steps of QK^T
+  constexpr int DTILES = DHK / 8;    // n-tiles of P.V
+  const int g = lane / 4, cq = lane % 4;
+  uint32_t qa[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const bf16* q0 = sq + (t0 + g) * qs + ks * 16 + 2 * cq;
+    qa[ks][0] = lds32(q0);
+    qa[ks][1] = lds32(q0 + 8 * qs);
+    qa[ks][2] = lds32(q0 + 8);
+    qa[ks][3] = lds32(q0 + 8 * qs + 8);
+  }
+  const int ra = t0 + g, rb = t0 + g + 8;
+  const bool va = ra < m, vb = rb < m;
+  const int lab_a = (masked && va) ? slab[ra] : 0;
+  const int lab_b = (masked && vb) ? slab[rb] : 0;
+  const float* bias_a = bias + (size_t)(va ? ra : 0) * n;
+  const float* bias_b = bias + (size_t)(vb ? rb : 0) * n;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+#pragma unroll
+  for (int dt = 0; dt < DTILES; ++dt)
+    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+
+#pragma unroll 1
+  for (int j0 = 0; j0 < npad; j0 += kKeyChunk) {
+    const int ntiles = min(kKeyChunk, npad - j0) / 8;  // even
+    float s[kKeyChunk / 8][4];
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kKeyChunk / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = -INFINITY;
+      if (nt < ntiles) {
+        float sc[4] = {0.f, 0.f, 0.f, 0.f};
+        const bf16* k0 = sk + (j0 + nt * 8 + g) * qs + 2 * cq;
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks)
+          mma16816(sc, qa[ks], lds32(k0 + ks * 16), lds32(k0 + ks * 16 + 8));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + nt * 8 + 2 * cq + (e & 1);
+          if (j < n) {
+            const bool top = e < 2;
+            float v = sc[e] * scale + __ldg((top ? bias_a : bias_b) + j);
+            if (masked) {
+              const int lj = slab[j];
+              if (!(lj == (top ? lab_a : lab_b) || lj < 0)) v = 0.f;
+            }
+            s[nt][e] = v;
+          }
+        }
+        mx_a = fmaxf(mx_a, fmaxf(s[nt][0], s[nt][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[nt][2], s[nt][3]));
+      }
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    const float new_a = fmaxf(m_a, mx_a), new_b = fmaxf(m_b, mx_b);
+    const float corr_a = __expf(m_a - new_a), corr_b = __expf(m_b - new_b);
+    m_a = new_a;
+    m_b = new_b;
+    l_a *= corr_a;
+    l_b *= corr_b;
+#pragma unroll
+    for (int dt = 0; dt < DTILES; ++dt) {
+      o[dt][0] *= corr_a;
+      o[dt][1] *= corr_a;
+      o[dt][2] *= corr_b;
+      o[dt][3] *= corr_b;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKeyChunk / 16; ++kk) {
+      if (2 * kk < ntiles) {
+        float p[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          p[u][0] = __expf(s[2 * kk + u][0] - new_a);
+          p[u][1] = __expf(s[2 * kk + u][1] - new_a);
+          p[u][2] = __expf(s[2 * kk + u][2] - new_b);
+          p[u][3] = __expf(s[2 * kk + u][3] - new_b);
+          l_a += p[u][0] + p[u][1];
+          l_b += p[u][2] + p[u][3];
+        }
+        if (DROP && dr.thr) {
+          // Attention dropout after the softmax statistics, before the
+          // bf16 cast that feeds P.V (l keeps the undropped sum).
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = j0 + kk * 16 + u * 8 + 2 * cq + (e & 1);
+              p[u][e] *= keep_value(dr.seed,
+                                    (e < 2 ? dr.row_a : dr.row_b) +
+                                        drop_col(j, dr.m, dr.gap),
+                                    dr.thr, dr.keep);
+            }
+        }
+        const uint32_t pa[4] = {pack2(p[0][0], p[0][1]), pack2(p[0][2], p[0][3]),
+                                pack2(p[1][0], p[1][1]), pack2(p[1][2], p[1][3])};
+        const int jk = j0 + kk * 16 + 2 * cq;
+#pragma unroll
+        for (int dt = 0; dt < DTILES; ++dt) {
+          const bf16* v0 = svt + (dt * 8 + g) * vs + jk;
+          mma16816(o[dt], pa, lds32(v0), lds32(v0 + 8));
+        }
+      }
+    }
+  }
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+#pragma unroll
+  for (int dt = 0; dt < DTILES; ++dt) {
+    o[dt][0] *= inv_a;
+    o[dt][1] *= inv_a;
+    o[dt][2] *= inv_b;
+    o[dt][3] *= inv_b;
+  }
 }
 
 }  // namespace

@@ -1,40 +1,52 @@
 """Prompted shifted-window Swin transformer blocks.
 
-Counterpart of the JAX package's ``models/swin_block.py`` on its fused-
-block path.  A block pads to window multiples (or pad-folds, below),
-rolls for the shift and partitions into dilated windows (one gather,
-outside the kernel: ``ops/windows.py::gather_indices``), runs the whole
-block body in one call of ``ops/fused_block.py::fused_swin_block`` (LN1
--> attention over content queries and content + extra keys -> proj ->
-LN2 -> single-Linear MLP), then gathers back and crops.
+Counterpart of the JAX package's ``models/swin_block.py``.  A block pads
+to window multiples (or pad-folds, below), rolls for the shift and
+partitions into dilated windows (one gather, outside the kernel:
+``ops/windows.py::gather_indices``), runs the block body on the windows,
+then gathers back and crops.  Two bodies, as in the JAX package:
 
-Pad folding (the JAX ``swin_block.py:359-380`` decision): axes whose
-feature extent is smaller than the window are not padded; the identical
-pad tokens of every window fold into one virtual key column whose bias
-is the logsumexp of their positional biases (no shift, ``FOLD_KEY``) or
-``ln(n_pad)`` with a zero key (shift, ``FOLD_COUNT``).  It applies only
-when the folded axes are the only padding and the pad split is
-symmetric; other geometries pad materially.
+* the fused block (the default): LN1 -> attention over content queries
+  and content + extra keys -> proj -> LN2 -> single-Linear MLP in one call
+  of ``ops/fused_block.py::fused_swin_block`` (B1);
+* the unfused block (``fused_block`` False: ``MIVP_NO_FUSED_BLOCK=1`` or
+  ``SwinUnetR.set_fused_block(False)``; the JAX ``_forward_attn_mlp`` with
+  ``use_fused_block`` false): the prompt tokens broadcast and concatenated
+  after the content rows, LN1 over both, ``WindowAttention`` over the
+  content queries (kernels B6/B7/B8), residual, LN2, the MLP, residual.
+  It never pad-folds: every misaligned geometry pads materially.  Nothing
+  switches to it on its own: it is chosen only explicitly.
+
+Pad folding (the JAX ``swin_block.py:359-380`` decision, fused block
+only): axes whose feature extent is smaller than the window are not
+padded; the identical pad tokens of every window fold into one virtual
+key column whose bias is the logsumexp of their positional biases (no
+shift, ``FOLD_KEY``) or ``ln(n_pad)`` with a zero key (shift,
+``FOLD_COUNT``).  It applies only when the folded axes are the only
+padding and the pad split is symmetric; other geometries pad materially.
 
 Everything a block call needs besides ``x`` -- the assembled bias
-``[H, M, N]``, the labels ``[P, N]`` and the extra K/V rows -- depends
-only on the parameters and the geometry.  Without grad it is built once
-per geometry and cached (the counterpart of the JAX ``bias_cache``); the
-cache is dropped when any parameter or the prompt tokens change.  With
-grad enabled it is built on every call and keeps its graph, so the
-gradient reaches the prompt tokens and the positional-bias parameters.
+``[H, M, N]``, the labels ``[P, N]`` and (fused) the extra K/V rows --
+depends only on the parameters and the geometry.  Without grad it is
+built once per geometry and cached (the counterpart of the JAX
+``bias_cache``); the cache is dropped when any parameter or the prompt
+tokens change.  With grad enabled it is built on every call and keeps its
+graph, so the gradient reaches the prompt tokens and the positional-bias
+parameters.
 
-Training: in train mode with a nonzero rate, each block call draws two
-uint32 dropout seeds from the generator :meth:`set_dropout_generator`
-gave it (the counterpart of the JAX ``make_rng("dropout")``) and the
-fused block applies counter-based attention and projection dropout.
-``use_checkpoint`` needs no ``torch.utils.checkpoint`` here: the block's
-autograd Function already saves only its inputs (the windowed ``x``, the
-operands, the labels and the seeds) and recomputes the rest in the
-backward kernel, which is what the JAX package's per-block remat buys;
-the gathers around it save indices only.  So a training step runs the
-forward kernel once and the backward kernel once per block (the JAX
-package's remat runs its forward kernel twice).
+Training (fused block): in train mode with a nonzero rate, each block
+call draws two uint32 dropout seeds from the generator
+:meth:`set_dropout_generator` gave it (the counterpart of the JAX
+``make_rng("dropout")``) and the fused block applies counter-based
+attention and projection dropout.  ``use_checkpoint`` needs no
+``torch.utils.checkpoint`` here: the block's autograd Function already
+saves only its inputs (the windowed ``x``, the operands, the labels and
+the seeds) and recomputes the rest in the backward kernel, which is what
+the JAX package's per-block remat buys; the gathers around it save
+indices only.  So a training step runs the forward kernel once and the
+backward kernel once per block (the JAX package's remat runs its forward
+kernel twice).  The unfused block has no dropout and its kernels no
+backward: it serves.
 """
 
 from __future__ import annotations
@@ -48,27 +60,12 @@ from torch import nn
 
 from ..ops.fused_block import (FOLD_COUNT, FOLD_KEY, FOLD_NONE, NO_DROPOUT,
                                Dropout, block_reference, fused_swin_block,
-                               labels_tensor, make_operands)
+                               labels_tensor, layer_norm, make_operands)
 from ..ops.windows import (compute_paddings, content_indices, fold_geometry,
                            gather_indices, get_attn_labels, unpad_paddings)
 from .patch_merging import PatchMerging
 from .relative_pe import RelativePE
-
-
-class WindowAttention(nn.Module):
-    """Parameter holder with the reference's names (bias-free q/k/v,
-    biased output projection); the attention itself runs in the block."""
-
-    def __init__(self, dim: int, num_heads: int):
-        super().__init__()
-        if dim % num_heads:
-            raise ValueError("WindowAttention: The dimension is not "
-                             "compatible with the number of heads!")
-        self.num_heads = num_heads
-        self.to_q = nn.Linear(dim, dim, bias=False)
-        self.to_k = nn.Linear(dim, dim, bias=False)
-        self.to_v = nn.Linear(dim, dim, bias=False)
-        self.proj = nn.Linear(dim, dim)
+from .window_attention import WindowAttention, linear
 
 
 def _pad5(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
@@ -104,11 +101,13 @@ class SwinTransformerBlock(nn.Module):
         # False routes the block straight to the plain version (the
         # reference the kernel is compared with; SwinUnetR.set_kernels).
         self.use_kernels = True
+        # False: the unfused body (SwinUnetR.set_fused_block).
+        self.fused_block = True
         self.pe = RelativePE(pos_bias_embed_dim, num_heads, self.window_size,
                              self.window_size, max_prompts,
                              tokens_per_prompt)
         self.attn_norm = nn.LayerNorm(hidden_channels, eps=1e-6)
-        self.attn = WindowAttention(hidden_channels, num_heads)
+        self.attn = WindowAttention(hidden_channels, num_heads, dtype)
         self.mlp_norm = nn.LayerNorm(hidden_channels, eps=1e-6)
         self.mlp = nn.Linear(hidden_channels, hidden_channels)
         self._cache = {}
@@ -174,14 +173,45 @@ class SwinTransformerBlock(nn.Module):
                 tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: ``[B, H, W, D, C]``; tokens: ``[I, C]`` prompt tokens or None."""
         x_win, ops, labels, undo = self.windows(x, tokens)
+        if not self.fused_block:
+            return undo(self.unfused_body(x_win, tokens, ops, labels))
         fn = fused_swin_block if self.use_kernels else block_reference
         return undo(fn(x_win, ops, labels, self.dropout()))
+
+    def attn_input(self, x_win: torch.Tensor,
+                   tokens: Optional[torch.Tensor]) -> torch.Tensor:
+        """The unfused body's LN1 output ``[B, P, M + I, C]``: the content
+        rows, then the prompt tokens broadcast to every window (fp32
+        statistics, x's dtype)."""
+        b, pw, _, c = x_win.shape
+        kv = x_win if tokens is None else torch.cat(
+            [x_win, tokens.to(x_win.dtype).expand(b, pw, -1, c)], dim=2)
+        return self._norm(kv, self.attn_norm)
+
+    def _norm(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+        return layer_norm(x.float(), norm.weight, norm.bias).to(x.dtype)
+
+    def unfused_body(self, x_win: torch.Tensor, tokens: Optional[torch.Tensor],
+                     bias: torch.Tensor, labels: Optional[torch.Tensor]
+                     ) -> torch.Tensor:
+        """The unfused block on windows ``[B, P, M, C]``: LN1 over content
+        and prompt rows, attention of the content queries, residual, LN2,
+        MLP, residual (JAX ``swin_block.py:459-471``)."""
+        if self.training and (self.attn_drop or self.proj_drop):
+            raise NotImplementedError(
+                "SwinTransformerBlock: the unfused block path serves; it has "
+                "no dropout (train with the fused block)")
+        y = self.attn_input(x_win, tokens)
+        x1 = x_win + self.attn(y, y, y, bias, labels, q_rows=x_win.shape[2])
+        return x1 + linear(self._norm(x1, self.mlp_norm), self.mlp)
 
     def windows(self, x: torch.Tensor, tokens: Optional[torch.Tensor] = None):
         """The block call for ``x``: ``(x_win, ops, labels, undo)`` -- the
         padded, shifted, partitioned input ``[B, P, M, C]``, the cached
-        operands and labels of this geometry, and the function taking the
-        block's windowed output back to ``[B, H, W, D, C]``."""
+        operands and labels of this geometry (``ops``: the fused block's
+        :class:`BlockOperands`, or the unfused body's ``[H, M, N]`` bias),
+        and the function taking the block's windowed output back to
+        ``[B, H, W, D, C]``."""
         dims = tuple(x.shape[1:4])
         ws = self.window_size
         shift = self.get_shift_size(dims)
@@ -190,7 +220,8 @@ class SwinTransformerBlock(nn.Module):
         fold_axes = tuple(i for i, dim in enumerate(dims) if dim < ws[i])
         _, pads_eff = fold_geometry(dims, ws, fold_axes, paddings)
         n_tok = 0 if tokens is None else tokens.shape[0]
-        if fold_axes and not any(pads_eff) and paddings == ref_pads:
+        if self.fused_block and fold_axes and not any(pads_eff) \
+                and paddings == ref_pads:
             wc, _ = fold_geometry(dims, ws, fold_axes, paddings)
             key = ("fold", dims, shift, paddings, n_tok, x.device)
             build = lambda: self._build_folded(  # noqa: E731
@@ -200,10 +231,11 @@ class SwinTransformerBlock(nn.Module):
             if any(paddings):
                 x = _pad5(x, paddings)
             wc = ws
-            key = ("plain", tuple(x.shape[1:4]), shift, ref_pads, n_tok,
-                   x.device)
+            padded = tuple(x.shape[1:4])
+            key = ("plain" if self.fused_block else "unfused", padded, shift,
+                   ref_pads, n_tok, x.device)
             build = lambda: self._build_padded(  # noqa: E731
-                tuple(x.shape[1:4]), shift, ref_pads, tokens, x.device)
+                padded, shift, ref_pads, tokens, x.device)
             crop = ref_pads if any(paddings) else None
         ops, labels = self._operands(key, tokens, build)
         b, c = x.shape[0], x.shape[-1]
@@ -220,7 +252,8 @@ class SwinTransformerBlock(nn.Module):
         return x_win, ops, labels, undo
 
     def _build_padded(self, padded, shift, ref_pads, tokens, device):
-        """Operands of a materially padded (or unpadded) geometry."""
+        """Operands of a materially padded (or unpadded) geometry: the
+        fused block's, or (unfused) the bias and the labels."""
         ws = self.window_size
         n_tok = 0 if tokens is None else tokens.shape[0]
         bias = self.pe(*ws, n_tok)[:, :int(np.prod(ws)), :]
@@ -232,6 +265,9 @@ class SwinTransformerBlock(nn.Module):
                 labels = np.concatenate(
                     [labels, np.full((labels.shape[0], n_tok), -1,
                                      np.int32)], axis=-1)
+        if not self.fused_block:
+            return (bias.to(device).float().contiguous(),
+                    labels_tensor(labels, device))
         return self._make(bias, labels, FOLD_NONE, tokens, device)
 
     def _build_folded(self, dims, shift, paddings, fold_axes, tokens, device):

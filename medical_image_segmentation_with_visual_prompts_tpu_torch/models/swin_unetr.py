@@ -23,9 +23,17 @@ the config's ``attn_drop``/``proj_drop`` with seeds drawn from
 :attr:`dropout_generator`, and the JAX package's training decoder path.
 ``use_checkpoint`` is read and needs no extra work (``swin_block.py``).
 Layout: channels-last ``[B, H, W, D, C]``.
+
+The Swin blocks run the fused block (B1) unless ``MIVP_NO_FUSED_BLOCK``
+is set to anything but ``0`` when the model is built (read once, as the
+JAX package reads it) or :meth:`set_fused_block` says otherwise: then the
+unfused block with its attention kernels B6/B8.  Nothing falls back from
+one to the other: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -99,6 +107,8 @@ class SwinUnetR(nn.Module):
         for m in self.modules():
             if hasattr(m, "set_dropout_generator"):
                 m.set_dropout_generator(self.dropout_generator)
+        self.set_fused_block(
+            os.environ.get("MIVP_NO_FUSED_BLOCK", "0") in ("0", ""))
 
     def set_kernels(self, enabled: bool) -> "SwinUnetR":
         """Route the blocks and the decoder convs through the CUDA kernel
@@ -106,6 +116,14 @@ class SwinUnetR(nn.Module):
         for m in self.modules():
             if hasattr(m, "use_kernels"):
                 m.use_kernels = enabled
+        return self
+
+    def set_fused_block(self, enabled: bool) -> "SwinUnetR":
+        """Run every Swin block as the fused block (``True``) or as the
+        unfused block with the window-attention kernels."""
+        for m in self.modules():
+            if hasattr(m, "fused_block"):
+                m.fused_block = enabled
         return self
 
     def load_state_dict(self, state_dict, strict: bool = True,

@@ -1,0 +1,113 @@
+"""Multi-head window attention over ``[B, P, N, C]`` token windows.
+
+Counterpart of the JAX package's ``models/window_attention.py``: bias-free
+q/k/v projections, scaled QK^T, additive positional bias, multiplicative
+0/1 mask (masked logits become 0, not -inf), softmax, value aggregation,
+output projection.  The attribute names (``to_q``, ``to_k``, ``to_v``,
+``proj``) are the reference's state-dict keys.
+
+The fused Swin block path reads only the parameters (the whole block is
+one kernel there); the unfused path (``MIVP_NO_FUSED_BLOCK=1``,
+``SwinUnetR.set_fused_block(False)``) calls :meth:`forward`, which
+dispatches as the JAX module does:
+
+* ``dim <= 128`` and q is k is v: B6, the projections inside the kernel
+  (``ops/window_attention.py::fused_window_attention_packed_qkv``);
+* ``dim <= 128`` otherwise: the projections here, then B7
+  (``fused_window_attention_packed``);
+* ``dim > 128``: the projections here, heads split, then B8
+  (``fused_window_attention``);
+
+then ``proj``.  The projections outside a kernel and ``proj`` are plain
+linear layers, as XLA runs them in the JAX package.  With
+``use_kernels`` False (``SwinUnetR.set_kernels``) the plain versions run
+instead of the kernel wrappers; on CPU tensors the wrappers run them too.
+``matmul_dtype`` is their rounding: the model's compute dtype (fp32: the
+JAX XLA path's math; bf16: the kernels').
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import window_attention as wa
+from ..ops.fused_block import qkv_kernel_weight
+
+
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``layer(x)`` in x's dtype (the parameters cast to it)."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+class WindowAttention(nn.Module):
+    def __init__(self, dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError("WindowAttention: The dimension is not "
+                             "compatible with the number of heads!")
+        self.dim = dim
+        self.num_heads = num_heads
+        self.matmul_dtype = dtype
+        self.use_kernels = True
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_k = nn.Linear(dim, dim, bias=False)
+        self.to_v = nn.Linear(dim, dim, bias=False)
+        self.proj = nn.Linear(dim, dim)
+        self._wqkv = None
+
+    def kernel_weight(self) -> torch.Tensor:
+        """B6's per-head weight layout, cached until a weight changes in
+        place or moves."""
+        ws = (self.to_q.weight, self.to_k.weight, self.to_v.weight)
+        stamp = tuple((w.data_ptr(), w._version) for w in ws)
+        if self._wqkv is None or self._wqkv[0] != stamp:
+            with torch.no_grad():
+                self._wqkv = (stamp, qkv_kernel_weight(
+                    *(w.t() for w in ws), self.num_heads))
+        return self._wqkv[1]
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                pos_bias: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                q_rows: Optional[int] = None) -> torch.Tensor:
+        """q: ``[B, P, M, C]``; k/v: ``[B, P, N, C]``; pos_bias
+        ``[H, M', N]``; labels ``[P, N]`` int32 or None.  When q, k and v
+        are the same tensor, ``q_rows`` restricts the queries to its first
+        rows (content-query attention).  Returns ``[B, P, M', C]``."""
+        b, p = q.shape[:2]
+        m = q_rows if (q_rows is not None and q is k) else q.shape[2]
+        h = self.num_heads
+        scale = (self.dim // h) ** -0.5
+        dt = self.matmul_dtype
+        kern = self.use_kernels
+        if self.dim <= 128 and q is k and k is v:
+            ws = (self.to_q.weight.t(), self.to_k.weight.t(),
+                  self.to_v.weight.t())
+            if kern:
+                out = wa.fused_window_attention_packed_qkv(
+                    k, *ws, m, pos_bias, labels, scale, h, dt,
+                    wqkv=self.kernel_weight() if k.is_cuda else None)
+            else:
+                out = wa.fused_window_attention_packed_qkv_reference(
+                    k, *ws, m, pos_bias, labels, scale, h, dt)
+            return linear(out, self.proj)
+        qp = linear(q[:, :, :m], self.to_q).contiguous()
+        kp = linear(k, self.to_k).contiguous()
+        vp = linear(v, self.to_v).contiguous()
+        if self.dim <= 128:
+            fn = wa.fused_window_attention_packed if kern \
+                else wa.fused_window_attention_packed_reference
+            out = fn(qp, kp, vp, pos_bias, labels, scale, h, dt)
+        else:
+            fn = wa.fused_window_attention if kern \
+                else wa.fused_window_attention_reference
+            split = lambda t: t.view(b, p, t.shape[2], h, -1)  # noqa: E731
+            out = fn(split(qp), split(kp), split(vp), pos_bias, labels,
+                     scale, dt).reshape(b, p, m, self.dim)
+        return linear(out, self.proj)

@@ -1,3 +1,4 @@
-"""Tensor ops of the port: window geometry, resizing, and the two CUDA
-kernels with their plain PyTorch versions (fused Swin block, pair-input
-decoder conv).  Kernels build on first use (``ops/kernels.py``)."""
+"""Tensor ops of the port: window geometry, resizing, and the CUDA
+kernels with their plain PyTorch versions (fused Swin block and its
+backward, window attention, the decoder convs).  Kernels build on first
+use (``ops/kernels.py``)."""

@@ -1,18 +1,24 @@
-"""Pair-input 3x3x3 conv with a BN + LeakyReLU prologue.
+"""3x3x3 convs with a BN + LeakyReLU prologue: pair input (B2) and one
+input (B3).
 
-Counterpart of the JAX package's ``ops/conv_pallas.py::conv3x3_fused_pair``
-(TPU kernel ``_kernel_pair``): the SwinUpBlock's
+Counterpart of the JAX package's ``ops/conv_pallas.py``:
+``conv3x3_fused_pair`` (TPU kernel ``_kernel_pair``), the SwinUpBlock's
 ``conv(leaky(bn(concat(xa, xb))))`` without building the concat::
 
     a   = leaky_relu(concat(xa, xb) * scale + shift, 0.01)   bf16 operand
     out = conv3x3x3_same(a, kernel) + bias                   fp32 sums
 
+and ``conv3x3_fused`` (TPU kernel ``_kernel``), the one-input form whose
+affine and LeakyReLU are each optional.  No model code calls B3, in the
+JAX package or here.
+
 Zero padding comes AFTER the prologue: out-of-range taps contribute 0,
 not ``leaky(shift)``.  ``scale``/``shift`` are the inference BatchNorm
 folded into an affine (``models/unet_blocks.py::bn_fold``).
 
-CUDA tensors run ``csrc/conv3x3_pair.cu``; CPU tensors run
-:func:`conv_pair_reference`.  ``conv3x3_fused_pair.launches`` counts the
+CUDA tensors run ``csrc/conv3x3_pair.cu`` (B3 is its one-input case);
+CPU tensors run :func:`conv_pair_reference` / :func:`conv_reference`.
+``conv3x3_fused_pair.launches`` and ``conv3x3_fused.launches`` count the
 kernel launches.
 """
 
@@ -34,71 +40,116 @@ def kernel_weight(weight: torch.Tensor) -> torch.Tensor:
         torch.bfloat16).contiguous()
 
 
+def conv_reference(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                   shift: Optional[torch.Tensor] = None, leaky: bool = False,
+                   matmul_dtype: torch.dtype = torch.bfloat16,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version of B3.  x: ``[B, H, W, D, Ci]``
+    channels-last; weight: torch ``[Co, Ci, 3, 3, 3]``.  The input is
+    rounded to ``matmul_dtype`` before the prologue (as the kernel reads
+    it), the prologue output before the conv."""
+    a = round_to(x, matmul_dtype)
+    if scale is not None:
+        a = a * scale.float() + shift.float()
+    if leaky:
+        a = F.leaky_relu(a, 0.01)
+    a = round_to(a, matmul_dtype).permute(0, 4, 1, 2, 3)
+    out = F.conv3d(a, round_to(weight, matmul_dtype), bias.float(),
+                   padding=1)
+    return out.permute(0, 2, 3, 4, 1).to(out_dtype or x.dtype)
+
+
 def conv_pair_reference(xa: torch.Tensor, xb: torch.Tensor,
                         weight: torch.Tensor, bias: torch.Tensor,
                         scale: torch.Tensor, shift: torch.Tensor,
                         matmul_dtype: torch.dtype = torch.bfloat16,
                         out_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
-    """Plain PyTorch version.  xa/xb: ``[B, H, W, D, C*]`` channels-last;
-    weight: torch ``[Co, Ca + Cb, 3, 3, 3]``.  Inputs are rounded to
-    ``matmul_dtype`` before the prologue (as the kernel reads them)."""
+    """Plain PyTorch version of B2.  xa/xb: ``[B, H, W, D, C*]``
+    channels-last; weight: torch ``[Co, Ca + Cb, 3, 3, 3]``.  Inputs are
+    rounded to ``matmul_dtype`` before the prologue (as the kernel reads
+    them)."""
     x = torch.cat([round_to(xa, matmul_dtype), round_to(xb, matmul_dtype)],
                   dim=-1)
-    a = F.leaky_relu(x * scale.float() + shift.float(), 0.01)
-    a = round_to(a, matmul_dtype).permute(0, 4, 1, 2, 3)
-    out = F.conv3d(a, round_to(weight, matmul_dtype), bias.float(),
-                   padding=1)
-    return out.permute(0, 2, 3, 4, 1).to(out_dtype or xa.dtype)
+    return conv_reference(x, weight, bias, scale, shift, True, matmul_dtype,
+                          out_dtype or xa.dtype)
 
 
-def _check_args(xa, xb, weight, bias, scale, shift):
-    if xa.requires_grad or xb.requires_grad:
-        raise ValueError("conv3x3_fused_pair: xa/xb require grad; the "
-                         "serving kernel has no backward yet")
-    if xa.dim() != 5 or xb.dim() != 5 or xa.shape[:4] != xb.shape[:4]:
-        raise ValueError(f"conv3x3_fused_pair: xa and xb must be "
-                         f"[B, H, W, D, C*] with equal B, H, W, D; got "
-                         f"{tuple(xa.shape)} and {tuple(xb.shape)}")
-    cin = xa.shape[-1] + xb.shape[-1]
+def _check_args(xa, xb, weight, bias, scale, shift,
+                name: str = "conv3x3_fused_pair"):
+    """Shape checks common to both paths; ``xb`` (B3) and ``scale``/
+    ``shift`` may be None."""
+    if xa.requires_grad or (xb is not None and xb.requires_grad):
+        raise ValueError(f"{name}: the inputs require grad; the serving "
+                         "kernel has no backward yet")
+    if xb is None:
+        if xa.dim() != 5:
+            raise ValueError(f"{name}: x must be [B, H, W, D, Ci], got "
+                             f"{tuple(xa.shape)}")
+    elif xa.dim() != 5 or xb.dim() != 5 or xa.shape[:4] != xb.shape[:4]:
+        raise ValueError(f"{name}: xa and xb must be [B, H, W, D, C*] with "
+                         f"equal B, H, W, D; got {tuple(xa.shape)} and "
+                         f"{tuple(xb.shape)}")
+    cin = xa.shape[-1] + (0 if xb is None else xb.shape[-1])
     if weight.dim() != 5 or weight.shape[1:] != (cin, 3, 3, 3):
-        raise ValueError(f"conv3x3_fused_pair: weight must be "
-                         f"[Co, {cin}, 3, 3, 3], got {tuple(weight.shape)}")
+        raise ValueError(f"{name}: weight must be [Co, {cin}, 3, 3, 3], got "
+                         f"{tuple(weight.shape)}")
     co = weight.shape[0]
     if bias.shape != (co,):
-        raise ValueError(f"conv3x3_fused_pair: bias must be [{co}], got "
+        raise ValueError(f"{name}: bias must be [{co}], got "
                          f"{tuple(bias.shape)}")
-    for name, t in (("scale", scale), ("shift", shift)):
-        if t.shape != (cin,):
-            raise ValueError(f"conv3x3_fused_pair: {name} must be [{cin}], "
-                             f"got {tuple(t.shape)}")
+    if (scale is None) != (shift is None):
+        raise ValueError(f"{name}: give scale and shift together")
+    for arg, t in (("scale", scale), ("shift", shift)):
+        if t is not None and t.shape != (cin,):
+            raise ValueError(f"{name}: {arg} must be [{cin}], got "
+                             f"{tuple(t.shape)}")
 
 
-def check_kernel_args(xa, xb, w27, bias, scale, shift) -> None:
+def check_kernel_args(xa, xb, w27, bias, scale, shift,
+                      name: str = "conv3x3_fused_pair") -> None:
     """What the CUDA kernel takes; raises naming the offending argument.
-    ``w27`` is :func:`kernel_weight` of the conv weight."""
-    for name, t, dtype in (("xa", xa, torch.bfloat16),
-                           ("xb", xb, torch.bfloat16),
-                           ("weight", w27, torch.bfloat16),
-                           ("bias", bias, torch.float32),
-                           ("scale", scale, torch.float32),
-                           ("shift", shift, torch.float32)):
+    ``w27`` is :func:`kernel_weight` of the conv weight; ``xb`` (B3) and
+    ``scale``/``shift`` may be None."""
+    for arg, t, dtype in (("xa", xa, torch.bfloat16),
+                          ("xb", xb, torch.bfloat16),
+                          ("weight", w27, torch.bfloat16),
+                          ("bias", bias, torch.float32),
+                          ("scale", scale, torch.float32),
+                          ("shift", shift, torch.float32)):
+        if t is None:
+            continue
         if not t.is_cuda or t.device != xa.device:
-            raise ValueError(f"conv3x3_fused_pair: {name} must be on "
-                             f"xa's CUDA device, got {t.device}")
+            raise ValueError(f"{name}: {arg} must be on xa's CUDA device, "
+                             f"got {t.device}")
         if t.dtype != dtype:
-            raise ValueError(f"conv3x3_fused_pair: {name} must be {dtype}, "
-                             f"got {t.dtype}")
+            raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"conv3x3_fused_pair: {name} must be "
-                             "contiguous")
-    ca, cb, co = xa.shape[-1], xb.shape[-1], w27.shape[-1]
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    ca, co = xa.shape[-1], w27.shape[-1]
+    cb = 0 if xb is None else xb.shape[-1]
     if ca % 16 or cb % 16 or co % 16:
-        raise ValueError(f"conv3x3_fused_pair: the kernel takes channel "
-                         f"counts that are multiples of 16; got Ca={ca}, "
-                         f"Cb={cb}, Co={co}")
+        raise ValueError(f"{name}: the kernel takes channel counts that are "
+                         f"multiples of 16; got Ca={ca}, Cb={cb}, Co={co}")
     if xa.numel() // ca >= 2 ** 31:
-        raise ValueError("conv3x3_fused_pair: xa has too many voxels")
+        raise ValueError(f"{name}: xa has too many voxels")
+
+
+def _launch(xa, xb, w27, bias, scale, shift, leaky: bool, name: str
+            ) -> torch.Tensor:
+    """One launch of ``csrc/conv3x3_pair.cu`` (checked arguments)."""
+    from . import kernels
+    b, h, w, d, ca = xa.shape
+    co = w27.shape[-1]
+    out = torch.empty((b, h, w, d, co), device=xa.device, dtype=xa.dtype)
+    err = kernels.library().mivp_conv3x3(
+        xa.data_ptr(), kernels.ptr(xb), w27.data_ptr(), bias.data_ptr(),
+        kernels.ptr(scale), kernels.ptr(shift), out.data_ptr(),
+        b * h * w * d, h, w, d, ca, 0 if xb is None else xb.shape[-1], co,
+        int(scale is not None), int(leaky), kernels.stream_of(xa))
+    kernels.check(err, name)
+    return out
 
 
 def conv3x3_fused_pair(xa: torch.Tensor, xb: torch.Tensor,
@@ -118,17 +169,35 @@ def conv3x3_fused_pair(xa: torch.Tensor, xb: torch.Tensor,
     if w27 is None:
         w27 = kernel_weight(weight)
     check_kernel_args(xa, xb, w27, bias, scale, shift)
-    from . import kernels
-    b, h, w, d, ca = xa.shape
-    co = w27.shape[-1]
-    out = torch.empty((b, h, w, d, co), device=xa.device, dtype=xa.dtype)
-    err = kernels.library().mivp_conv3x3_pair(
-        xa.data_ptr(), xb.data_ptr(), w27.data_ptr(), bias.data_ptr(),
-        scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b * h * w * d,
-        h, w, d, ca, xb.shape[-1], co, kernels.stream_of(xa))
-    kernels.check(err, "conv3x3_fused_pair")
+    out = _launch(xa, xb, w27, bias, scale, shift, True, "conv3x3_fused_pair")
     conv3x3_fused_pair.launches += 1
     return out
 
 
 conv3x3_fused_pair.launches = 0
+
+
+def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  scale: Optional[torch.Tensor] = None,
+                  shift: Optional[torch.Tensor] = None, leaky: bool = False,
+                  w27: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv(act(x * scale + shift)) + bias``, "same" 3x3x3,
+    channels-last, with the affine skipped when ``scale`` is None and
+    LeakyReLU(0.01) only when ``leaky``; output in x's dtype, which is also
+    the operand dtype of the plain path (bf16 on the kernel path).
+
+    ``w27`` (CUDA only): the cached :func:`kernel_weight` of ``weight``.
+    """
+    _check_args(x, None, weight, bias, scale, shift, "conv3x3_fused")
+    if not x.is_cuda:
+        return conv_reference(x, weight, bias, scale, shift, leaky,
+                              matmul_dtype=x.dtype)
+    if w27 is None:
+        w27 = kernel_weight(weight)
+    check_kernel_args(x, None, w27, bias, scale, shift, "conv3x3_fused")
+    out = _launch(x, None, w27, bias, scale, shift, leaky, "conv3x3_fused")
+    conv3x3_fused.launches += 1
+    return out
+
+
+conv3x3_fused.launches = 0

@@ -172,23 +172,38 @@ def extra_kv_rows(params: dict, tokens: Optional[torch.Tensor],
     return k, v
 
 
+def qkv_kernel_weight(wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+                      num_heads: int) -> torch.Tensor:
+    """(in, out) ``[C, C]`` q/k/v weights -> the kernels' bf16
+    ``[H, 3, DHP, C]``: each head's output columns stored transposed (out,
+    in) for the tensor-core B operand and zero-padded to ``DHP``, the head
+    dim rounded up to a multiple of 16 (the k-step).  Shared by
+    ``csrc/fused_block.cu`` and ``csrc/window_attention.cu``."""
+    c = wq.shape[0]
+    dh = c // num_heads
+    dhp = -(-dh // 16) * 16
+
+    def heads(w):   # (in, out) [C, C] -> [H, DHP, C]
+        return torch.nn.functional.pad(
+            w.detach().float().t().reshape(num_heads, dh, c),
+            (0, 0, 0, dhp - dh))
+
+    return torch.stack([heads(wq), heads(wk), heads(wv)], dim=1).to(
+        torch.bfloat16).contiguous()
+
+
 def _kernel_layout(ops: BlockOperands) -> dict:
     """Operands in ``csrc/fused_block.cu``'s layout: bf16 weights stored
     transposed (out, in) for the tensor-core B operand, each head's q|k|v
-    rows zero-padded to a multiple of 16 (the k-step), and the extra K/V
-    rows per head with the same padding."""
+    rows zero-padded to a multiple of 16 (the k-step,
+    :func:`qkv_kernel_weight`), and the extra K/V rows per head with the
+    same padding."""
     p = {k: v.detach() for k, v in ops.params.items()}
     c = p["wq"].shape[0]
     h = ops.num_heads
     dh = c // h
     dhp = -(-dh // 16) * 16
-
-    def heads(w):   # (in, out) [C, C] -> [H, DHP, C]
-        return torch.nn.functional.pad(
-            w.float().t().reshape(h, dh, c), (0, 0, 0, dhp - dh))
-
-    wqkv = torch.stack([heads(p["wq"]), heads(p["wk"]), heads(p["wv"])],
-                       dim=1)                                # [H, 3, DHP, C]
+    wqkv = qkv_kernel_weight(p["wq"], p["wk"], p["wv"], h)
     e = ops.n_ext
     ext = torch.zeros(h, 2, max(e, 1), dhp, device=wqkv.device)
     if e:
@@ -197,7 +212,7 @@ def _kernel_layout(ops: BlockOperands) -> dict:
                 e, h, dh).permute(1, 0, 2)
     bf = torch.bfloat16
     return {
-        "wqkv": wqkv.to(bf).contiguous(),
+        "wqkv": wqkv,
         "ext_kv": ext.to(bf).contiguous(),
         "bias": ops.bias.detach().float().contiguous(),
         "wproj": p["wproj"].t().to(bf).contiguous(),

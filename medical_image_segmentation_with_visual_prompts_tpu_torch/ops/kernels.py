@@ -47,8 +47,11 @@ SIGNATURES = {
     # dropout, stream
     "mivp_fused_block_bwd": [_P] * 35 + [_I] * 7 + [_F] + _DROP + [_P],
     # xa, xb, w, bias, scale, shift, out, voxels, h, w, d, ca, cb, co,
-    # stream
-    "mivp_conv3x3_pair": [_P] * 7 + [_I] * 7 + [_P],
+    # affine, leaky, stream
+    "mivp_conv3x3": [_P] * 7 + [_I] * 9 + [_P],
+    # y, wqkv, q, k, v, bias, labels, out, bp, m, n, c, heads, p_windows,
+    # scale, stream
+    "mivp_window_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -96,6 +96,18 @@ def get_attn_labels(shape_x: Tuple[int, int, int],
     return _window_partition_np(image_mask, window_size).astype(np.int32)
 
 
+@lru_cache(maxsize=None)
+def get_attn_mask(shape_x: Tuple[int, int, int],
+                  window_size: Tuple[int, int, int],
+                  shift_size: Tuple[int, int, int],
+                  paddings: Tuple[int, ...]) -> np.ndarray:
+    """Multiplicative 0/1 mask ``[P, N, N]`` float32: 1 where the
+    :func:`get_attn_labels` region labels are equal (may attend).  The
+    kernels take the labels; this is the plain side's form of them."""
+    labels = get_attn_labels(shape_x, window_size, shift_size, paddings)
+    return (labels[:, :, None] == labels[:, None, :]).astype(np.float32)
+
+
 def compute_paddings(shape_x: Sequence[int], window_size: Sequence[int],
                      mode: str = "reference") -> Tuple[int, ...]:
     """Applied (lo, hi) padding per axis up to window multiples.

@@ -1,5 +1,7 @@
-"""PyTorch port: the pair-input decoder conv's plain version against the
-JAX package's ``conv3x3_fused_pair`` (TPU kernel, interpret mode).
+"""PyTorch port: the decoder convs' plain versions against the JAX
+package's ``conv3x3_fused_pair`` (B2) and ``conv3x3_fused`` (B3, its
+one-input form with optional affine and LeakyReLU) TPU kernels in
+interpret mode.
 
 Both sides round xa/xb, the prologue output and the weights to bf16 and
 sum in fp32.  The TPU kernel also computes the BN affine itself in bf16
@@ -15,6 +17,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from medical_image_segmentation_with_visual_prompts_tpu.ops.conv_pallas \
+    import conv3x3_fused as jax_conv
 from medical_image_segmentation_with_visual_prompts_tpu.ops.conv_pallas \
     import conv3x3_fused_pair as jax_conv_pair
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
@@ -122,3 +126,62 @@ def test_kernel_weight_layout_is_tap_major():
     assert w27.shape == (27, 3, 2) and w27.dtype == torch.bfloat16
     # tap (kh, kw, kd) = (1, 2, 0) -> index 9 + 6 + 0.
     torch.testing.assert_close(w27[15].float(), w[:, :, 1, 2, 0].t())
+
+
+@pytest.mark.parametrize("affine,leaky", [(True, True), (True, False),
+                                          (False, True), (False, False)])
+@pytest.mark.parametrize("shape,ci,co", [((2, 6, 5, 4), 12, 6),
+                                         ((1, 4, 4, 2), 16, 16)])
+def test_plain_conv_matches_interpret_kernel(shape, ci, co, affine, leaky):
+    x, _, kernel, bias, scale, shift = _case(shape, ci, 0, co, seed=4)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    got = cf.conv_reference(
+        t(x), t(kernel.transpose(4, 3, 0, 1, 2)), t(bias),
+        t(scale) if affine else None, t(shift) if affine else None, leaky,
+        matmul_dtype=torch.bfloat16, out_dtype=torch.float32).numpy()
+    want = np.asarray(jax_conv(
+        jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(bias),
+        jnp.asarray(scale) if affine else None,
+        jnp.asarray(shift) if affine else None, leaky=leaky,
+        out_dtype=jnp.float32, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=REL_TOL * np.abs(want).max())
+
+
+def test_one_input_wrapper_on_cpu_is_exact_math_and_launches_nothing():
+    x, _, kernel, bias, scale, shift = _case((1, 4, 4, 2), 8, 0, 4)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    w = t(kernel.transpose(4, 3, 0, 1, 2))
+    before = cf.conv3x3_fused.launches
+    for affine, leaky in ((True, True), (False, False), (True, False)):
+        a = t(x) * t(scale) + t(shift) if affine else t(x)
+        a = F.leaky_relu(a, 0.01) if leaky else a
+        want = F.conv3d(a.permute(0, 4, 1, 2, 3), w, t(bias),
+                        padding=1).permute(0, 2, 3, 4, 1)
+        got = cf.conv3x3_fused(t(x), w, t(bias),
+                               t(scale) if affine else None,
+                               t(shift) if affine else None, leaky)
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    # The pair conv is the one-input conv of the concat.
+    xa, xb, kernel, bias, scale, shift = _case((1, 4, 4, 2), 8, 4, 6)
+    w = t(kernel.transpose(4, 3, 0, 1, 2))
+    torch.testing.assert_close(
+        cf.conv3x3_fused_pair(t(xa), t(xb), w, t(bias), t(scale), t(shift)),
+        cf.conv3x3_fused(torch.cat([t(xa), t(xb)], -1), w, t(bias),
+                         t(scale), t(shift), leaky=True), atol=0, rtol=0)
+    assert cf.conv3x3_fused.launches == before
+
+
+def test_one_input_wrapper_rejects_bad_calls():
+    x, _, kernel, bias, scale, shift = _case((1, 4, 4, 2), 8, 0, 4)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    w = t(kernel.transpose(4, 3, 0, 1, 2))
+    with pytest.raises(ValueError, match="weight must be"):
+        cf.conv3x3_fused(t(x)[..., :4].contiguous(), w, t(bias))
+    with pytest.raises(ValueError, match="together"):
+        cf.conv3x3_fused(t(x), w, t(bias), t(scale), None)
+    with pytest.raises(ValueError, match="x must be"):
+        cf.conv3x3_fused(t(x)[0], w, t(bias))
+    with pytest.raises(ValueError, match="conv3x3_fused: xa must be on"):
+        cf.check_kernel_args(t(x).bfloat16(), None, cf.kernel_weight(w),
+                             t(bias), None, None, "conv3x3_fused")

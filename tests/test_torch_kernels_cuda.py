@@ -23,6 +23,8 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     fused_block as fb
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     fused_block_bwd as fbb
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
+    window_attention as wa
 
 TOL = 2.0 ** -6
 GRAD_TOL = 2.0 ** -5
@@ -178,3 +180,107 @@ def test_block_backward_kernel_matches_plain(dev, c, heads, m, fold_mode,
         scale = r.abs().max().item()
         print(f"{name}: err {err:.4g} of max {scale:.4g}")
         assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)
+
+
+def _attn_case(dev, b, p, m, n, c, heads, masked, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    bias = r(heads, m, n).to(dev)
+    labels = None
+    if masked:
+        labels = torch.cat([torch.randint(0, 4, (p, m), generator=g),
+                            torch.full((p, n - m), -1)], 1)
+        labels = labels.to(dev, torch.int32).contiguous()
+    return r, bias, labels
+
+
+ATTN_SHAPES = [(48, 4, 256, 320), (96, 8, 256, 320), (96, 4, 256, 320),
+               (32, 2, 40, 45), (16, 2, 32, 35), (64, 1, 20, 24),
+               (128, 2, 300, 310)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,m,n", ATTN_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_packed_qkv_kernel_matches_plain(dev, c, heads, m, n, masked):
+    r, bias, labels = _attn_case(dev, 2, 3, m, n, c, heads, masked)
+    y = r(2, 3, n, c).to(dev, torch.bfloat16)
+    ws = [(r(c, c) / c ** 0.5).to(dev) for _ in range(3)]
+    scale = (c // heads) ** -0.5
+    with torch.inference_mode():
+        ref = wa.fused_window_attention_packed_qkv_reference(
+            y, *ws, m, bias, labels, scale, heads)
+        before = wa.fused_window_attention_packed_qkv.launches
+        got = wa.fused_window_attention_packed_qkv(y, *ws, m, bias, labels,
+                                                   scale, heads)
+        torch.cuda.synchronize()
+    assert wa.fused_window_attention_packed_qkv.launches == before + 1
+    assert got.shape == (2, 3, m, c) and got.dtype == torch.bfloat16
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,m,n", ATTN_SHAPES + [
+    (192, 16, 256, 320), (192, 4, 256, 320), (40, 5, 17, 23)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_packed_and_per_head_kernels_match_plain(dev, c, heads, m, n,
+                                                 masked):
+    r, bias, labels = _attn_case(dev, 2, 3, m, n, c, heads, masked, seed=6)
+    q = r(2, 3, m, c).to(dev, torch.bfloat16)
+    k = r(2, 3, n, c).to(dev, torch.bfloat16)
+    v = r(2, 3, n, c).to(dev, torch.bfloat16)
+    scale = (c // heads) ** -0.5
+    dh = c // heads
+    with torch.inference_mode():
+        ref = wa.fused_window_attention_packed_reference(
+            q, k, v, bias, labels, scale, heads)
+        before = (wa.fused_window_attention_packed.launches,
+                  wa.fused_window_attention.launches)
+        got7 = wa.fused_window_attention_packed(q, k, v, bias, labels, scale,
+                                                heads)
+        got8 = wa.fused_window_attention(
+            q.view(2, 3, m, heads, dh), k.view(2, 3, n, heads, dh),
+            v.view(2, 3, n, heads, dh), bias, labels, scale)
+        torch.cuda.synchronize()
+    assert (wa.fused_window_attention_packed.launches,
+            wa.fused_window_attention.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    _assert_close(got7, ref)
+    _assert_close(got8.reshape(2, 3, m, c), ref)
+
+
+@pytest.mark.cuda
+def test_window_attention_rejects_fp32_and_unsupported_head_dims(dev):
+    r, bias, _ = _attn_case(dev, 1, 2, 16, 20, 80, 4, False)
+    q = r(1, 2, 16, 80).to(dev)
+    kv = r(1, 2, 20, 80).to(dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wa.fused_window_attention_packed(q, kv, kv, bias, None, 1.0, 4)
+    with pytest.raises(ValueError, match="head dims"):
+        wa.fused_window_attention_packed(q.bfloat16(), kv.bfloat16(),
+                                         kv.bfloat16(), bias, None, 1.0, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ci,co", [
+    ((2, 6, 5, 4), 16, 16), ((1, 8, 8, 2), 48, 48), ((3, 5, 7, 3), 32, 48),
+    ((1, 16, 16, 2), 192, 96)])
+@pytest.mark.parametrize("affine,leaky", [(True, True), (False, False),
+                                          (True, False), (False, True)])
+def test_conv3x3_one_input_kernel_matches_plain(dev, shape, ci, co, affine,
+                                                leaky):
+    g = torch.Generator().manual_seed(2)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    x = r(*shape, ci).to(dev, torch.bfloat16)
+    w = (r(co, ci, 3, 3, 3) / (27 * ci) ** 0.5).to(dev)
+    bias = (0.1 * r(co)).to(dev)
+    scale = (0.5 + torch.rand(ci, generator=g)).to(dev) if affine else None
+    shift = (2.0 + 0.3 * r(ci)).to(dev) if affine else None
+    with torch.inference_mode():
+        ref = cf.conv_reference(x, w, bias, scale, shift, leaky)
+        before = cf.conv3x3_fused.launches
+        got = cf.conv3x3_fused(x, w, bias, scale, shift, leaky)
+        torch.cuda.synchronize()
+    assert cf.conv3x3_fused.launches == before + 1
+    assert got.shape == (*shape, co) and got.dtype == torch.bfloat16
+    _assert_close(got, ref)

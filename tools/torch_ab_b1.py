@@ -11,7 +11,8 @@ Each process builds that checkout's kernels, runs B1 at the 12 flagship
 serving geometries (27 windows; no dropout, as serving calls it) on the
 same seeded blocks and inputs, and times each call with CUDA events.
 Outputs of every run are compared bit for bit with the first run's.
-``ptxas -v`` register counts of each checkout's ``fused_block.cu`` are
+``ptxas -v`` register counts of each checkout's ``fused_block.cu`` (and
+``window_attention.cu``, which shares its attention device code) are
 printed first.  Imports torch and the port only.
 """
 
@@ -79,21 +80,26 @@ print(json.dumps({"build_s": build_s, "ms": times}))
 
 
 def ptxas(root: Path) -> None:
-    src = root / PKG / "csrc" / "fused_block.cu"
-    with tempfile.TemporaryDirectory() as tmp:
-        out = subprocess.run(
-            [NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-Xptxas", "-v", "-c", str(src), "-o", f"{tmp}/b1.o"],
-            capture_output=True, text=True)
-    if out.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{out.stderr}")
-    name = None
-    for line in out.stderr.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif "registers" in line and name:
-            kernel = name.split("fused_swin_block_kernel")[-1]
-            print(f"  {kernel}: {line.split(':', 1)[1].strip()}")
+    """Registers, shared memory and spills of each kernel instantiation
+    of the checkout's attention sources (``nvcc -Xptxas -v``)."""
+    for name in ("fused_block.cu", "window_attention.cu"):
+        src = root / PKG / "csrc" / name
+        if not src.exists():
+            continue
+        print(f"  {name}:")
+        with tempfile.TemporaryDirectory() as tmp:
+            out = subprocess.run(
+                [NVCC, "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-Xptxas", "-v", "-c", str(src),
+                 "-o", f"{tmp}/k.o"], capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{out.stderr}")
+        kernel = None
+        for line in out.stderr.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif ("registers" in line or "spill" in line) and kernel:
+                print(f"    {kernel}: {line.split(':', 1)[-1].strip()}")
 
 
 def main(argv) -> int:
