@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` (first use) and drives
-the port's three paths:
+the port's paths:
 
 * serving: B1 (fused Swin block) and B2 (pair-input decoder conv) against
   their plain PyTorch versions at every shape the flagship serving path
@@ -29,7 +29,14 @@ the port's three paths:
   synthetic NIfTI set at the flagship training config (dropout 0.1/0.1,
   ``use_checkpoint``, AdamW 5e-4 / 0.1, DiceFocal gamma 4, batch 2 of
   128x128x8 crops), once with the kernels and once with the plain
-  versions, and a ``torch.profiler`` breakdown of two kernel steps.
+  versions, and a ``torch.profiler`` breakdown of two kernel steps;
+* block pairs (``SwinUnetR.set_pair_kernel(True)``, the
+  ``MIVP_PAIR_KERNEL=1`` path): B5 (both blocks of a Swin block pair in
+  one launch) against its plain version and, element for element, against
+  B1 + the pair's row gather + B1 + the inverse gather at the 6 flagship
+  pair geometries (and with dropout at the training batch), then the
+  flagship model, the served volume and the trainer through it (6 B5 + 3
+  B2 per forward; 6 B5 + 6 B1 + 12 B4 per training step).
 
 Each path runs with the launch counters set to 0 just before and read
 just after.  It prints one JSON line describing the kernels (times,
@@ -547,6 +554,127 @@ def phase_blocks_train(gen_seed: int = SEED + 5):
     return fwd, bwd
 
 
+def make_pair(c, heads, gen, drop=0.0):
+    """A flagship-geometry Swin block pair (seeded random weights, bf16)
+    with the pair switch on."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import ConsecutiveSwinBlocks
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import init_weights
+    pair = ConsecutiveSwinBlocks(c, heads, 64, 1, 64, (8, 8, 4), down=False,
+                                 pad_mode="aligned", dtype=torch.bfloat16,
+                                 attn_drop=drop, proj_drop=drop)
+    pair = init_weights(pair, gen).cuda()
+    pair.pair_kernel = True
+    return pair
+
+
+def pair_work(x_win, ops0, ops1, labels):
+    """(flops, bytes) of one B5 call: both blocks' products; x in and out
+    once, both operand sets, the shifted block's labels."""
+    f0, b0 = block_work(x_win, ops0, None)
+    f1, b1 = block_work(x_win, ops1, labels)
+    io = 2 * x_win.numel() * 2
+    return f0 + f1, b0 + b1 - io
+
+
+def phase_pair(gen_seed: int = SEED + 8):
+    """B5 at the 6 flagship pair geometries (27 windows, no dropout, as
+    the serve path calls it): against ``pair_reference`` within
+    KERNEL_TOL, and against its two-launch counterpart (B1, the plan's
+    row gather, B1, the inverse gather) element for element; then with
+    dropout at the training batch.  Prints CTAs per SM of B1 and B5."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
+        kernels
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block import NO_DROPOUT, Dropout, fused_swin_block
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_pair import fused_swin_pair, pair_reference, plan_gather
+    print("phase B5: Swin block pair vs pair_reference and vs B1 + gather + "
+          "B1 + gather (bf16, serving, 27 windows)")
+    failures, errs = [], []
+    res = {"ms": 0.0, "plain_ms": 0.0, "two_launch_ms": 0.0, "bound": Bound(),
+           "differing": 0, "elements": 0, "library_ms": None}
+    train = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound()}
+    g = torch.Generator().manual_seed(gen_seed)
+    for i, (name, c, heads, dims) in enumerate(BLOCK_GEOMETRIES):
+        pair = make_pair(c, heads, g)
+        x = torch.randn((BATCH, *dims, c), generator=g).to("cuda",
+                                                          torch.bfloat16)
+        toks = tuple((0.5 * torch.randn((64, c), generator=g)).cuda()
+                     for _ in range(2))
+        with torch.inference_mode():
+            x_win, ops0, ops1, labels, plan, _ = pair.pair_windows(x, toks)
+
+            def two_launch(xs, d0=NO_DROPOUT, d1=NO_DROPOUT):
+                x1 = fused_swin_block(xs, ops0, None, d0)
+                x2 = fused_swin_block(plan_gather(x1, plan.index), ops1,
+                                      labels, d1)
+                return plan_gather(x2, plan.inverse)
+
+            ref = pair_reference(x_win, ops0, ops1, labels, plan)
+            out = fused_swin_pair(x_win, ops0, ops1, labels, plan)
+            chain = two_launch(x_win)
+            torch.cuda.synchronize()
+            tag = (f"{name} C{c} h{heads} {'x'.join(map(str, dims))} "
+                   f"BP{x_win.shape[0] * x_win.shape[1]} M{x_win.shape[2]} "
+                   f"N{x_win.shape[2] + ops0.n_ext}")
+            errs.append(check_close(tag, out, ref, failures))
+            differ = int((out != chain).sum())
+            res["differing"] += differ
+            res["elements"] += out.numel()
+            check_close(f"{tag} vs two launches", out, chain, failures)
+            t_k = cuda_ms(lambda: fused_swin_pair(x_win, ops0, ops1, labels,
+                                                  plan))
+            t_2 = cuda_ms(lambda: two_launch(x_win))
+            t_p = cuda_ms(lambda: pair_reference(x_win, ops0, ops1, labels,
+                                                 plan), 3)
+            m, e = x_win.shape[2], ops0.n_ext
+            ctas = {k: [kernels.ctas_per_sm(f"mivp_fused_swin_{k}", m, c,
+                                            heads, e, d) for d in (0, 1)]
+                    for k in ("block", "pair")}
+            # Dropout (the train path's instantiation) at the batch of 2.
+            d0 = Dropout((2000 + 4 * i, 2001 + 4 * i), DROP_RATE, DROP_RATE)
+            d1 = Dropout((2002 + 4 * i, 2003 + 4 * i), DROP_RATE, DROP_RATE)
+            xs = x_win[:TRAIN_BATCH].contiguous()
+            ref_d = pair_reference(xs, ops0, ops1, labels, plan, d0, d1)
+            out_d = fused_swin_pair(xs, ops0, ops1, labels, plan, d0, d1)
+            chain_d = two_launch(xs, d0, d1)
+            torch.cuda.synchronize()
+            errs.append(check_close(f"{tag} dropout batch {TRAIN_BATCH}",
+                                    out_d, ref_d, failures))
+            differ_d = int((out_d != chain_d).sum())
+            t_kd = cuda_ms(lambda: fused_swin_pair(xs, ops0, ops1, labels,
+                                                   plan, d0, d1))
+            t_pd = cuda_ms(lambda: pair_reference(xs, ops0, ops1, labels,
+                                                  plan, d0, d1), 3)
+        res["bound"].add(*pair_work(x_win, ops0, ops1, labels))
+        train["bound"].add(*pair_work(xs, ops0, ops1, labels))
+        print(f"    kernel {t_k:.4f} ms, B1 + gather + B1 + gather {t_2:.4f} "
+              f"ms, plain {t_p:.4f} ms; {differ} of {out.numel()} elements "
+              f"differ from the two launches ({differ_d} with dropout); "
+              f"CTAs per SM (no dropout, dropout): B1 {ctas['block']}, B5 "
+              f"{ctas['pair']}; dropout batch {TRAIN_BATCH}: kernel "
+              f"{t_kd:.4f} ms, plain {t_pd:.4f} ms")
+        res["differing"] += differ_d
+        res["elements"] += out_d.numel()
+        res["ms"] += t_k
+        res["two_launch_ms"] += t_2
+        res["plain_ms"] += t_p
+        train["ms"] += t_kd
+        train["plain_ms"] += t_pd
+    if failures:
+        raise RuntimeError("phase B5 failed: " + "; ".join(failures))
+    res["max_abs_err"] = max(errs)
+    print(f"  B5: {res['ms']:.4f} ms per forward vs {res['two_launch_ms']:.4f} "
+          f"ms for B1 + gather + B1 + gather (plain {res['plain_ms']:.4f}, "
+          f"bound {res['bound'].ms:.4f} ({res['bound'].by})); "
+          f"{res['differing']} of {res['elements']} elements differ")
+    return res, train
+
+
 def counters():
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         import window_attention as wa
@@ -556,8 +684,10 @@ def counters():
         .fused_block import fused_swin_block
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .fused_block_bwd import block_backward
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_pair import fused_swin_pair
     return {"B1": fused_swin_block, "B2": conv3x3_fused_pair,
-            "B3": conv3x3_fused, "B4": block_backward,
+            "B3": conv3x3_fused, "B4": block_backward, "B5": fused_swin_pair,
             "B6": wa.fused_window_attention_packed_qkv,
             "B7": wa.fused_window_attention_packed,
             "B8": wa.fused_window_attention}
@@ -606,17 +736,28 @@ def argmax_agreement(name: str, y, ref) -> float:
     return agree
 
 
-def phase_model(model, per_forward: dict, fused: bool = True):
+# The model's block paths: fused blocks (B1), unfused blocks (B6/B8),
+# and fused blocks run as pairs (B5, MIVP_PAIR_KERNEL=1).
+MODES = {"fused": "fused blocks", "unfused": "unfused blocks",
+         "pair": "fused block pairs"}
+
+
+def set_mode(model, mode: str):
+    model.set_fused_block(mode != "unfused")
+    return model.set_pair_kernel(mode == "pair")
+
+
+def phase_model(model, per_forward: dict, mode: str = "fused"):
     """Flagship forward on a 27-window batch: kernels vs plain versions;
-    the unfused blocks also against the fused ones on the same weights.
-    Returns the kernel forward's ms (CUDA events)."""
+    the unfused blocks and the block pairs also against the fused blocks
+    on the same weights.  Returns the kernel forward's ms (CUDA events)."""
     import torch
-    label = "fused blocks" if fused else "unfused blocks"
-    print(f"phase model{'' if fused else '-unfused'}: flagship SwinUnetR, "
-          f"{label}, bf16 trunk, [27, 128, 128, 8, 1]")
+    label = MODES[mode]
+    print(f"phase model{'' if mode == 'fused' else '-' + mode}: flagship "
+          f"SwinUnetR, {label}, bf16 trunk, [27, 128, 128, 8, 1]")
     g = torch.Generator().manual_seed(SEED + 3)
     x = torch.rand((BATCH, 128, 128, 8, 1), generator=g).cuda()
-    model.set_fused_block(fused)
+    set_mode(model, mode)
     with torch.inference_mode():
         y_plain = model.set_kernels(False)(x)
         model.set_kernels(True)
@@ -625,8 +766,8 @@ def phase_model(model, per_forward: dict, fused: bool = True):
         torch.cuda.synchronize()
         got = read_counters()
         fwd_ms = cuda_ms(lambda: model(x), 5)
-        y_fused = None if fused else model.set_fused_block(True)(x)
-        model.set_fused_block(fused)
+        y_fused = None if mode == "fused" else set_mode(model, "fused")(x)
+        set_mode(model, mode)
     print(f"  launches per forward: {got}; forward {fwd_ms:.4f} ms "
           "(CUDA events)")
     failures = []
@@ -649,7 +790,7 @@ def phase_model(model, per_forward: dict, fused: bool = True):
     return fwd_ms
 
 
-def phase_serve(model, card: str, per_volume: dict, fused: bool = True):
+def phase_serve(model, card: str, per_volume: dict, mode: str = "fused"):
     """Serve a seeded 320x320x24 int16 volume; kernels vs plain labels.
     Returns the launches of the timed run and the served volumes per
     second from disk and in memory."""
@@ -661,9 +802,9 @@ def phase_serve(model, card: str, per_volume: dict, fused: bool = True):
         .transforms import load_served
     from medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
         import make_runner, predict_device, serve_volumes
-    label = "fused blocks" if fused else "unfused blocks"
-    print(f"phase serve{'' if fused else '-unfused'}: 320x320x24 int16 CT, "
-          f"stride 0.75, coverage crop, {label}")
+    label = MODES[mode]
+    print(f"phase serve{'' if mode == 'fused' else '-' + mode}: 320x320x24 "
+          f"int16 CT, stride 0.75, coverage crop, {label}")
     rng = np.random.default_rng(SEED + 4)
     hu = rng.normal(40.0, 300.0, size=(320, 320, 24))
     zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n) for n in (320, 320, 24)),
@@ -671,7 +812,7 @@ def phase_serve(model, card: str, per_volume: dict, fused: bool = True):
     hu += 800.0 * ((zz ** 2 + yy ** 2 + (xx / 2) ** 2) < 0.3)
     vol = np.clip(hu, -1024, 3071).astype(np.int16)
     conf = {"roi_size": [128, 128, 8]}
-    model.set_fused_block(fused)
+    set_mode(model, mode)
     runner = make_runner(conf, model, chunk=None, stride=0.75,
                          device_windowing=True, coverage="crop")
     with tempfile.TemporaryDirectory() as tmp:
@@ -786,9 +927,10 @@ class _Quiet:
         pass
 
 
-def run_trainer(hp, kernels: bool):
-    """``SegmentationTrainer.train()`` on the card; returns the trainer,
-    the launches of the run and its wall time."""
+def run_trainer(hp, kernels: bool, pair: bool = False):
+    """``SegmentationTrainer.train()`` on the card (block pairs as one
+    call if ``pair``); returns the trainer, the launches of the run and
+    its wall time."""
     import torch
     from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
         import get_fit_loader_downstream
@@ -798,7 +940,7 @@ def run_trainer(hp, kernels: bool):
         import SegmentationTrainer
     train_loader, _ = get_fit_loader_downstream(hp)
     tr = SegmentationTrainer(hp, SwinUnetR, train_loader, None, _Quiet())
-    tr.model.set_kernels(kernels)
+    tr.model.set_kernels(kernels).set_pair_kernel(pair)
     torch.cuda.synchronize()
     reset_counters()
     t0 = time.perf_counter()
@@ -827,6 +969,7 @@ def profile_steps(tr, hp, steps: int = 2) -> None:
             tr.train_step(batch)
         torch.cuda.synchronize()
     buckets = (("B1 fused_swin_block_kernel", ("fused_swin_block_kernel",)),
+               ("B5 fused_swin_pair_kernel", ("fused_swin_pair_kernel",)),
                ("B4 fused_block_bwd_kernel", ("fused_block_bwd_kernel",)),
                ("convolutions (cuDNN, fwd + bwd)",
                 ("conv", "cudnn", "dgrad", "wgrad", "fprop", "implicit")),
@@ -872,65 +1015,76 @@ def profile_steps(tr, hp, steps: int = 2) -> None:
         print(f"      {us / 1e3 / steps:8.3f} ms  {name[:110]}")
 
 
-def phase_train(card: str):
+def phase_train(card: str, pair: bool = False, two_launch=None):
     """``SegmentationTrainer.train()`` at the flagship training config:
-    kernels vs plain versions on the same seeds and crops."""
+    kernels vs plain versions on the same seeds and crops; with ``pair``
+    each block pair runs as one call (B5), beside ``two_launch``, the
+    losses and median step ms of the run without it."""
     import numpy as np
     from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
         import partition
-    print("phase train: SegmentationTrainer.train(), flagship, dropout "
-          f"{DROP_RATE}/{DROP_RATE}, batch {TRAIN_BATCH} of 128x128x8")
+    name = "train-pair" if pair else "train"
+    print(f"phase {name}: SegmentationTrainer.train(), flagship, "
+          f"{'block pairs, ' if pair else ''}dropout {DROP_RATE}/{DROP_RATE}, "
+          f"batch {TRAIN_BATCH} of 128x128x8")
+    per_step = {"B5": 6, "B1": 6, "B4": 12} if pair else {"B1": 12, "B4": 12}
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         write_train_set(root)
         hp = train_hparams(root)
-        plain, plain_launches, _ = run_trainer(hp, kernels=False)
-        tr, launches, wall = run_trainer(hp, kernels=True)
+        plain, plain_launches, _ = run_trainer(hp, False, pair)
+        tr, launches, wall = run_trainer(hp, True, pair)
         steps = len(tr.losses)
         print(f"  kernels: {steps} steps in {wall:.3f} s, launches {launches}")
         print(f"  plain versions: launches {plain_launches}")
-        want = expect({"B1": 12, "B4": 12}, steps)
+        want = expect(per_step, steps)
         if steps < 5:
             failures.append(f"only {steps} training steps")
         if launches != want:
-            failures.append(f"launches {launches}, expected {want} (12 B1 "
-                            "and 12 B4 per step)")
+            failures.append(f"launches {launches}, expected {want} "
+                            f"({per_step} per step)")
         if any(plain_launches.values()):
             failures.append(f"plain run launched kernels: {plain_launches}")
         if len(plain.losses) != steps:
             failures.append(f"plain run took {len(plain.losses)} steps")
         for i, (lk, lp) in enumerate(zip(tr.losses, plain.losses)):
             rel = abs(lk - lp) / max(abs(lp), 1e-12)
-            print(f"  step {i}: loss {lk:.6f} (kernels) vs {lp:.6f} (plain), "
-                  f"rel {rel:.3g} (tol {TRAIN_LOSS_RTOL})")
+            line = (f"  step {i}: loss {lk:.6f} (kernels) vs {lp:.6f} "
+                    f"(plain), rel {rel:.3g} (tol {TRAIN_LOSS_RTOL})")
+            if two_launch is not None:
+                line += f"; two launches per pair {two_launch[0][i]:.6f}"
+            print(line)
             if not (np.isfinite(lk) and rel <= TRAIN_LOSS_RTOL):
                 failures.append(f"step {i} loss {lk} vs {lp}")
         labels = partition.downstream_labels(tr.model_conf)
         n_train = 0
-        for name, p in tr.model.named_parameters():
-            if partition.label_of(name) not in labels:
+        for pname, p in tr.model.named_parameters():
+            if partition.label_of(pname) not in labels:
                 continue
             n_train += 1
             gr = p.grad
             if gr is None or not bool(gr.isfinite().all()) or \
                     not float(gr.abs().sum()) > 0:
-                failures.append(f"trainable {name}: gradient "
+                failures.append(f"trainable {pname}: gradient "
                                 f"{'missing' if gr is None else 'bad'}")
         print(f"  {n_train} trainable tensors, each with a finite non-zero "
               "gradient" if not failures else f"  failures: {failures}")
         k_ms = float(np.median(tr.step_ms))
         p_ms = float(np.median(plain.step_ms))
-        print(f"  median step ms: kernels {k_ms:.3f}, plain {p_ms:.3f} "
-              f"(host clock around each step, ending in its loss read) on "
-              f"{card}")
+        line = (f"  median step ms: kernels {k_ms:.3f}, plain {p_ms:.3f} "
+                f"(host clock around each step, ending in its loss read) on "
+                f"{card}")
+        if two_launch is not None:
+            line += f"; two launches per pair {two_launch[1]:.3f}"
+        print(line)
         print(f"  steps ms kernels {[round(v, 3) for v in tr.step_ms]}; "
               f"plain {[round(v, 3) for v in plain.step_ms]}")
         if failures:
-            raise RuntimeError("phase train failed: " + "; ".join(failures))
+            raise RuntimeError(f"phase {name} failed: " + "; ".join(failures))
         del plain
         profile_steps(tr, hp)
-    return launches, k_ms, p_ms
+    return launches, list(tr.losses), k_ms
 
 
 def kernel_entry(name, source, replaces, launches, by_path, m, **extra):
@@ -973,18 +1127,26 @@ def main() -> int:
     clock("B6-B8 done")
     b1_train, b4 = phase_blocks_train()
     clock("blocks-train done")
+    b5, b5_train = phase_pair()
+    clock("B5 done")
     model = flagship_model()
     fused = {"B1": 12, "B2": 3}
     fwd_ms = phase_model(model, fused)
     serve_launches, vps, vps_mem = phase_serve(model, card, fused)
     clock("model, serve done")
-    ufwd_ms = phase_model(model, UNFUSED_LAUNCHES, fused=False)
+    ufwd_ms = phase_model(model, UNFUSED_LAUNCHES, "unfused")
     unfused_launches, uvps, uvps_mem = phase_serve(
-        model, card, UNFUSED_LAUNCHES, fused=False)
+        model, card, UNFUSED_LAUNCHES, "unfused")
     clock("model-unfused, serve-unfused done")
+    pair = {"B5": 6, "B2": 3}
+    pfwd_ms = phase_model(model, pair, "pair")
+    pair_launches, pvps, pvps_mem = phase_serve(model, card, pair, "pair")
+    clock("model-pair, serve-pair done")
     del model
-    train_launches, _, _ = phase_train(card)
+    train_launches, losses, step_ms = phase_train(card)
     clock("train done")
+    tpair_launches, _, pstep_ms = phase_train(card, True, (losses, step_ms))
+    clock("train-pair done")
 
     print("serve-path times are per 27-window flagship forward, train-path "
           "times per training step of batch 2 (sums over the path's calls), "
@@ -997,11 +1159,20 @@ def main() -> int:
           f"{attn['B6']['ms'] + attn['B8']['ms']:.4f} ms per forward; served "
           f"vol/s from disk {vps:.4f} vs {uvps:.4f}, in memory "
           f"{vps_mem:.4f} vs {uvps_mem:.4f}")
+    print(f"block pairs (B5) vs fused blocks (B1): forward {pfwd_ms:.4f} vs "
+          f"{fwd_ms:.4f} ms; B5 {b5['ms']:.4f} ms vs B1 + gather + B1 + "
+          f"gather {b5['two_launch_ms']:.4f} ms per forward "
+          f"({b5['differing']} of {b5['elements']} elements differ); served "
+          f"vol/s from disk {pvps:.4f} vs {vps:.4f}, in memory "
+          f"{pvps_mem:.4f} vs {vps_mem:.4f}; train step median "
+          f"{pstep_ms:.3f} vs {step_ms:.3f} ms")
 
     def paths(key):
         return {"serve": serve_launches[key],
                 "serve_unfused": unfused_launches[key],
-                "train": train_launches[key]}
+                "train": train_launches[key],
+                "serve_pair": pair_launches[key],
+                "train_pair": tpair_launches[key]}
 
     no_library = ("no single PyTorch call: the in-kernel projections (B6) "
                   "and the multiplicative mask (shifted calls)")
@@ -1024,6 +1195,18 @@ def main() -> int:
         kernel_entry("fused_block_bwd", "fused_block_bwd.cu",
                      "ops/fused_block_bwd.py:158", train_launches["B4"],
                      paths("B4"), b4),
+        kernel_entry("fused_swin_pair", "fused_pair.cu",
+                     "ops/fused_block.py:592", pair_launches["B5"],
+                     paths("B5"), b5,
+                     library_null_reason="no single PyTorch call computes "
+                     "a Swin block pair",
+                     two_launch_ms=b5["two_launch_ms"],
+                     differing_vs_two_launches=b5["differing"],
+                     elements_compared=b5["elements"])
+        | {"train": {"launches": tpair_launches["B5"],
+                     "ms": b5_train["ms"], "plain_ms": b5_train["plain_ms"],
+                     "bound_ms": b5_train["bound"].ms,
+                     "bound_by": b5_train["bound"].by}},
         kernel_entry("window_attention_packed_qkv", "window_attention.cu",
                      "ops/window_attention_pallas.py:388",
                      unfused_launches["B6"], paths("B6"),

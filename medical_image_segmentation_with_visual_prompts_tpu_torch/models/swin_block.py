@@ -17,6 +17,10 @@ then gathers back and crops.  Two bodies, as in the JAX package:
   It never pad-folds: every misaligned geometry pads materially.  Nothing
   switches to it on its own: it is chosen only explicitly.
 
+A block pair (:class:`ConsecutiveSwinBlocks`) can also run both fused
+blocks as one call of ``ops/fused_pair.py::fused_swin_pair`` (B5; the
+JAX package's ``_pair_forward``), opt-in as in the JAX package.
+
 Pad folding (the JAX ``swin_block.py:359-380`` decision, fused block
 only): axes whose feature extent is smaller than the window are not
 padded; the identical pad tokens of every window fold into one virtual
@@ -61,8 +65,10 @@ from torch import nn
 from ..ops.fused_block import (FOLD_COUNT, FOLD_KEY, FOLD_NONE, NO_DROPOUT,
                                Dropout, block_reference, fused_swin_block,
                                labels_tensor, layer_norm, make_operands)
-from ..ops.windows import (compute_paddings, content_indices, fold_geometry,
-                           gather_indices, get_attn_labels, unpad_paddings)
+from ..ops.fused_pair import fused_swin_pair, pair_reference
+from ..ops.windows import (PairPlan, compute_paddings, content_indices,
+                           fold_geometry, gather_indices, get_attn_labels,
+                           pair_plan, unpad_paddings)
 from .patch_merging import PatchMerging
 from .relative_pe import RelativePE
 from .window_attention import WindowAttention, linear
@@ -205,13 +211,14 @@ class SwinTransformerBlock(nn.Module):
         x1 = x_win + self.attn(y, y, y, bias, labels, q_rows=x_win.shape[2])
         return x1 + linear(self._norm(x1, self.mlp_norm), self.mlp)
 
-    def windows(self, x: torch.Tensor, tokens: Optional[torch.Tensor] = None):
-        """The block call for ``x``: ``(x_win, ops, labels, undo)`` -- the
-        padded, shifted, partitioned input ``[B, P, M, C]``, the cached
-        operands and labels of this geometry (``ops``: the fused block's
+    def operands(self, x: torch.Tensor,
+                 tokens: Optional[torch.Tensor] = None):
+        """This block's geometry for ``x``: ``(x, wc, ops, labels, crop)``
+        -- ``x`` padded where the geometry pads materially, the window of
+        the partition (the content window ``wc`` when pad-folded), the
+        cached operands and labels (``ops``: the fused block's
         :class:`BlockOperands`, or the unfused body's ``[H, M, N]`` bias),
-        and the function taking the block's windowed output back to
-        ``[B, H, W, D, C]``."""
+        and the un-pad crop or None."""
         dims = tuple(x.shape[1:4])
         ws = self.window_size
         shift = self.get_shift_size(dims)
@@ -238,6 +245,15 @@ class SwinTransformerBlock(nn.Module):
                 padded, shift, ref_pads, tokens, x.device)
             crop = ref_pads if any(paddings) else None
         ops, labels = self._operands(key, tokens, build)
+        return x, wc, ops, labels, crop
+
+    def windows(self, x: torch.Tensor, tokens: Optional[torch.Tensor] = None):
+        """The block call for ``x``: ``(x_win, ops, labels, undo)`` -- the
+        padded, shifted, partitioned input ``[B, P, M, C]``, the
+        :meth:`operands` of this geometry, and the function taking the
+        block's windowed output back to ``[B, H, W, D, C]``."""
+        shift = self.get_shift_size(tuple(x.shape[1:4]))
+        x, wc, ops, labels, crop = self.operands(x, tokens)
         b, c = x.shape[0], x.shape[-1]
         grid = tuple(x.shape[1:4])
         idx, inv = gather_indices(grid, wc, shift, x.device)
@@ -308,7 +324,18 @@ class SwinTransformerBlock(nn.Module):
 
 
 class ConsecutiveSwinBlocks(nn.Module):
-    """A (no-shift, shifted) block pair with optional PatchMerging."""
+    """A (no-shift, shifted) block pair with optional PatchMerging.
+
+    With :attr:`pair_kernel` on (``SwinUnetR.set_pair_kernel``, or
+    ``MIVP_PAIR_KERNEL=1`` when the model is built) the pair runs as one
+    call of ``ops/fused_pair.py::fused_swin_pair`` (B5) where the JAX
+    package's ``_pair_fusable`` would take it: fused blocks, no material
+    padding (pad-folded axes qualify), equal prompt-token counts, and a
+    shift that :func:`ops.windows.pair_plan` can express (no depth shift).
+    One partition in and one reverse out serve both blocks; each block's
+    operands and labels are its own cached ones.  Other geometries run the
+    two block calls, decided from the geometry alone before any launch.
+    """
 
     def __init__(self, hidden_channels: int, num_heads: int,
                  pos_bias_embed_dim: int, max_prompts: int,
@@ -332,10 +359,52 @@ class ConsecutiveSwinBlocks(nn.Module):
             hidden_channels,
             2 * hidden_channels if out_channels is None else out_channels,
             merge_last_dim) if down else None
+        self.pair_kernel = False
+
+    def pair_plan(self, x: torch.Tensor, tokens=(None, None)
+                  ) -> Optional[PairPlan]:
+        """The pair path's plan for ``x``, or None where the two block
+        calls run (the JAX ``_pair_fusable`` and ``_run_pair_kernel``
+        gates, ``swin_block.py:553-626``)."""
+        b0, b1 = self.swin_blocks
+        if not (self.pair_kernel and b0.fused_block and b1.fused_block):
+            return None
+        if (0 if tokens[0] is None else tokens[0].shape[0]) != \
+                (0 if tokens[1] is None else tokens[1].shape[0]):
+            return None
+        dims = tuple(x.shape[1:4])
+        ws = b0.window_size
+        paddings = compute_paddings(dims, ws, b0.pad_mode)
+        fold_axes = tuple(i for i, dim in enumerate(dims) if dim < ws[i])
+        wc, pads_eff = fold_geometry(dims, ws, fold_axes, paddings)
+        if any(pads_eff) or paddings != unpad_paddings(paddings,
+                                                       b0.pad_mode):
+            return None
+        return pair_plan(dims, wc, b1.get_shift_size(dims), x.device)
+
+    def pair_windows(self, x: torch.Tensor, tokens=(None, None)):
+        """The pair call for ``x``: ``(x_win, ops0, ops1, labels, plan,
+        undo)`` -- the unshifted windows, each block's operands, the
+        shifted block's labels, the :meth:`pair_plan` and the reverse of
+        the partition; None where the two block calls run."""
+        plan = self.pair_plan(x, tokens)
+        if plan is None:
+            return None
+        x_win, ops0, _, undo = self.swin_blocks[0].windows(x, tokens[0])
+        _, _, ops1, labels, _ = self.swin_blocks[1].operands(x, tokens[1])
+        return x_win, ops0, ops1, labels, plan, undo
 
     def forward(self, x: torch.Tensor, tokens=(None, None)) -> torch.Tensor:
-        for blk, tok in zip(self.swin_blocks, tokens):
-            x = blk(x, tok)
+        pair = self.pair_windows(x, tokens)
+        if pair is None:
+            for blk, tok in zip(self.swin_blocks, tokens):
+                x = blk(x, tok)
+        else:
+            x_win, ops0, ops1, labels, plan, undo = pair
+            b0, b1 = self.swin_blocks
+            fn = fused_swin_pair if b0.use_kernels else pair_reference
+            x = undo(fn(x_win, ops0, ops1, labels, plan, b0.dropout(),
+                        b1.dropout()))
         if self.merge is not None:
             x = self.merge(x)
         return x

@@ -29,6 +29,11 @@ is set to anything but ``0`` when the model is built (read once, as the
 JAX package reads it) or :meth:`set_fused_block` says otherwise: then the
 unfused block with its attention kernels B6/B8.  Nothing falls back from
 one to the other: a kernel that fails to build or launch raises.
+
+``MIVP_PAIR_KERNEL=1`` at build (``MIVP_NO_PAIR_KERNEL=1`` wins over it, as
+in the JAX package) or :meth:`set_pair_kernel` runs each Swin block pair
+whose geometry allows it as one pair call (B5, ``ops/fused_pair.py``), in
+serving and in training; the unfused block wins over both.
 """
 
 from __future__ import annotations
@@ -43,6 +48,10 @@ from ..config import ModelConfig
 from ..ops.resize import upsample_trilinear
 from .swin_block import ConsecutiveSwinBlocks
 from .unet_blocks import SwinUpBlock, batch_norm, conv3d, same_conv
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "0") not in ("0", "")
 
 
 class SwinUnetR(nn.Module):
@@ -107,8 +116,9 @@ class SwinUnetR(nn.Module):
         for m in self.modules():
             if hasattr(m, "set_dropout_generator"):
                 m.set_dropout_generator(self.dropout_generator)
-        self.set_fused_block(
-            os.environ.get("MIVP_NO_FUSED_BLOCK", "0") in ("0", ""))
+        self.set_fused_block(not _env_flag("MIVP_NO_FUSED_BLOCK"))
+        self.set_pair_kernel(_env_flag("MIVP_PAIR_KERNEL")
+                             and not _env_flag("MIVP_NO_PAIR_KERNEL"))
 
     def set_kernels(self, enabled: bool) -> "SwinUnetR":
         """Route the blocks and the decoder convs through the CUDA kernel
@@ -124,6 +134,14 @@ class SwinUnetR(nn.Module):
         for m in self.modules():
             if hasattr(m, "fused_block"):
                 m.fused_block = enabled
+        return self
+
+    def set_pair_kernel(self, enabled: bool) -> "SwinUnetR":
+        """Run each Swin block pair as one pair call (``True``) where its
+        geometry allows, or as two block calls."""
+        for m in self.modules():
+            if hasattr(m, "pair_kernel"):
+                m.pair_kernel = enabled
         return self
 
     def load_state_dict(self, state_dict, strict: bool = True,

@@ -316,23 +316,24 @@ def block_reference(x_win: torch.Tensor, ops: BlockOperands,
 
 
 def _check_args(x_win: torch.Tensor, ops: BlockOperands,
-                labels: Optional[torch.Tensor]) -> None:
+                labels: Optional[torch.Tensor],
+                name: str = "fused_swin_block") -> None:
     """Shape and type checks common to both paths, naming the argument."""
     if x_win.dim() != 4:
-        raise ValueError(f"fused_swin_block: x_win must be [B, P, M, C], "
+        raise ValueError(f"{name}: x_win must be [B, P, M, C], "
                          f"got shape {tuple(x_win.shape)}")
     _, pw, m, c = x_win.shape
     h = ops.num_heads
     if ops.params["wq"].shape != (c, c) or c % h:
-        raise ValueError(f"fused_swin_block: x_win has C={c}, operands "
+        raise ValueError(f"{name}: x_win has C={c}, operands "
                          f"have wq {tuple(ops.params['wq'].shape)} and "
                          f"{h} heads")
     n = m + ops.n_ext
     if tuple(ops.bias.shape) != (h, m, n):
-        raise ValueError(f"fused_swin_block: bias must be [H, M, N] = "
+        raise ValueError(f"{name}: bias must be [H, M, N] = "
                          f"{(h, m, n)}, got {tuple(ops.bias.shape)}")
     if labels is not None and tuple(labels.shape) != (pw, n):
-        raise ValueError(f"fused_swin_block: labels must be [P, N] = "
+        raise ValueError(f"{name}: labels must be [P, N] = "
                          f"{(pw, n)}, got {tuple(labels.shape)}")
 
 

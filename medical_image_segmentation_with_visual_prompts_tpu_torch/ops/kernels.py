@@ -33,14 +33,23 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 # Dropout arguments: seed_a, seed_p, threshold_a, threshold_p, scale_a,
-# scale_p, drop_cols (ops/fused_block.py::Dropout.kernel_args).
-_DROP = [_U] * 4 + [_F, _F, _I]
+# scale_p (ops/fused_block.py::Dropout.kernel_args), then drop_cols.
+_SEEDS = [_U] * 4 + [_F, _F]
+_DROP = _SEEDS + [_I]
 # C signatures of the entries in csrc/ (restype: cudaError_t as int).
 SIGNATURES = {
     # x, out, wqkv, ext_kv, bias, labels, ln1_s, ln1_b, wproj, bproj,
     # ln2_s, ln2_b, wmlp, bmlp, bp, m, c, heads, dh, n_ext, p_windows,
     # scale, dropout, stream
     "mivp_fused_swin_block": [_P] * 14 + [_I] * 7 + [_F] + _DROP + [_P],
+    # m, c, heads, dh, n_ext, dropout on, out: CTAs per SM
+    "mivp_fused_swin_block_ctas_per_sm": [_I] * 6 + [_P],
+    # x, out, src, tok, labels, ops0[11], ops1[11] (host pointer arrays),
+    # bp, m, c, heads, dh, n_ext, p_windows, scale, block 1's and block
+    # 2's seeds and rates, drop_cols, stream
+    "mivp_fused_swin_pair": [_P] * 7 + [_I] * 7 + [_F] + _SEEDS * 2
+    + [_I, _P],
+    "mivp_fused_swin_pair_ctas_per_sm": [_I] * 6 + [_P],
     # x, dout, dx, wqkv, wqkv_t, ext_kv, bias, labels, ln1_s, ln1_b, wproj,
     # wproj_io, bproj, ln2_s, ln2_b, wmlp, wmlp_io, bmlp, 4 workspaces,
     # 13 gradient outputs, bp, m, c, heads, dh, n_ext, p_windows, scale,
@@ -145,6 +154,18 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().mivp_error_string(err).decode()
         raise RuntimeError(f"{name} failed to launch: cudaError {err} ({msg})")
+
+
+def ctas_per_sm(entry: str, m: int, c: int, heads: int, n_ext: int,
+                dropout: bool) -> int:
+    """CTAs of B1 (``entry`` ``"mivp_fused_swin_block"``) or B5
+    (``"mivp_fused_swin_pair"``) that fit on one SM at this geometry
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = ctypes.c_int(0)
+    err = getattr(library(), f"{entry}_ctas_per_sm")(
+        m, c, heads, c // heads, n_ext, int(dropout), ctypes.addressof(out))
+    check(err, f"{entry}_ctas_per_sm")
+    return out.value
 
 
 def ptr(t) -> int:

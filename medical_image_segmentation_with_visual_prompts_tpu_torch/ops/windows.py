@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +50,19 @@ def _window_partition_np(m: np.ndarray, window_size) -> np.ndarray:
     return m.reshape(p1 * p2 * p3, wh * ww * wd)
 
 
+def _gather_np(grid, window_size, shift) -> np.ndarray:
+    """Voxel of each (window, token) slot of the shifted partition."""
+    src = np.roll(np.arange(int(np.prod(grid))).reshape(grid),
+                  tuple(-s for s in shift), axis=(0, 1, 2))
+    return _window_partition_np(src, window_size).reshape(-1)
+
+
+def _device_tensors(*arrays, device):
+    # Outside inference mode, so that autograd may save them later.
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device) for a in arrays)
+
+
 @lru_cache(maxsize=None)
 def gather_indices(grid: Tuple[int, int, int],
                    window_size: Tuple[int, int, int],
@@ -59,13 +72,51 @@ def gather_indices(grid: Tuple[int, int, int],
     ``window_partition(torch.roll(x, -shift))`` flattened to
     ``[B, P*N, C]``, and ``index_select(1, inv)`` undoes it (one gather
     each way instead of a roll and a permute copy)."""
-    src = np.roll(np.arange(int(np.prod(grid))).reshape(grid),
-                  tuple(-s for s in shift), axis=(0, 1, 2))
-    idx = _window_partition_np(src, window_size).reshape(-1)
-    # Outside inference mode, so that autograd may save them later.
-    with torch.inference_mode(False):
-        return (torch.as_tensor(idx, device=device),
-                torch.as_tensor(np.argsort(idx), device=device))
+    idx = _gather_np(grid, window_size, shift)
+    return _device_tensors(idx, np.argsort(idx), device=device)
+
+
+class PairPlan(NamedTuple):
+    """Where block 2 of a (no-shift, shift) pair finds its rows in block
+    1's unshifted windows (one image; every image of a batch alike).
+
+    ``src [P]`` int32: the one source window of each shifted window;
+    ``tok [P, M]`` int32: the source token that lands at each token;
+    ``index``/``inverse`` ``[P*M]`` int64: the same map as flat rows
+    (``src * M + tok``) and its inverse, for ``index_select``."""
+
+    src: torch.Tensor
+    tok: torch.Tensor
+    index: torch.Tensor
+    inverse: torch.Tensor
+
+
+@lru_cache(maxsize=None)
+def pair_plan(grid: Tuple[int, int, int], window_size: Tuple[int, int, int],
+              shift: Tuple[int, int, int], device: torch.device
+              ) -> Optional[PairPlan]:
+    """The shift between the blocks of a pair as a window map plus an
+    in-window token map: :func:`gather_indices` of ``shift`` composed
+    with the inverse of :func:`gather_indices` of no shift.  In the
+    dilated partition (voxel ``t*p + w`` of an axis is token ``t`` of
+    window ``w``) a roll by ``s = q*p + r`` sends window ``w`` to ``(w +
+    r) mod p`` and rolls its tokens, so each shifted window draws from one
+    source window; None when one does not, and for a depth shift, which
+    the JAX package's pair kernel does not take either
+    (``windows.py::kernel_shift_plan``), so that the pair runs on exactly
+    the geometries where the JAX package's does."""
+    if shift[2]:
+        return None
+    m = int(np.prod(window_size))
+    slot = np.empty(int(np.prod(grid)), np.int64)
+    slot[_gather_np(grid, window_size, (0, 0, 0))] = np.arange(slot.size)
+    flat = slot[_gather_np(grid, window_size, shift)].reshape(-1, m)
+    src = flat[:, 0] // m
+    if (flat // m != src[:, None]).any():
+        return None
+    return PairPlan(*_device_tensors(
+        src.astype(np.int32), (flat % m).astype(np.int32), flat.reshape(-1),
+        np.argsort(flat.reshape(-1)), device=device))
 
 
 @lru_cache(maxsize=None)

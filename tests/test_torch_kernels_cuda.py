@@ -11,7 +11,10 @@ states: kernel and plain version both use bf16 operands and fp32 sums,
 and a sum in another order flips at most a few bf16 roundings.  The
 backward kernel's gradients are held to ``GRAD_TOL`` of each gradient's
 largest magnitude: it rounds P, dS and the row gradients to bf16 where
-the plain version (autograd of ``block_reference``) keeps fp32.
+the plain version (autograd of ``block_reference``) keeps fp32.  The
+block pair kernel (B5) is also held bit for bit to B1, the pair's row
+gather, B1 and the inverse gather: it runs B1's device code twice and
+rounds block 1's output to bf16 where the two launches store it.
 """
 
 import pytest
@@ -21,8 +24,14 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     conv_fused as cf
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     fused_block as fb
+from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
+    ConsecutiveSwinBlocks
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     fused_block_bwd as fbb
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
+    fused_pair as fp
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
+    init_weights
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     window_attention as wa
 
@@ -284,3 +293,102 @@ def test_conv3x3_one_input_kernel_matches_plain(dev, shape, ci, co, affine,
     assert cf.conv3x3_fused.launches == before + 1
     assert got.shape == (*shape, co) and got.dtype == torch.bfloat16
     _assert_close(got, ref)
+
+
+# (C, heads, spatial dims, window, prompt tokens): a window-permuted
+# shift, the flagship's 64x64x4 stage (M 256, 64 tokens), its pad-folded
+# 32x32x2 and 16x16x2 stages (FOLD_KEY then FOLD_COUNT, M 128), and an
+# unshifted pair (the shift zeroed where the extent equals the window).
+PAIR_CASES = [(16, 2, (16, 16, 4), (4, 4, 4), 3),
+              (48, 4, (64, 64, 4), (8, 8, 4), 64),
+              (96, 8, (32, 32, 2), (8, 8, 4), 64),
+              (192, 4, (16, 16, 2), (8, 8, 4), 64),
+              (32, 2, (4, 4, 4), (4, 4, 4), 0)]
+PAIR_DROP = (fb.Dropout((31, 32), 0.1, 0.1), fb.Dropout((33, 34), 0.1, 0.1))
+
+
+def _pair_case(dev, c, heads, dims, window, n_tok, seed=7):
+    g = torch.Generator().manual_seed(seed)
+    pair = ConsecutiveSwinBlocks(c, heads, 8, 1, max(n_tok, 1), window,
+                                 down=False, pad_mode="aligned",
+                                 dtype=torch.bfloat16)
+    pair = init_weights(pair, g).to(dev)
+    pair.pair_kernel = True
+    x = torch.randn((2, *dims, c), generator=g).to(dev, torch.bfloat16)
+    toks = tuple((0.5 * torch.randn((n_tok, c), generator=g)).to(dev)
+                 if n_tok else None for _ in range(2))
+    with torch.no_grad():
+        call = pair.pair_windows(x, toks)
+    assert call is not None
+    return call[:5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims,window,n_tok", PAIR_CASES)
+@pytest.mark.parametrize("dropout", [False, True])
+def test_pair_kernel_matches_plain_and_equals_two_launches(
+        dev, c, heads, dims, window, n_tok, dropout):
+    x_win, ops0, ops1, labels, plan = _pair_case(dev, c, heads, dims, window,
+                                                 n_tok)
+    d0, d1 = PAIR_DROP if dropout else (fb.NO_DROPOUT, fb.NO_DROPOUT)
+    with torch.inference_mode():
+        ref = fp.pair_reference(x_win, ops0, ops1, labels, plan, d0, d1)
+        before = fp.fused_swin_pair.launches
+        got = fp.fused_swin_pair(x_win, ops0, ops1, labels, plan, d0, d1)
+        torch.cuda.synchronize()
+        assert fp.fused_swin_pair.launches == before + 1
+        x1 = fb.fused_swin_block(x_win, ops0, None, d0)
+        x2 = fb.fused_swin_block(fp.plan_gather(x1, plan.index), ops1,
+                                 labels, d1)
+        chain = fp.plan_gather(x2, plan.inverse)
+    assert got.dtype == torch.bfloat16 and got.shape == x_win.shape
+    _assert_close(got, ref)
+    assert torch.equal(got, chain), int((got != chain).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims,window,n_tok", PAIR_CASES[:4])
+def test_pair_backward_kernels_match_plain(dev, c, heads, dims, window,
+                                           n_tok):
+    x_win, ops0, ops1, labels, plan = _pair_case(dev, c, heads, dims, window,
+                                                 n_tok, seed=8)
+    dout = torch.randn(x_win.shape, generator=torch.Generator().manual_seed(
+        9)).to(dev, torch.bfloat16)
+    counts = (fb.fused_swin_block.launches, fbb.block_backward.launches)
+    dx, got0, got1 = fp.pair_backward(x_win, dout, ops0, ops1, labels, plan,
+                                      *PAIR_DROP)
+    torch.cuda.synchronize()
+    assert (fb.fused_swin_block.launches, fbb.block_backward.launches) == \
+        (counts[0] + 1, counts[1] + 2)
+    x = x_win.detach().requires_grad_()
+    leaves = [[None if t is None else t.detach().requires_grad_()
+               for t in ops.tensors()] for ops in (ops0, ops1)]
+    with torch.enable_grad():
+        out = fp.pair_reference(x, ops0.with_tensors(leaves[0]),
+                                ops1.with_tensors(leaves[1]), labels, plan,
+                                *PAIR_DROP)
+    flat = [t for t in leaves[0] + leaves[1] if t is not None]
+    want = iter(torch.autograd.grad(out, [x] + flat, dout, allow_unused=True))
+    names = ["x", "bias", "ext_k", "ext_v", *fb.PARAM_KEYS]
+    for blk, got in ((None, (dx,)), (0, got0), (1, got1)):
+        for i, g in enumerate(got):
+            name = "x" if blk is None else f"block {blk} {names[i + 1]}"
+            if g is None:
+                continue
+            r = next(want)
+            g, r = g.float(), torch.zeros_like(g.float()) if r is None \
+                else r.float()
+            assert torch.isfinite(g).all(), name
+            err = (g - r).abs().max().item()
+            scale = r.abs().max().item()
+            assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_pair_kernel_rejects_bad_calls(dev):
+    x_win, ops0, ops1, labels, plan = _pair_case(dev, *PAIR_CASES[0])
+    with pytest.raises(ValueError, match="x_win must be bfloat16"):
+        fp.fused_swin_pair(x_win.float(), ops0, ops1, labels, plan)
+    cpu_plan = plan._replace(src=plan.src.cpu())
+    with pytest.raises(ValueError, match="plan.src must be"):
+        fp.fused_swin_pair(x_win, ops0, ops1, labels, cpu_plan)

@@ -24,7 +24,8 @@ def test_every_port_module_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         for mod in ("infer", "ops.kernels", "ops.prng", "ops.fused_block",
-                    "ops.fused_block_bwd", "ops.window_attention",
+                    "ops.fused_block_bwd", "ops.fused_pair",
+                    "ops.window_attention",
                     "ops.conv_fused", "models.window_attention",
                     "ops.augment", "losses.dice",
                     "utils.metrics", "utils.schedules", "utils.device",

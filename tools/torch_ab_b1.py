@@ -12,8 +12,8 @@ serving geometries (27 windows; no dropout, as serving calls it) on the
 same seeded blocks and inputs, and times each call with CUDA events.
 Outputs of every run are compared bit for bit with the first run's.
 ``ptxas -v`` register counts of each checkout's ``fused_block.cu`` (and
-``window_attention.cu``, which shares its attention device code) are
-printed first.  Imports torch and the port only.
+``window_attention.cu`` and ``fused_pair.cu``, which share its device
+code, where the checkout has them) are printed first.  Imports torch and the port only.
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ print(json.dumps({"build_s": build_s, "ms": times}))
 def ptxas(root: Path) -> None:
     """Registers, shared memory and spills of each kernel instantiation
     of the checkout's attention sources (``nvcc -Xptxas -v``)."""
-    for name in ("fused_block.cu", "window_attention.cu"):
+    for name in ("fused_block.cu", "window_attention.cu", "fused_pair.cu"):
         src = root / PKG / "csrc" / name
         if not src.exists():
             continue
