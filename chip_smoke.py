@@ -36,7 +36,18 @@ the port's paths:
   B1 + the pair's row gather + B1 + the inverse gather at the 6 flagship
   pair geometries (and with dropout at the training batch), then the
   flagship model, the served volume and the trainer through it (6 B5 + 3
-  B2 per forward; 6 B5 + 6 B1 + 12 B4 per training step).
+  B2 per forward; 6 B5 + 6 B1 + 12 B4 per training step);
+* an fp32 trunk: the model of ``configurations/example_configs.yml``
+  (``compute_dtype: float32``, ``pad_mode: reference``; found by the
+  port's config lookup, seeded random weights) with and without the
+  kernels and served as above (12 B1 + 3 B2 per forward, fp32
+  activations in B1, B2 rounding its inputs to bf16 and writing fp32),
+  then two training steps of the flagship training config with an fp32
+  trunk (12 B1 + 12 B4 per step).
+
+B2 and B3 are timed beside one cuDNN ``conv3d`` on the same shapes
+without the prologue (bf16, channels-last), and each B2 launch reports
+its tile, registers, spills and CTAs per SM.
 
 Each path runs with the launch counters set to 0 just before and read
 just after.  It prints one JSON line describing the kernels (times,
@@ -280,9 +291,13 @@ def phase_convs(gen_seed: int = SEED + 1):
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .conv_fused import (conv3x3_fused_pair, conv_pair_reference,
                             kernel_weight)
-    print("phase B2: pair conv vs conv_pair_reference (bf16)")
-    failures, errs = [], []
-    ms = plain_ms = 0.0
+    import torch.nn.functional as F
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .conv_fused import tile_info
+    print("phase B2: pair conv vs conv_pair_reference (bf16), beside cuDNN "
+          "conv3d of the concat without the prologue (bf16, channels-last)")
+    failures, errs, tiles = [], [], {}
+    ms = plain_ms = cudnn_ms = 0.0
     bound = Bound()
     g = torch.Generator().manual_seed(gen_seed)
     for name, ca, cb, co, dims in CONV_SHAPES:
@@ -309,19 +324,28 @@ def phase_convs(gen_seed: int = SEED + 1):
                                                      shift, w27=w27))
             t_p = cuda_ms(lambda: conv_pair_reference(xa, xb, w, bias, scale,
                                                       shift))
+            xc = torch.cat([xa, xb], -1).permute(0, 4, 1, 2, 3)
+            wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+            t_l = cuda_ms(lambda: F.conv3d(xc, wb, bb, padding=1))
+        tiles[name] = tile_info((BATCH, *dims), co)
+        print(f"    tile {tiles[name]}")
+        cudnn_ms += t_l
         vox = BATCH * dims[0] * dims[1] * dims[2]
         # bf16 inputs, bf16 27-tap weight, fp32 scale/shift/bias, bf16 out.
         bound.add(2 * vox * co * 27 * cin,
                   vox * cin * 2 + 27 * cin * co * 2 + cin * 8 + co * 4
                   + vox * co * 2)
-        print(f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        print(f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms, cuDNN conv3d "
+              f"{t_l:.4f} ms")
         ms += t_k
         plain_ms += t_p
+    print(f"  B2: {ms:.4f} ms per forward (cuDNN conv3d without the prologue "
+          f"{cudnn_ms:.4f}, bound {bound.ms:.4f} ({bound.by}))")
     b3 = phase_conv_one_input(g, failures)
     if failures:
         raise RuntimeError("phase B2 failed: " + "; ".join(failures))
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound": bound}, b3
+            "bound": bound, "cudnn_ms": cudnn_ms, "tiles": tiles}, b3
 
 
 def phase_conv_one_input(g, failures):
@@ -361,6 +385,7 @@ def phase_conv_one_input(g, failures):
                 wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
                 t_l = cuda_ms(lambda: F.conv3d(xc, wb, bb, padding=1))
                 res["library_ms"] = t_l
+                res["no_prologue_ms"] = t_k
                 line += f", cuDNN conv3d {t_l:.4f} ms"
         res["bound"].add(2 * vox * co * 27 * ci,
                          vox * ci * 2 + 27 * ci * co * 2 + co * 4
@@ -721,6 +746,25 @@ def flagship_model():
     return model.cuda().eval()
 
 
+def example_model():
+    """The model of ``configurations/example_configs.yml`` (fp32 trunk,
+    ``pad_mode: reference``, no prompts), found by the port's config
+    lookup as the serving CLI finds it and built by ``infer.build_model``,
+    with seeded random weights, on the card."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import load_conf
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
+        import build_model
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import init_weights
+    model = build_model(load_conf("example_configs.yml"), device="cpu")
+    init_weights(model, torch.Generator().manual_seed(SEED + 9))
+    if model.conf.compute_dtype != "float32":
+        raise RuntimeError("example_configs.yml no longer has an fp32 trunk")
+    return model.cuda().eval()
+
+
 def argmax_agreement(name: str, y, ref) -> float:
     """Share of voxels whose argmax class agrees; prints the logit and
     probability differences beside it."""
@@ -747,14 +791,21 @@ def set_mode(model, mode: str):
     return model.set_pair_kernel(mode == "pair")
 
 
-def phase_model(model, per_forward: dict, mode: str = "fused"):
-    """Flagship forward on a 27-window batch: kernels vs plain versions;
-    the unfused blocks and the block pairs also against the fused blocks
-    on the same weights.  Returns the kernel forward's ms (CUDA events)."""
+def phase_model(model, per_forward: dict, mode: str = "fused",
+                name: str = "flagship", gate_argmax: bool = True):
+    """Forward of ``model`` (the flagship, or ``name``) on a 27-window
+    batch: kernels vs plain versions; the unfused blocks and the block
+    pairs also against the fused blocks on the same weights.  Launches,
+    shape and finiteness always gate; the argmax agreement on this
+    uniform-noise batch gates unless ``gate_argmax`` is off (then the
+    served labels of :func:`phase_serve` carry the agreement gate).
+    Returns the kernel forward's ms (CUDA events)."""
     import torch
     label = MODES[mode]
-    print(f"phase model{'' if mode == 'fused' else '-' + mode}: flagship "
-          f"SwinUnetR, {label}, bf16 trunk, [27, 128, 128, 8, 1]")
+    tag = "" if name == "flagship" else "-" + name
+    print(f"phase model{'' if mode == 'fused' else '-' + mode}{tag}: {name} "
+          f"SwinUnetR, {label}, {model.conf.compute_dtype} trunk, "
+          "[27, 128, 128, 8, 1]")
     g = torch.Generator().manual_seed(SEED + 3)
     x = torch.rand((BATCH, 128, 128, 8, 1), generator=g).cuda()
     set_mode(model, mode)
@@ -779,10 +830,10 @@ def phase_model(model, per_forward: dict, mode: str = "fused"):
                         f"{bool(torch.isfinite(y).all())}")
     refs = [("plain", y_plain)] + ([] if y_fused is None
                                    else [("fused blocks", y_fused)])
-    for name, ref in refs:
-        agree = argmax_agreement(name, y, ref)
-        if not agree >= MODEL_MIN_ARGMAX_AGREEMENT:
-            failures.append(f"argmax agreement vs {name} {agree} < "
+    for ref_name, ref in refs:
+        agree = argmax_agreement(ref_name, y, ref)
+        if gate_argmax and not agree >= MODEL_MIN_ARGMAX_AGREEMENT:
+            failures.append(f"argmax agreement vs {ref_name} {agree} < "
                             f"{MODEL_MIN_ARGMAX_AGREEMENT}")
     if failures:
         raise RuntimeError(f"phase model ({label}) failed: "
@@ -790,10 +841,12 @@ def phase_model(model, per_forward: dict, mode: str = "fused"):
     return fwd_ms
 
 
-def phase_serve(model, card: str, per_volume: dict, mode: str = "fused"):
-    """Serve a seeded 320x320x24 int16 volume; kernels vs plain labels.
-    Returns the launches of the timed run and the served volumes per
-    second from disk and in memory."""
+def phase_serve(model, card: str, per_volume: dict, mode: str = "fused",
+                name: str = "flagship"):
+    """Serve a seeded 320x320x24 int16 volume through ``model`` (the
+    flagship, or ``name``); kernels vs plain labels.  Returns the launches
+    of the timed run and the served volumes per second from disk and in
+    memory."""
     import numpy as np
     import torch
     from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
@@ -803,8 +856,10 @@ def phase_serve(model, card: str, per_volume: dict, mode: str = "fused"):
     from medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
         import make_runner, predict_device, serve_volumes
     label = MODES[mode]
-    print(f"phase serve{'' if mode == 'fused' else '-' + mode}: 320x320x24 "
-          f"int16 CT, stride 0.75, coverage crop, {label}")
+    tag = "" if name == "flagship" else "-" + name
+    print(f"phase serve{'' if mode == 'fused' else '-' + mode}{tag}: "
+          f"320x320x24 int16 CT, stride 0.75, coverage crop, {name} model, "
+          f"{label}, {model.conf.compute_dtype} trunk")
     rng = np.random.default_rng(SEED + 4)
     hu = rng.normal(40.0, 300.0, size=(320, 320, 24))
     zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n) for n in (320, 320, 24)),
@@ -872,16 +927,17 @@ def phase_serve(model, card: str, per_volume: dict, mode: str = "fused"):
     return launches, vps, vps_mem
 
 
-def write_train_set(root: Path) -> None:
-    """Seeded synthetic CT set: int16 HU volumes with a bright ellipsoid
-    labelled 1 inside a body labelled 2 (2 is not an active label)."""
+def write_train_set(root: Path, volumes: int = TRAIN_VOLUMES) -> None:
+    """Seeded synthetic CT set of ``volumes`` int16 HU volumes with a
+    bright ellipsoid labelled 1 inside a body labelled 2 (2 is not an
+    active label)."""
     import numpy as np
     from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
         import save_nifti
     rng = np.random.default_rng(SEED + 6)
     (root / "img").mkdir()
     (root / "msk").mkdir()
-    for k in range(TRAIN_VOLUMES):
+    for k in range(volumes):
         shape = (144 + 8 * (k % 3), 136 + 8 * (k % 2), 12 + k % 4)
         axes = [np.linspace(-1, 1, n) for n in shape]
         zz, yy, xx = np.meshgrid(*axes, indexing="ij")
@@ -900,15 +956,17 @@ def write_train_set(root: Path) -> None:
                    mask.astype(np.int16))
 
 
-def train_hparams(root: Path) -> Namespace:
+def train_hparams(root: Path, **model) -> Namespace:
     """The flagship training config (the JAX package's
     ``tools/bench_train_step.py`` ``_base_conf``: ``flagship_conf`` with
     ``use_checkpoint`` and dropout 0.1/0.1, AdamW 5e-4 / 0.1, labels
-    [0, 1]) and a loader over ``root``."""
+    [0, 1]; ``model`` overrides its model fields) and a loader over
+    ``root``."""
     from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
         import flagship_conf
     conf = dataclasses.asdict(flagship_conf(
-        use_checkpoint=True, attn_drop=DROP_RATE, proj_drop=DROP_RATE))
+        use_checkpoint=True, attn_drop=DROP_RATE, proj_drop=DROP_RATE,
+        **model))
     conf.update(
         seed=SEED, lr_downstream=5e-4, weight_decay_downstream=0.1,
         active_labels_downstream=[0, 1], include_background=True,
@@ -1015,31 +1073,37 @@ def profile_steps(tr, hp, steps: int = 2) -> None:
         print(f"      {us / 1e3 / steps:8.3f} ms  {name[:110]}")
 
 
-def phase_train(card: str, pair: bool = False, two_launch=None):
+def phase_train(card: str, pair: bool = False, two_launch=None,
+                fp32: bool = False):
     """``SegmentationTrainer.train()`` at the flagship training config:
     kernels vs plain versions on the same seeds and crops; with ``pair``
     each block pair runs as one call (B5), beside ``two_launch``, the
-    losses and median step ms of the run without it."""
+    losses and median step ms of the run without it; with ``fp32`` the
+    trunk is fp32 (B1 and B4 read and write fp32 activations) and the run
+    is two steps, not profiled."""
     import numpy as np
     from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
         import partition
-    name = "train-pair" if pair else "train"
+    name = "train-pair" if pair else "train-fp32" if fp32 else "train"
     print(f"phase {name}: SegmentationTrainer.train(), flagship, "
-          f"{'block pairs, ' if pair else ''}dropout {DROP_RATE}/{DROP_RATE}, "
-          f"batch {TRAIN_BATCH} of 128x128x8")
+          f"{'block pairs, ' if pair else ''}"
+          f"{'fp32' if fp32 else 'bf16'} trunk, dropout {DROP_RATE}/"
+          f"{DROP_RATE}, batch {TRAIN_BATCH} of 128x128x8")
     per_step = {"B5": 6, "B1": 6, "B4": 12} if pair else {"B1": 12, "B4": 12}
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        write_train_set(root)
-        hp = train_hparams(root)
+        # 3 volumes: 2 train volumes x 2 crops = 2 steps of batch 2.
+        write_train_set(root, 3 if fp32 else TRAIN_VOLUMES)
+        hp = train_hparams(root, compute_dtype="float32") if fp32 else \
+            train_hparams(root)
         plain, plain_launches, _ = run_trainer(hp, False, pair)
         tr, launches, wall = run_trainer(hp, True, pair)
         steps = len(tr.losses)
         print(f"  kernels: {steps} steps in {wall:.3f} s, launches {launches}")
         print(f"  plain versions: launches {plain_launches}")
         want = expect(per_step, steps)
-        if steps < 5:
+        if steps < (2 if fp32 else 5):
             failures.append(f"only {steps} training steps")
         if launches != want:
             failures.append(f"launches {launches}, expected {want} "
@@ -1083,7 +1147,8 @@ def phase_train(card: str, pair: bool = False, two_launch=None):
         if failures:
             raise RuntimeError(f"phase {name} failed: " + "; ".join(failures))
         del plain
-        profile_steps(tr, hp)
+        if not fp32:
+            profile_steps(tr, hp)
     return launches, list(tr.losses), k_ms
 
 
@@ -1147,6 +1212,18 @@ def main() -> int:
     clock("train done")
     tpair_launches, _, pstep_ms = phase_train(card, True, (losses, step_ms))
     clock("train-pair done")
+    model = example_model()
+    # Seeded random weights without prompts leave this model's two logits
+    # close on many voxels of the noise batch (narrower margins than the
+    # flagship's), so its agreement there is printed and the served CT
+    # volume's labels carry the 0.999 gate.
+    f32_fwd_ms = phase_model(model, fused, name="fp32", gate_argmax=False)
+    f32_launches, fvps, fvps_mem = phase_serve(model, card, fused,
+                                               name="fp32")
+    del model
+    clock("model-fp32, serve-fp32 done")
+    tf32_launches, _, _ = phase_train(card, fp32=True)
+    clock("train-fp32 done")
 
     print("serve-path times are per 27-window flagship forward, train-path "
           "times per training step of batch 2 (sums over the path's calls), "
@@ -1166,13 +1243,21 @@ def main() -> int:
           f"vol/s from disk {pvps:.4f} vs {vps:.4f}, in memory "
           f"{pvps_mem:.4f} vs {vps_mem:.4f}; train step median "
           f"{pstep_ms:.3f} vs {step_ms:.3f} ms")
+    print(f"fp32 trunk (example_configs.yml, pad_mode reference): forward "
+          f"{f32_fwd_ms:.4f} ms; served vol/s from disk {fvps:.4f}, in "
+          f"memory {fvps_mem:.4f}")
+    print(f"B2: {b2['ms']:.4f} ms per forward vs cuDNN conv3d without the "
+          f"prologue {b2['cudnn_ms']:.4f}; B3 no prologue "
+          f"{b3['no_prologue_ms']:.4f} vs cuDNN {b3['library_ms']:.4f} ms")
 
     def paths(key):
         return {"serve": serve_launches[key],
                 "serve_unfused": unfused_launches[key],
                 "train": train_launches[key],
                 "serve_pair": pair_launches[key],
-                "train_pair": tpair_launches[key]}
+                "train_pair": tpair_launches[key],
+                "serve_fp32": f32_launches[key],
+                "train_fp32": tf32_launches[key]}
 
     no_library = ("no single PyTorch call: the in-kernel projections (B6) "
                   "and the multiplicative mask (shifted calls)")
@@ -1187,9 +1272,15 @@ def main() -> int:
                      "max_abs_err": b1["max_abs_err"]}},
         kernel_entry("conv3x3_fused_pair", "conv3x3_pair.cu",
                      "ops/conv_pallas.py:270", serve_launches["B2"],
-                     paths("B2"), b2),
+                     paths("B2"), b2,
+                     library_null_reason="no single PyTorch call: the BN + "
+                     "LeakyReLU prologue on two inputs",
+                     cudnn_conv3d_ms=b2["cudnn_ms"],
+                     cudnn_scope="conv3d of the concat without the "
+                     "prologue (less work than B2)", tiles=b2["tiles"]),
         kernel_entry("conv3x3_fused", "conv3x3_pair.cu",
                      "ops/conv_pallas.py:41", 0, paths("B3"), b3,
+                     no_prologue_ms=b3["no_prologue_ms"],
                      library_scope="cuDNN conv3d of the no-prologue call "
                      "only; no model calls B3"),
         kernel_entry("fused_block_bwd", "fused_block_bwd.cu",

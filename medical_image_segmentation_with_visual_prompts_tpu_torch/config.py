@@ -1,4 +1,4 @@
-"""Model hyperparameters of the PyTorch port.
+"""Model hyperparameters and config files of the PyTorch port.
 
 Counterpart of ``models/swin_unetr.py::ModelConfig`` in the JAX package:
 the same field names and defaults, so a YAML config or a JAX
@@ -6,14 +6,23 @@ the same field names and defaults, so a YAML config or a JAX
 switches of the JAX config (``fold_head_depth``, ``fold_head_hw``) and
 ``attn_impl`` are accepted and ignored: the port runs plain torch convs
 and its own kernels.
+
+:func:`load_conf` is the config lookup and merge of the JAX package's
+``utils/configs.py::get_full_configs``: the YAML file is found as an
+absolute path, then with ``~`` expanded (or from the working directory),
+then under the repository's ``configurations/``, and its values win over
+the command line's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Tuple
 
 import torch
+
+DEFAULT_CONFIG_DIR = Path(__file__).resolve().parent.parent / "configurations"
 
 TRAINING_MODES = (
     "self_supervised_learning_encoder",
@@ -123,3 +132,28 @@ def flagship_conf(**overrides) -> ModelConfig:
     )
     base.update(overrides)
     return ModelConfig(**base)
+
+
+def config_path(configs) -> Path:
+    """The YAML file ``configs`` names, looked up as the JAX CLI does:
+    an existing absolute path, then the path with ``~`` expanded
+    (relative paths from the working directory), then the file under
+    :data:`DEFAULT_CONFIG_DIR`.  Raises ``FileNotFoundError``."""
+    pth = Path(configs)
+    if pth.is_absolute() and pth.exists():
+        return pth
+    if pth.expanduser().exists():
+        return pth.expanduser()
+    if (DEFAULT_CONFIG_DIR / pth).exists():
+        return DEFAULT_CONFIG_DIR / pth
+    raise FileNotFoundError("The configuration file does not exist!")
+
+
+def load_conf(configs, /, **cli) -> dict:
+    """The command line's values ``cli`` merged with the YAML file of
+    :func:`config_path`; the YAML wins on duplicate keys (PyYAML is
+    imported only here)."""
+    import yaml
+    with open(config_path(configs)) as f:
+        more = yaml.safe_load(f) or {}
+    return {**cli, **more}

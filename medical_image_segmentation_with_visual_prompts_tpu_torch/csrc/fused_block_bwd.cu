@@ -10,7 +10,12 @@
 //   (dS = P o (dP - rowsum(dO o O)), dropout mask inside dP)
 //   -> multiplicative label mask -> scores -> q/k/v -> LN1 -> residuals
 //
-// Outputs: dx (bf16, per window) and fp32 gradients of every operand:
+// x and dout are fp32 or bf16 (one run-time flag, as the forward's x);
+// dx is written in their dtype.  Matmul operands are rounded to bf16 (the
+// copy of dout in the workspace too); the residual gradients read dout
+// and x in their own dtype.
+//
+// Outputs: dx (per window) and fp32 gradients of every operand:
 // the five weights in (in, out) layout, the six LayerNorm/bias vectors,
 // the assembled bias [H, M, N] and the [E, C] extra K and V rows.  The
 // wrapper (ops/fused_block_bwd.py) maps the row and bias gradients back
@@ -41,9 +46,9 @@
 namespace {
 
 struct BwdArgs {
-  const bf16* x;        // [BP, M, C]
-  const bf16* dout;     // [BP, M, C]
-  bf16* dx;             // [BP, M, C]
+  const void* x;        // [BP, M, C], fp32 or bf16 (f32)
+  const void* dout;     // [BP, M, C], x's dtype
+  void* dx;             // [BP, M, C], x's dtype
   const bf16* wqkv;     // [H, 3, DHK, C]: Wq|Wk|Wv of head h, (out, in)
   const bf16* wqkv_t;   // [H, 3, C, DHK]: the same, (in, out)
   const bf16* ext_kv;   // [H, 2, E, DHK]: extra K rows, then extra V rows
@@ -79,6 +84,7 @@ struct BwdArgs {
   int m, c, heads, n_ext, p_windows, mp;
   float scale;
   DropArgs drop;
+  bool f32;             // x, dout and dx are fp32 (else bf16)
 };
 
 // Shared-memory layout, in bytes: Q, dO and dQ rows for the CTA's MP rows,
@@ -249,30 +255,31 @@ __global__ void fused_block_bwd_kernel(const BwdArgs a) {
   float* DY = X1 + 3 * MC; // d(LN1 output)
   float* ST = a.ws_s + win * MP * 4;
   float* SM = a.ws_sm + win * H * MP * 2;
-  const bf16* xw = a.x + win * M * C;
-  const bf16* dw = a.dout + win * M * C;
+  const bool f32 = a.f32;
+  const void* xw = act_at(a.x, win * M * C, f32);
+  const void* dw = act_at(a.dout, win * M * C, f32);
   const bf16 zero = __float2bfloat16_rn(0.f);
   const bool masked = a.labels != nullptr;
   float acc[2][kNT][4];
 
   // ---- 0: LN1 of the thread's row (as the forward), dout copy ----
   if (i < M) {
-    const bf16* xr = xw + (size_t)i * C;
+    const size_t xr = (size_t)i * C;
     float sum = 0.f, sq2 = 0.f;
     for (int c = 0; c < C; c += 2) {
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + c));
+      const float2 v = ld_act2(xw, xr + c, f32);
       sum += v.x + v.y;
       sq2 += v.x * v.x + v.y * v.y;
     }
     const float mu = sum / C;
     const float rstd = rsqrtf(sq2 / C - mu * mu + kEps);
     for (int c = 0; c < C; c += 2) {
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + c));
+      const float2 v = ld_act2(xw, xr + c, f32);
       *reinterpret_cast<uint32_t*>(Y + i * C + c) = pack2(
           (v.x - mu) * rstd * __ldg(a.ln1_s + c) + __ldg(a.ln1_b + c),
           (v.y - mu) * rstd * __ldg(a.ln1_s + c + 1) + __ldg(a.ln1_b + c + 1));
-      *reinterpret_cast<uint32_t*>(DO + i * C + c) =
-          *reinterpret_cast<const uint32_t*>(dw + (size_t)i * C + c);
+      const float2 d = ld_act2(dw, xr + c, f32);
+      *reinterpret_cast<uint32_t*>(DO + i * C + c) = pack2(d.x, d.y);
     }
     ST[i * 4] = mu;
     ST[i * 4 + 1] = rstd;
@@ -442,8 +449,7 @@ __global__ void fused_block_bwd_kernel(const BwdArgs a) {
         for (int hf = 0; hf < 2; ++hf) {
           const int r = r0 + mt * 16 + g + hf * 8, col = n0 + nt * 8 + 2 * cq;
           if (mt < mtiles && nt < ntiles && r < M) {
-            const float2 xv = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(xw + (size_t)r * C + col));
+            const float2 xv = ld_act2(xw, (size_t)r * C + col, f32);
             float p0 = acc[mt][nt][2 * hf] + __ldg(a.bproj + col);
             float p1 = acc[mt][nt][2 * hf + 1] + __ldg(a.bproj + col + 1);
             if (a.drop.thr_p) {
@@ -522,7 +528,7 @@ __global__ void fused_block_bwd_kernel(const BwdArgs a) {
     for (int c = lane; c < C; c += 32) {
       const float xh = (X1[r * C + c] - mu) * rstd;
       const float dxh = DL[r * C + c] * __ldg(a.ln2_s + c);
-      const float gv = __bfloat162float(DO[r * C + c]) + (dxh - s1 - xh * s2) * rstd;
+      const float gv = ld_act(dw, (size_t)r * C + c, f32) + (dxh - s1 - xh * s2) * rstd;
       G[r * C + c] = gv;
       float dp = gv;
       if (a.drop.thr_p)
@@ -539,7 +545,7 @@ __global__ void fused_block_bwd_kernel(const BwdArgs a) {
       const float dl = DL[r * C + c];
       s_ls += dl * (X1[r * C + c] - ST[r * 4 + 2]) * ST[r * 4 + 3];
       s_lb += dl;
-      s_bm += __bfloat162float(DO[r * C + c]);
+      s_bm += ld_act(dw, (size_t)r * C + c, f32);
       float dp = G[r * C + c];
       if (a.drop.thr_p)
         dp *= keep_value(a.drop.seed_p, ((uint32_t)win * M + r) * C + c,
@@ -779,7 +785,7 @@ __global__ void fused_block_bwd_kernel(const BwdArgs a) {
   __syncthreads();
 
   // ---- F: LN1 backward and the residual (warp's rows) ----
-  bf16* dxw = a.dx + win * M * C;
+  void* dxw = act_at(a.dx, win * M * C, f32);
   for (int rr = 0; rr < 32; ++rr) {
     const int r = r0 + rr;
     if (r >= M) break;
@@ -788,7 +794,7 @@ __global__ void fused_block_bwd_kernel(const BwdArgs a) {
     for (int c = lane; c < C; c += 32) {
       const float dxh = DY[r * C + c] * __ldg(a.ln1_s + c);
       s1 += dxh;
-      s2 += dxh * (__bfloat162float(xw[(size_t)r * C + c]) - mu) * rstd;
+      s2 += dxh * (ld_act(xw, (size_t)r * C + c, f32) - mu) * rstd;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -798,17 +804,17 @@ __global__ void fused_block_bwd_kernel(const BwdArgs a) {
     s1 /= C;
     s2 /= C;
     for (int c = lane; c < C; c += 32) {
-      const float xh = (__bfloat162float(xw[(size_t)r * C + c]) - mu) * rstd;
+      const float xh = (ld_act(xw, (size_t)r * C + c, f32) - mu) * rstd;
       const float dxh = DY[r * C + c] * __ldg(a.ln1_s + c);
-      dxw[(size_t)r * C + c] =
-          __float2bfloat16_rn(G[r * C + c] + (dxh - s1 - xh * s2) * rstd);
+      st_act(dxw, (size_t)r * C + c, f32,
+             G[r * C + c] + (dxh - s1 - xh * s2) * rstd);
     }
   }
   for (int c = i; c < C; c += T) {
     float s_ls = 0.f, s_lb = 0.f;
     for (int r = 0; r < M; ++r) {
       const float dy = DY[r * C + c];
-      s_ls += dy * (__bfloat162float(xw[(size_t)r * C + c]) - ST[r * 4]) * ST[r * 4 + 1];
+      s_ls += dy * (ld_act(xw, (size_t)r * C + c, f32) - ST[r * 4]) * ST[r * 4 + 1];
       s_lb += dy;
     }
     atomicAdd(a.dln1s + c, s_ls);
@@ -845,14 +851,15 @@ extern "C" cudaError_t mivp_fused_block_bwd(
     void* dln2s, void* dln2b, void* dbias, void* dext, int bp, int m,
     int c, int heads, int dh, int n_ext, int p_windows, float scale,
     unsigned seed_a, unsigned seed_p, unsigned thr_a, unsigned thr_p,
-    float keep_a, float keep_p, int drop_cols, void* stream) {
+    float keep_a, float keep_p, int drop_cols, int x_f32, void* stream) {
   if (m < 1 || m > 1024 || c % 16 != 0 || heads * dh != c || bp < 1 ||
       (labels != nullptr && p_windows < 1) || drop_cols < m + n_ext)
     return cudaErrorInvalidValue;
   BwdArgs a;
-  a.x = static_cast<const bf16*>(x);
-  a.dout = static_cast<const bf16*>(dout);
-  a.dx = static_cast<bf16*>(dx);
+  a.x = x;
+  a.dout = dout;
+  a.dx = dx;
+  a.f32 = x_f32 != 0;
   a.wqkv = static_cast<const bf16*>(wqkv);
   a.wqkv_t = static_cast<const bf16*>(wqkv_t);
   a.ext_kv = static_cast<const bf16*>(ext_kv);

@@ -15,6 +15,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -38,6 +40,62 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   h.x = lo;
   h.y = hi;
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Activations -- the block's x and output, the backward's dout and dx,
+// the attention kernels' y, q, k, v and output -- are fp32 or bf16, one
+// flag per launch taken from the input's dtype: the JAX kernels take
+// either and write the input's dtype.  The block body (B1, B5) takes the
+// flag as a template parameter (its 128-register instances spilled with a
+// run-time flag); the backward and the attention kernels read it at run
+// time.  Matmul operands are rounded
+// to bf16 after the load, as the JAX kernels round them; LN statistics,
+// softmax and residuals stay fp32.  Offsets count elements.
+template <class T>
+__device__ __forceinline__ T* act_at(T* p, size_t i, bool f32) {
+  typedef typename std::conditional<std::is_const<T>::value, const char,
+                                    char>::type byte;
+  return reinterpret_cast<T*>(reinterpret_cast<byte*>(p) + i * (f32 ? 4 : 2));
+}
+
+// Elements i and i + 1 (i even) of a typed activation array (the block
+// body, whose dtype is a template parameter).
+__device__ __forceinline__ float2 ld2(const float* p, size_t i) {
+  return *reinterpret_cast<const float2*>(p + i);
+}
+
+__device__ __forceinline__ float2 ld2(const bf16* p, size_t i) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
+}
+
+__device__ __forceinline__ void st2(float* p, size_t i, float a, float b) {
+  *reinterpret_cast<float2*>(p + i) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void st2(bf16* p, size_t i, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float ld_act(const void* p, size_t i, bool f32) {
+  return f32 ? static_cast<const float*>(p)[i]
+             : __bfloat162float(static_cast<const bf16*>(p)[i]);
+}
+
+// Elements i and i + 1 (i even) of an array of either dtype.
+__device__ __forceinline__ float2 ld_act2(const void* p, size_t i, bool f32) {
+  return f32 ? ld2(static_cast<const float*>(p), i)
+             : ld2(static_cast<const bf16*>(p), i);
+}
+
+__device__ __forceinline__ void st_act2(void* p, size_t i, bool f32, float a,
+                                        float b) {
+  if (f32) st2(static_cast<float*>(p), i, a, b);
+  else st2(static_cast<bf16*>(p), i, a, b);
+}
+
+__device__ __forceinline__ void st_act(void* p, size_t i, bool f32, float a) {
+  if (f32) static_cast<float*>(p)[i] = a;
+  else static_cast<bf16*>(p)[i] = __float2bfloat16_rn(a);
 }
 
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
@@ -298,8 +356,8 @@ __device__ __forceinline__ void attend_tile(
 
 // Operands of one fused-block call: B1's arguments, and each half of B5's.
 struct BlockArgs {
-  const bf16* x;        // [BP, M, C]
-  bf16* out;            // [BP, M, C]
+  const void* x;        // [BP, M, C], fp32 or bf16 (f32)
+  void* out;            // [BP, M, C], x's dtype
   const bf16* wqkv;     // [H, 3, DHK, C]: Wq|Wk|Wv of head h, transposed
   const bf16* ext_kv;   // [H, 2, E, DHK]: extra K rows, then extra V rows
   const float* bias;    // [H, M, N], N = M + E
@@ -315,6 +373,9 @@ struct BlockArgs {
   int m, c, heads, n_ext, p_windows;
   float scale;
   DropArgs drop;
+  bool f32;             // x and out are fp32 (else bf16)
+  unsigned char* scratch;  // B1 windows too large for shared memory:
+                           // x1 and region 2 per window (BlockSmem)
 };
 
 // Shared-memory layout, in bytes.  Region 1 holds LN1(x), the head's Q,
@@ -322,11 +383,16 @@ struct BlockArgs {
 // attention, and x1 (fp32) afterwards; region 2 holds the attention
 // output, then LN2(x1).  All row-major over the CTA's rows (mp = rows
 // rounded up to the warps' 32).  Strides: bf16 rows of C + 8, Q/K rows of
-// dhk + 8, V^T rows of npad + 8, x1 rows of C + 4 floats.
+// dhk + 8, V^T rows of npad + 8, x1 rows of C + 4 floats.  With `spill`
+// (windows whose layout exceeds a CTA's shared memory, such as M 256 at C
+// 192) x1 and region 2 live in a device scratch of `spill_bytes` per
+// window instead (x1 at 0, region 2 at `a`), and shared memory holds
+// region 1's attention part only.
 struct BlockSmem {
   int npad, mp, cs, qks, vts, xs;
-  size_t y, q, k, vt, lab, x1, a, total;
-  __host__ __device__ BlockSmem(int m, int c, int n, int dhk, int threads) {
+  size_t y, q, k, vt, lab, x1, a, total, spill_bytes;
+  __host__ __device__ BlockSmem(int m, int c, int n, int dhk, int threads,
+                                bool spill = false) {
     npad = pad16(n);
     mp = threads;
     cs = c + 8;
@@ -341,16 +407,24 @@ struct BlockSmem {
     size_t attn_end = align16(lab + (size_t)npad * 4);
     x1 = 0;
     size_t x1_end = align16((size_t)mp * xs * 4);
-    a = attn_end > x1_end ? attn_end : x1_end;
-    total = a + align16((size_t)mp * cs * 2);
+    if (spill) {
+      a = x1_end;
+      spill_bytes = a + align16((size_t)mp * cs * 2);
+      total = attn_end;
+    } else {
+      a = attn_end > x1_end ? attn_end : x1_end;
+      total = a + align16((size_t)mp * cs * 2);
+      spill_bytes = 0;
+    }
   }
 };
 
 // One whole Swin block on one window, by a CTA of blockDim.x = M rounded
 // up to 32 threads (each warp owns 32 rows): the body of B1
 // (fused_block.cu) and of each half of B5 (fused_pair.cu).
-//   xw, ow  the window's M input rows and where its output rows go (ow may
-//           be xw: every row is read and then written by its own warp);
+//   xw, ow  the window's M input rows and where its output rows go, in
+//           the activation dtype a.f32 (ow may be xw: every row is read
+//           and then written by its own warp);
 //   rows    PERM: row t of the block reads and writes row rows[t] of xw
 //           and ow (M ints in shared memory: B5's in-window token roll);
 //           else row t itself;
@@ -358,22 +432,26 @@ struct BlockSmem {
 //   lab     the window's [N] key labels, or null (no mask);
 //   smem    BlockSmem's regions.
 // DROP: the dropout code is compiled in only for calls with a nonzero rate.
-template <int DH, bool DROP, bool PERM>
+// SPILL: x1 and region 2 in a.scratch, at window `win`'s slot (B1 only).
+// F32: xw and ow are fp32 (else bf16; a.f32 chose the instance).
+template <int DH, bool DROP, bool PERM, bool SPILL, bool F32>
 __device__ __forceinline__ void swin_block_window(
-    const BlockArgs& a, const bf16* xw, bf16* ow, const int* rows,
+    const BlockArgs& a, const void* xw, void* ow, const int* rows,
     uint32_t win, const int* lab, unsigned char* smem) {
   constexpr int DHK = pad16(DH);
   constexpr int DTILES = DHK / 8;    // n-tiles of a head's q/k/v and P.V
   const int M = a.m, C = a.c, E = a.n_ext, N = a.m + a.n_ext;
-  const BlockSmem L(M, C, N, DHK, blockDim.x);
+  const BlockSmem L(M, C, N, DHK, blockDim.x, SPILL);
   const int CS = L.cs, QS = L.qks, VS = L.vts, XS = L.xs, NPAD = L.npad;
+  unsigned char* big = SPILL ? a.scratch + (size_t)win * L.spill_bytes
+                             : smem;
   bf16* sy = reinterpret_cast<bf16*>(smem + L.y);
   bf16* sq = reinterpret_cast<bf16*>(smem + L.q);
   bf16* sk = reinterpret_cast<bf16*>(smem + L.k);
   bf16* svt = reinterpret_cast<bf16*>(smem + L.vt);
   int* slab = reinterpret_cast<int*>(smem + L.lab);
-  float* sx1 = reinterpret_cast<float*>(smem + L.x1);
-  bf16* sa = reinterpret_cast<bf16*>(smem + L.a);
+  float* sx1 = reinterpret_cast<float*>(big + L.x1);
+  bf16* sa = reinterpret_cast<bf16*>(big + L.a);
 
   const int i = threadIdx.x;
   const bf16 zero = __float2bfloat16_rn(0.f);
@@ -383,18 +461,21 @@ __device__ __forceinline__ void swin_block_window(
   const int mtiles = r0 + 16 < M ? 2 : 1;         // its 16-row tiles
 
   // ---- LN1 of the thread's row -> y (bf16, row-major) ----
+  typedef typename std::conditional<F32, float, bf16>::type T;
+  const T* xt = static_cast<const T*>(xw);
+  T* ot = static_cast<T*>(ow);
   if (i < M) {
-    const bf16* xr = xw + (size_t)(PERM ? rows[i] : i) * C;
+    const T* xr = xt + (size_t)(PERM ? rows[i] : i) * C;
     float sum = 0.f, sq2 = 0.f;
     for (int c = 0; c < C; c += 2) {
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + c));
+      const float2 v = ld2(xr, c);
       sum += v.x + v.y;
       sq2 += v.x * v.x + v.y * v.y;
     }
     const float mu = sum / C;
     const float rstd = rsqrtf(sq2 / C - mu * mu + kEps);
     for (int c = 0; c < C; c += 2) {
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + c));
+      const float2 v = ld2(xr, c);
       *reinterpret_cast<uint32_t*>(sy + i * CS + c) = pack2(
           (v.x - mu) * rstd * __ldg(a.ln1_s + c) + __ldg(a.ln1_b + c),
           (v.y - mu) * rstd * __ldg(a.ln1_s + c + 1) + __ldg(a.ln1_b + c + 1));
@@ -502,9 +583,7 @@ __device__ __forceinline__ void swin_block_window(
         for (int hf = 0; hf < 2; ++hf) {
           const int r = r0 + mt * 16 + g + hf * 8, col = n0 + nt * 8 + 2 * cq;
           if (mt < mtiles && nt < ntiles && r < M) {
-            const float2 xv = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(
-                    xw + (size_t)(PERM ? rows[r] : r) * C + col));
+            const float2 xv = ld2(xt, (size_t)(PERM ? rows[r] : r) * C + col);
             float p0 = acc[mt][nt][2 * hf] + __ldg(a.bproj + col);
             float p1 = acc[mt][nt][2 * hf + 1] + __ldg(a.bproj + col + 1);
             if (DROP && a.drop.thr_p) {   // projection dropout
@@ -552,7 +631,7 @@ __device__ __forceinline__ void swin_block_window(
         for (int hf = 0; hf < 2; ++hf) {
           const int r = r0 + mt * 16 + g + hf * 8, col = n0 + nt * 8 + 2 * cq;
           if (mt < mtiles && nt < ntiles && r < M)
-            *reinterpret_cast<uint32_t*>(ow + (size_t)(PERM ? rows[r] : r) * C + col) = pack2(
+            st2(ot, (size_t)(PERM ? rows[r] : r) * C + col,
                 sx1[r * XS + col] + (acc[mt][nt][2 * hf] + __ldg(a.bmlp + col)),
                 sx1[r * XS + col + 1] + (acc[mt][nt][2 * hf + 1] + __ldg(a.bmlp + col + 1)));
         }

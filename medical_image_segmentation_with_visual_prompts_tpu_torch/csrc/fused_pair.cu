@@ -12,13 +12,14 @@
 // window w' = b*P + j of the [B*P] batch:
 //
 //   block 1 on source window s = b*P + src[j]  (dropout counters of s,
-//           no mask), output rounded to bf16 and written to s's slot of
-//           `out` -- where the pair's output for s goes anyway;
+//           no mask), output rounded to the array dtype (bf16 or fp32,
+//           as x) and written to s's slot of `out` -- where the pair's
+//           output for s goes anyway;
 //   block 2 on the shifted window: its row t reads row tok[j, t] of that
 //           slot (labels of j, dropout counters of w'), and writes its
 //           output back to the same row: the inverse roll.
 //
-// These are the JAX kernel's counters and its bf16 rounding between the
+// These are the JAX kernel's counters and its rounding between the
 // blocks, so B5 is bit for bit B1 -> shift gather -> B1 -> inverse gather.
 //
 // What bounds it on the H100: the same matrix products as two B1 launches
@@ -49,7 +50,8 @@ __host__ __device__ inline size_t pair_smem(const BlockSmem& L, int m) {
   return L.total + align16((size_t)m * 4);
 }
 
-template <int DH, bool DROP, int MAXT>
+// F32: x and out (and block 1's output in the slot) are fp32.
+template <int DH, bool DROP, int MAXT, bool F32>
 __global__ void __launch_bounds__(MAXT, MAXT <= 256 ? 2 : 1)
     fused_swin_pair_kernel(const PairArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -63,11 +65,12 @@ __global__ void __launch_bounds__(MAXT, MAXT <= 256 ? 2 : 1)
   const size_t s = w - j + __ldg(p.src + j);   // its source window
   for (int t = threadIdx.x; t < M; t += blockDim.x)
     rows[t] = __ldg(p.tok + (size_t)j * M + t);
-  bf16* slot = a0.out + s * M * a0.c;
-  swin_block_window<DH, DROP, false>(a0, a0.x + s * M * a0.c, slot, nullptr,
-                                     (uint32_t)s, nullptr, smem);
+  void* slot = act_at(a0.out, s * M * a0.c, F32);
+  swin_block_window<DH, DROP, false, false, F32>(
+      a0, act_at(a0.x, s * M * a0.c, F32), slot, nullptr, (uint32_t)s,
+      nullptr, smem);
   __syncthreads();  // block 1's rows (other warps') and the row map visible
-  swin_block_window<DH, DROP, true>(
+  swin_block_window<DH, DROP, true, false, F32>(
       a1, slot, slot, rows, (uint32_t)w,
       a1.labels == nullptr ? nullptr : a1.labels + (size_t)j * (M + a1.n_ext),
       smem);
@@ -75,7 +78,7 @@ __global__ void __launch_bounds__(MAXT, MAXT <= 256 ? 2 : 1)
 
 // Launches the kernel, or (ctas not null) writes how many of its CTAs fit
 // on one SM instead.
-template <int DH, bool DROP, int MAXT>
+template <int DH, bool DROP, int MAXT, bool F32>
 cudaError_t launch_as(const PairArgs& p, int bp, cudaStream_t stream,
                       int* ctas) {
   const BlockArgs& a = p.blk[0];
@@ -83,39 +86,40 @@ cudaError_t launch_as(const PairArgs& p, int bp, cudaStream_t stream,
   const size_t bytes =
       pair_smem(BlockSmem(a.m, a.c, a.m + a.n_ext, pad16(DH), threads), a.m);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  auto* kernel = fused_swin_pair_kernel<DH, DROP, MAXT, F32>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_swin_pair_kernel<DH, DROP, MAXT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   if (ctas != nullptr)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas, fused_swin_pair_kernel<DH, DROP, MAXT>, threads, bytes);
-  fused_swin_pair_kernel<DH, DROP, MAXT><<<bp, threads, bytes, stream>>>(p);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel,
+                                                         threads, bytes);
+  kernel<<<bp, threads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool F32>
 cudaError_t launch(const PairArgs& p, int bp, cudaStream_t stream,
                    int* ctas) {
   bool drop = false;
   for (const BlockArgs& a : p.blk) drop = drop || a.drop.thr_a || a.drop.thr_p;
   if (p.blk[0].m <= 256)
-    return drop ? launch_as<DH, true, 256>(p, bp, stream, ctas)
-                : launch_as<DH, false, 256>(p, bp, stream, ctas);
-  return drop ? launch_as<DH, true, 1024>(p, bp, stream, ctas)
-              : launch_as<DH, false, 1024>(p, bp, stream, ctas);
+    return drop ? launch_as<DH, true, 256, F32>(p, bp, stream, ctas)
+                : launch_as<DH, false, 256, F32>(p, bp, stream, ctas);
+  return drop ? launch_as<DH, true, 1024, F32>(p, bp, stream, ctas)
+              : launch_as<DH, false, 1024, F32>(p, bp, stream, ctas);
 }
 
+template <bool F32>
 cudaError_t launch_dh(const PairArgs& p, int dh, int bp, cudaStream_t s,
                       int* ctas) {
   switch (dh) {
-    case 8: return launch<8>(p, bp, s, ctas);
-    case 12: return launch<12>(p, bp, s, ctas);
-    case 16: return launch<16>(p, bp, s, ctas);
-    case 24: return launch<24>(p, bp, s, ctas);
-    case 32: return launch<32>(p, bp, s, ctas);
-    case 48: return launch<48>(p, bp, s, ctas);
-    case 64: return launch<64>(p, bp, s, ctas);
+    case 8: return launch<8, F32>(p, bp, s, ctas);
+    case 12: return launch<12, F32>(p, bp, s, ctas);
+    case 16: return launch<16, F32>(p, bp, s, ctas);
+    case 24: return launch<24, F32>(p, bp, s, ctas);
+    case 32: return launch<32, F32>(p, bp, s, ctas);
+    case 48: return launch<48, F32>(p, bp, s, ctas);
+    case 64: return launch<64, F32>(p, bp, s, ctas);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -137,6 +141,22 @@ void set_operands(BlockArgs& a, const void* const* ops) {
 
 }  // namespace
 
+// The fp32 instances are compiled in their own translation unit
+// (fused_pair_f32.cu includes this file with MIVP_F32_UNIT), so the two
+// halves of the library build in parallel.
+#ifdef MIVP_F32_UNIT
+
+extern "C" cudaError_t mivp_fused_swin_pair_f32(const void* args, int dh,
+                                                int bp, void* stream) {
+  return launch_dh<true>(*static_cast<const PairArgs*>(args), dh, bp,
+                         static_cast<cudaStream_t>(stream), nullptr);
+}
+
+#else
+
+extern "C" cudaError_t mivp_fused_swin_pair_f32(const void* args, int dh,
+                                                int bp, void* stream);
+
 // ops0 / ops1: each block's 11 operand pointers (wqkv, ext_kv, bias,
 // ln1_s, ln1_b, wproj, bproj, ln2_s, ln2_b, wmlp, bmlp) as B1 takes them.
 extern "C" cudaError_t mivp_fused_swin_pair(
@@ -146,7 +166,7 @@ extern "C" cudaError_t mivp_fused_swin_pair(
     float scale, unsigned seed_a0, unsigned seed_p0, unsigned thr_a0,
     unsigned thr_p0, float keep_a0, float keep_p0, unsigned seed_a1,
     unsigned seed_p1, unsigned thr_a1, unsigned thr_p1, float keep_a1,
-    float keep_p1, int drop_cols, void* stream) {
+    float keep_p1, int drop_cols, int x_f32, void* stream) {
   if (m < 1 || m > 1024 || c % 16 != 0 || heads * dh != c || bp < 1 ||
       p_windows < 1 || bp % p_windows != 0 || drop_cols < m + n_ext)
     return cudaErrorInvalidValue;
@@ -160,9 +180,10 @@ extern "C" cudaError_t mivp_fused_swin_pair(
     a.n_ext = n_ext;
     a.p_windows = p_windows;
     a.scale = scale;
+    a.f32 = x_f32 != 0;
   }
-  p.blk[0].x = static_cast<const bf16*>(x);
-  p.blk[0].out = static_cast<bf16*>(out);
+  p.blk[0].x = x;
+  p.blk[0].out = out;
   p.blk[1].labels = static_cast<const int*>(labels);
   p.blk[0].drop = DropArgs{seed_a0, seed_p0, thr_a0, thr_p0, keep_a0,
                            keep_p0, drop_cols};
@@ -170,7 +191,9 @@ extern "C" cudaError_t mivp_fused_swin_pair(
                            keep_p1, drop_cols};
   p.src = static_cast<const int*>(src);
   p.tok = static_cast<const int*>(tok);
-  return launch_dh(p, dh, bp, static_cast<cudaStream_t>(stream), nullptr);
+  if (x_f32) return mivp_fused_swin_pair_f32(&p, dh, bp, stream);
+  return launch_dh<false>(p, dh, bp, static_cast<cudaStream_t>(stream),
+                          nullptr);
 }
 
 // CTAs of B5 that fit on one SM at this geometry (dropout on or off).
@@ -186,5 +209,7 @@ extern "C" cudaError_t mivp_fused_swin_pair_ctas_per_sm(
     a.n_ext = n_ext;
   }
   p.blk[0].drop.thr_a = drop ? 1u : 0u;
-  return launch_dh(p, dh, 1, nullptr, ctas);
+  return launch_dh<false>(p, dh, 1, nullptr, ctas);
 }
+
+#endif  // MIVP_F32_UNIT

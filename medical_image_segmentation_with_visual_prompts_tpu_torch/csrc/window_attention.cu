@@ -34,6 +34,11 @@
 // (attend_tile in fused_block_common.cuh: mma.sync m16n8k16, the
 // label-equality mask, an online max-subtracted fp32 softmax over 64-key
 // chunks).  Each output element is written once.
+//
+// y, q, k, v and the output are fp32 or bf16 (one run-time flag, the
+// inputs' dtype, which the output takes as the JAX kernels' out_shape
+// does); they are rounded to bf16 where the JAX kernels round them: y, k
+// and v on the load, q after the fp32 scale.
 
 #include "fused_block_common.cuh"
 
@@ -43,16 +48,17 @@ constexpr int kThreads = 256;   // 8 warps
 constexpr int kRowStep = kThreads;  // rows per pass of all warps (32 each)
 
 struct AttnArgs {
-  const bf16* y;        // B6: [BP, N, C] LN1 output, content rows first
+  const void* y;        // B6: [BP, N, C] LN1 output, content rows first
   const bf16* wqkv;     // B6: [H, 3, DHK, C] Wq|Wk|Wv of head h, transposed
-  const bf16* q;        // B7/B8: [BP, M, C]
-  const bf16* k;        // B7/B8: [BP, N, C]
-  const bf16* v;        // B7/B8: [BP, N, C]
+  const void* q;        // B7/B8: [BP, M, C]
+  const void* k;        // B7/B8: [BP, N, C]
+  const void* v;        // B7/B8: [BP, N, C]
   const float* bias;    // [H, M, N]
   const int* labels;    // [P, N] shift-region labels, or null
-  bf16* out;            // [BP, M, C]
+  void* out;            // [BP, M, C]
   int m, n, c, p_windows;
   float scale;
+  bool f32;             // y, q, k, v and out are fp32 (else bf16)
 };
 
 // Shared-memory layout, in bytes: y (B6 only; rows N rounded up to the
@@ -108,30 +114,38 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int warp = i / 32, lane = i % 32, g = lane / 4, cq = lane % 4;
   const size_t win = blockIdx.x;
   const int h = blockIdx.y;
+  const bool f32 = a.f32;
 
   if (PROJ) {
     // The window's y rows -> shared memory (16-byte loads), zero rows
     // past N.
-    const bf16* yw = a.y + win * N * C;
+    const size_t yw = win * N * C;
     const int c8 = C / 8;
     for (int t = i; t < L.yrows * c8; t += kThreads) {
       const int r = t / c8, c0 = (t % c8) * 8;
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (r < N) u = __ldg(reinterpret_cast<const uint4*>(yw + (size_t)r * C + c0));
+      if (r < N && !f32) {
+        u = __ldg(reinterpret_cast<const uint4*>(
+            static_cast<const bf16*>(a.y) + yw + (size_t)r * C + c0));
+      } else if (r < N) {
+        const float4* src = reinterpret_cast<const float4*>(
+            static_cast<const float*>(a.y) + yw + (size_t)r * C + c0);
+        const float4 lo = __ldg(src), hi = __ldg(src + 1);
+        u = make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w),
+                       pack2(hi.x, hi.y), pack2(hi.z, hi.w));
+      }
       *reinterpret_cast<uint4*>(sy + r * L.cs + c0) = u;
     }
   } else {
     // Head h's columns of q (times scale, rounded to bf16), k and v^T;
     // columns DH..DHK and rows past M (q) or N (k, v) zero.
-    const bf16* qw = a.q + win * M * C + h * DH;
-    const bf16* kw = a.k + win * N * C + h * DH;
-    const bf16* vw = a.v + win * N * C + h * DH;
+    const size_t qw = win * M * C + h * DH;
+    const size_t kw = win * N * C + h * DH;
     for (int t = i; t < L.mp * (DHK / 2); t += kThreads) {
       const int r = t / (DHK / 2), d = (t % (DHK / 2)) * 2;
       uint32_t val = 0u;
       if (r < M && d < DH) {
-        const uint32_t u = ldg32(qw + (size_t)r * C + d);
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+        const float2 f = ld_act2(a.q, qw + (size_t)r * C + d, f32);
         val = pack2(f.x * a.scale, f.y * a.scale);
       }
       *reinterpret_cast<uint32_t*>(sq + r * L.qks + d) = val;
@@ -139,9 +153,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int t = i; t < L.npad * (DHK / 2); t += kThreads) {
       const int r = t / (DHK / 2), d = (t % (DHK / 2)) * 2;
       uint32_t ku = 0u, vu = 0u;
-      if (r < N && d < DH) {
-        ku = ldg32(kw + (size_t)r * C + d);
-        vu = ldg32(vw + (size_t)r * C + d);
+      if (r < N && d < DH && !f32) {
+        ku = ldg32(static_cast<const bf16*>(a.k) + kw + (size_t)r * C + d);
+        vu = ldg32(static_cast<const bf16*>(a.v) + kw + (size_t)r * C + d);
+      } else if (r < N && d < DH) {
+        const float2 kf = ld_act2(a.k, kw + (size_t)r * C + d, true);
+        const float2 vf = ld_act2(a.v, kw + (size_t)r * C + d, true);
+        ku = pack2(kf.x, kf.y);
+        vu = pack2(vf.x, vf.y);
       }
       *reinterpret_cast<uint32_t*>(sk + r * L.qks + d) = ku;
       const bf16* hv = reinterpret_cast<const bf16*>(&vu);
@@ -196,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // ---- attention of the warp's query tiles (tensor cores) ----
   const float* bias_h = a.bias + (size_t)h * M * N;
   const float scale = PROJ ? a.scale : 1.f;   // B7/B8: folded into q
-  bf16* ow = a.out + win * M * C + h * DH;
+  const size_t ow = win * M * C + h * DH;
   const AttnDrop nodrop{};
   for (int r0 = warp * 32; r0 < M; r0 += kRowStep) {
     const int mtiles = r0 + 16 < M ? 2 : 1;
@@ -212,11 +231,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int d = dt * 8 + 2 * cq;   // DH is even: d < DH => d + 1 < DH
         if (d < DH) {
           if (ra < M)
-            *reinterpret_cast<uint32_t*>(ow + (size_t)ra * C + d) =
-                pack2(o[dt][0], o[dt][1]);
+            st_act2(a.out, ow + (size_t)ra * C + d, f32, o[dt][0], o[dt][1]);
           if (rb < M)
-            *reinterpret_cast<uint32_t*>(ow + (size_t)rb * C + d) =
-                pack2(o[dt][2], o[dt][3]);
+            st_act2(a.out, ow + (size_t)rb * C + d, f32, o[dt][2], o[dt][3]);
         }
       }
     }
@@ -248,11 +265,12 @@ cudaError_t launch(const AttnArgs& a, int bp, int heads, cudaStream_t s) {
 }  // namespace
 
 // B6 when y is given (wqkv: its per-head weights; q, k, v null), else B7/B8
-// on q, k, v.  out: [bp, m, c] bf16.
+// on q, k, v.  out: [bp, m, c]; y, q, k, v and out fp32 when act_f32,
+// else bf16.
 extern "C" cudaError_t mivp_window_attention(
     const void* y, const void* wqkv, const void* q, const void* k,
     const void* v, const void* bias, const void* labels, void* out, int bp,
-    int m, int n, int c, int heads, int p_windows, float scale,
+    int m, int n, int c, int heads, int p_windows, float scale, int act_f32,
     void* stream) {
   const bool proj = y != nullptr;
   if (bp < 1 || m < 1 || n < 1 || heads < 1 || c % heads != 0 ||
@@ -262,14 +280,15 @@ extern "C" cudaError_t mivp_window_attention(
       bias == nullptr || out == nullptr)
     return cudaErrorInvalidValue;
   AttnArgs a;
-  a.y = static_cast<const bf16*>(y);
+  a.y = y;
   a.wqkv = static_cast<const bf16*>(wqkv);
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
+  a.q = q;
+  a.k = k;
+  a.v = v;
   a.bias = static_cast<const float*>(bias);
   a.labels = static_cast<const int*>(labels);
-  a.out = static_cast<bf16*>(out);
+  a.out = out;
+  a.f32 = act_f32 != 0;
   a.m = m;
   a.n = n;
   a.c = c;

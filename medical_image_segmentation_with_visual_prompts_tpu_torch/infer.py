@@ -31,7 +31,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import ModelConfig
+from .config import ModelConfig, load_conf
 from .data import load_served, write_labels
 from .models import SwinUnetR
 from .parallel import BucketedInference, window_starts
@@ -243,15 +243,6 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
     return n_done, n_failed
 
 
-def load_conf(path: str, **overrides) -> dict:
-    """A YAML config as a dict (PyYAML is imported only here)."""
-    import yaml
-    with open(path) as f:
-        conf = yaml.safe_load(f)
-    conf.update(overrides)
-    return conf
-
-
 def build_model(conf: dict, state_dict=None, device="cuda") -> SwinUnetR:
     """The downstream model of ``conf``, loaded (strictly) from a
     reference-schema state dict, on ``device`` (the card unless
@@ -285,22 +276,11 @@ def main(argv=None):
     parser.add_argument("--host-windowing", action="store_true",
                         help="window intensities on the host and upload "
                              "float32, instead of the raw int16 upload")
-    parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
-                        default=None,
-                        help="trunk dtype (default: the config's); the CUDA "
-                             "kernels need bfloat16")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda; fails without a "
                              "card unless --device cpu)")
     args = parser.parse_args(argv)
-    overrides = {}
-    if args.use_encoder_prompting:
-        overrides["use_encoder_prompting"] = True
-    if args.use_decoder_prompting:
-        overrides["use_decoder_prompting"] = True
-    if args.compute_dtype:
-        overrides["compute_dtype"] = args.compute_dtype
-    conf = load_conf(args.configs, **overrides)
+    conf = load_conf(args.configs, **vars(args))
     model = build_model(conf, load_reference_checkpoint(args.ckpt),
                         args.device)
     pairs = resolve_io(args.input, args.output)

@@ -51,6 +51,11 @@ indices only.  So a training step runs the forward kernel once and the
 backward kernel once per block (the JAX package's remat runs its forward
 kernel twice).  The unfused block has no dropout and its kernels no
 backward: it serves.
+
+The trunk is fp32 or bf16 (``dtype``); the block's matmul operands are
+bf16 on the card, where the kernels compute, and the trunk's dtype on the
+CPU (``ops/fused_block.py::kernel_matmul_dtype``), as the JAX package
+rounds them in its kernels on the TPU and not on its XLA path.
 """
 
 from __future__ import annotations
@@ -64,7 +69,8 @@ from torch import nn
 
 from ..ops.fused_block import (FOLD_COUNT, FOLD_KEY, FOLD_NONE, NO_DROPOUT,
                                Dropout, block_reference, fused_swin_block,
-                               labels_tensor, layer_norm, make_operands)
+                               kernel_matmul_dtype, labels_tensor,
+                               layer_norm, make_operands)
 from ..ops.fused_pair import fused_swin_pair, pair_reference
 from ..ops.windows import (PairPlan, compute_paddings, content_indices,
                            fold_geometry, gather_indices, get_attn_labels,
@@ -172,7 +178,7 @@ class SwinTransformerBlock(nn.Module):
         ops = make_operands(self.block_params(), tokens, bias.to(device),
                             fold_mode, self.num_heads,
                             (self.hidden_channels // self.num_heads) ** -0.5,
-                            self.dtype)
+                            kernel_matmul_dtype(self.dtype, device))
         return ops, labels_tensor(labels, device)
 
     def forward(self, x: torch.Tensor,

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.conv_fused import (conv3x3_fused_pair, conv_pair_reference,
                               kernel_weight)
+from ..ops.fused_block import kernel_matmul_dtype
 from ..ops.resize import upsample_trilinear
 from .swin_block import ConsecutiveSwinBlocks
 
@@ -129,6 +130,7 @@ class SwinUpBlock(nn.Module):
             x = conv3x3_fused_pair(x, skip, conv.weight, conv.bias, scale,
                                    shift, w27=w27)
         else:
-            x = conv_pair_reference(x, skip, conv.weight, conv.bias, scale,
-                                    shift, matmul_dtype=x.dtype)
+            x = conv_pair_reference(
+                x, skip, conv.weight, conv.bias, scale, shift,
+                matmul_dtype=kernel_matmul_dtype(x.dtype, x.device))
         return self.swin_layer(x, tokens)

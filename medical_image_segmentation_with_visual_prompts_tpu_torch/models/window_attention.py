@@ -22,8 +22,9 @@ then ``proj``.  The projections outside a kernel and ``proj`` are plain
 linear layers, as XLA runs them in the JAX package.  With
 ``use_kernels`` False (``SwinUnetR.set_kernels``) the plain versions run
 instead of the kernel wrappers; on CPU tensors the wrappers run them too.
-``matmul_dtype`` is their rounding: the model's compute dtype (fp32: the
-JAX XLA path's math; bf16: the kernels').
+``matmul_dtype`` is their rounding: bf16 on the card, where the kernels
+compute, and the model's compute dtype on the CPU (fp32: the JAX XLA
+path's math; ``ops/fused_block.py::kernel_matmul_dtype``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import window_attention as wa
-from ..ops.fused_block import qkv_kernel_weight
+from ..ops.fused_block import kernel_matmul_dtype, qkv_kernel_weight
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -84,7 +85,7 @@ class WindowAttention(nn.Module):
         m = q_rows if (q_rows is not None and q is k) else q.shape[2]
         h = self.num_heads
         scale = (self.dim // h) ** -0.5
-        dt = self.matmul_dtype
+        dt = kernel_matmul_dtype(self.matmul_dtype, k.device)
         kern = self.use_kernels
         if self.dim <= 128 and q is k and k is v:
             ws = (self.to_q.weight.t(), self.to_k.weight.t(),

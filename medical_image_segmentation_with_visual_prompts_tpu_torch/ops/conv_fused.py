@@ -16,10 +16,12 @@ Zero padding comes AFTER the prologue: out-of-range taps contribute 0,
 not ``leaky(shift)``.  ``scale``/``shift`` are the inference BatchNorm
 folded into an affine (``models/unet_blocks.py::bn_fold``).
 
-CUDA tensors run ``csrc/conv3x3_pair.cu`` (B3 is its one-input case);
-CPU tensors run :func:`conv_pair_reference` / :func:`conv_reference`.
-``conv3x3_fused_pair.launches`` and ``conv3x3_fused.launches`` count the
-kernel launches.
+CUDA tensors run ``csrc/conv3x3_pair.cu`` (B3 is its one-input case):
+fp32 inputs are rounded to bf16 first, as the JAX wrapper rounds them
+(``conv_pallas.py``), and the output keeps the input's dtype (the model's
+``out_dtype``).  CPU tensors run :func:`conv_pair_reference` /
+:func:`conv_reference`.  ``conv3x3_fused_pair.launches`` and
+``conv3x3_fused.launches`` count the kernel launches.
 """
 
 from __future__ import annotations
@@ -32,11 +34,19 @@ import torch.nn.functional as F
 from .fused_block import round_to
 
 
+CHUNK = 16    # input channels per staged chunk of the kernel
+
+
 def kernel_weight(weight: torch.Tensor) -> torch.Tensor:
     """torch conv weight ``[Co, Ci, 3, 3, 3]`` -> the kernel's bf16
-    ``[27, Ci, Co]`` (tap-major, kh slowest)."""
+    ``[Ci / 16, 27, Co, 16]``: per chunk of 16 input channels, per tap
+    (``kh * 9 + kw * 3 + kd``), each output channel's 16 weights, the
+    rows the kernel stages for one chunk.  ``Ci`` is zero-padded to a
+    multiple of 16 (the kernel itself takes multiples of 16 only)."""
     co, ci = weight.shape[:2]
-    return weight.detach().permute(2, 3, 4, 1, 0).reshape(27, ci, co).to(
+    cp = -(-ci // CHUNK) * CHUNK
+    w = F.pad(weight.detach(), (0, 0, 0, 0, 0, 0, 0, cp - ci))
+    return w.reshape(co, cp // CHUNK, CHUNK, 27).permute(1, 3, 0, 2).to(
         torch.bfloat16).contiguous()
 
 
@@ -110,8 +120,9 @@ def _check_args(xa, xb, weight, bias, scale, shift,
 def check_kernel_args(xa, xb, w27, bias, scale, shift,
                       name: str = "conv3x3_fused_pair") -> None:
     """What the CUDA kernel takes; raises naming the offending argument.
-    ``w27`` is :func:`kernel_weight` of the conv weight; ``xb`` (B3) and
-    ``scale``/``shift`` may be None."""
+    ``xa``/``xb`` are the bf16 operands (the wrapper rounds fp32 inputs
+    first); ``w27`` is :func:`kernel_weight` of the conv weight; ``xb``
+    (B3) and ``scale``/``shift`` may be None."""
     for arg, t, dtype in (("xa", xa, torch.bfloat16),
                           ("xb", xb, torch.bfloat16),
                           ("weight", w27, torch.bfloat16),
@@ -125,31 +136,65 @@ def check_kernel_args(xa, xb, w27, bias, scale, shift,
                              f"got {t.device}")
         if t.dtype != dtype:
             raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-    ca, co = xa.shape[-1], w27.shape[-1]
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte "
+                             "aligned")
+    ca, co = xa.shape[-1], w27.shape[2]
     cb = 0 if xb is None else xb.shape[-1]
     if ca % 16 or cb % 16 or co % 16:
         raise ValueError(f"{name}: the kernel takes channel counts that are "
                          f"multiples of 16; got Ca={ca}, Cb={cb}, Co={co}")
+    if tuple(w27.shape) != ((ca + cb) // CHUNK, 27, co, CHUNK):
+        raise ValueError(f"{name}: weight must be kernel_weight's "
+                         f"[{(ca + cb) // CHUNK}, 27, {co}, {CHUNK}], got "
+                         f"{tuple(w27.shape)}")
     if xa.numel() // ca >= 2 ** 31:
         raise ValueError(f"{name}: xa has too many voxels")
 
 
-def _launch(xa, xb, w27, bias, scale, shift, leaky: bool, name: str
-            ) -> torch.Tensor:
-    """One launch of ``csrc/conv3x3_pair.cu`` (checked arguments)."""
+def _operand(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """An input as the kernel reads it: fp32 rounded to bf16 (the JAX
+    wrapper's cast), anything else as it is (and refused by the check)."""
+    if x is not None and x.dtype == torch.float32:
+        return x.to(torch.bfloat16)
+    return x
+
+
+def _launch(xa, xb, w27, bias, scale, shift, leaky: bool, name: str,
+            out_dtype: torch.dtype, tile=(0, 0)) -> torch.Tensor:
+    """One launch of ``csrc/conv3x3_pair.cu`` on checked bf16 operands;
+    ``tile``: (rows per warp, output channels per CTA), 0 for the
+    kernel's default."""
     from . import kernels
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: the output must be float32 or bfloat16, "
+                         f"got {out_dtype}")
     b, h, w, d, ca = xa.shape
-    co = w27.shape[-1]
-    out = torch.empty((b, h, w, d, co), device=xa.device, dtype=xa.dtype)
+    co = w27.shape[2]
+    out = torch.empty((b, h, w, d, co), device=xa.device, dtype=out_dtype)
     err = kernels.library().mivp_conv3x3(
         xa.data_ptr(), kernels.ptr(xb), w27.data_ptr(), bias.data_ptr(),
         kernels.ptr(scale), kernels.ptr(shift), out.data_ptr(),
-        b * h * w * d, h, w, d, ca, 0 if xb is None else xb.shape[-1], co,
-        int(scale is not None), int(leaky), kernels.stream_of(xa))
+        b, h, w, d, ca, 0 if xb is None else xb.shape[-1], co,
+        int(scale is not None), int(leaky),
+        int(out_dtype == torch.float32), *tile, kernels.stream_of(xa))
     kernels.check(err, name)
     return out
+
+
+def tile_info(shape, co: int, tile=(0, 0)) -> dict:
+    """What a launch of the kernel on ``shape`` = (B, H, W, D) with ``co``
+    output channels uses (CUDA only): CTAs per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    spill bytes per thread, dynamic shared memory per CTA, CTAs of the
+    grid, rows per warp and output channels per CTA."""
+    import ctypes
+    from . import kernels
+    info = (ctypes.c_int * 7)()
+    kernels.check(kernels.library().mivp_conv3x3_info(
+        *shape, co, *tile, ctypes.addressof(info)), "conv3x3 tile_info")
+    return dict(zip(("ctas_per_sm", "registers", "spill_bytes", "smem",
+                     "ctas", "rows_per_warp", "bn"), info))
 
 
 def conv3x3_fused_pair(xa: torch.Tensor, xb: torch.Tensor,
@@ -157,8 +202,9 @@ def conv3x3_fused_pair(xa: torch.Tensor, xb: torch.Tensor,
                        scale: torch.Tensor, shift: torch.Tensor,
                        w27: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``conv(leaky(concat(xa, xb) * scale + shift)) + bias``, "same"
-    3x3x3, channels-last; output in xa's dtype, which is also the
-    operand dtype of the plain path (bf16 on the kernel path).
+    3x3x3, channels-last; output in xa's dtype.  The operands are bf16 on
+    the kernel path (fp32 inputs rounded first) and xa's dtype on the
+    plain path.
 
     ``w27`` (CUDA only): the cached :func:`kernel_weight` of ``weight``.
     """
@@ -168,8 +214,10 @@ def conv3x3_fused_pair(xa: torch.Tensor, xb: torch.Tensor,
                                    matmul_dtype=xa.dtype)
     if w27 is None:
         w27 = kernel_weight(weight)
-    check_kernel_args(xa, xb, w27, bias, scale, shift)
-    out = _launch(xa, xb, w27, bias, scale, shift, True, "conv3x3_fused_pair")
+    a16, b16 = _operand(xa), _operand(xb)
+    check_kernel_args(a16, b16, w27, bias, scale, shift)
+    out = _launch(a16, b16, w27, bias, scale, shift, True,
+                  "conv3x3_fused_pair", xa.dtype)
     conv3x3_fused_pair.launches += 1
     return out
 
@@ -183,8 +231,9 @@ def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   w27: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``conv(act(x * scale + shift)) + bias``, "same" 3x3x3,
     channels-last, with the affine skipped when ``scale`` is None and
-    LeakyReLU(0.01) only when ``leaky``; output in x's dtype, which is also
-    the operand dtype of the plain path (bf16 on the kernel path).
+    LeakyReLU(0.01) only when ``leaky``; output in x's dtype.  The operand
+    is bf16 on the kernel path (fp32 input rounded first) and x's dtype on
+    the plain path.
 
     ``w27`` (CUDA only): the cached :func:`kernel_weight` of ``weight``.
     """
@@ -194,8 +243,10 @@ def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                               matmul_dtype=x.dtype)
     if w27 is None:
         w27 = kernel_weight(weight)
-    check_kernel_args(x, None, w27, bias, scale, shift, "conv3x3_fused")
-    out = _launch(x, None, w27, bias, scale, shift, leaky, "conv3x3_fused")
+    x16 = _operand(x)
+    check_kernel_args(x16, None, w27, bias, scale, shift, "conv3x3_fused")
+    out = _launch(x16, None, w27, bias, scale, shift, leaky, "conv3x3_fused",
+                  x.dtype)
     conv3x3_fused.launches += 1
     return out
 

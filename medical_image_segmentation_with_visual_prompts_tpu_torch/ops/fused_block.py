@@ -30,7 +30,9 @@ JAX package's bit for bit.
 ``matmul_dtype`` is bf16 for the kernel's arithmetic (bf16 operands,
 fp32 sums; emulated on the CPU as ``a.bfloat16().float() @
 b.bfloat16().float()``) or fp32 for parity with the JAX model's fp32
-XLA path.
+XLA path (:func:`kernel_matmul_dtype` picks it).  ``x_win`` may be fp32
+or bf16 on both paths: LN statistics, softmax and the residuals are fp32,
+and the output takes x's dtype, as the JAX kernel's does.
 
 The kernels (``csrc/fused_block.cu``, and ``csrc/fused_block_bwd.cu`` for
 the gradient, ``ops/fused_block_bwd.py``) run for CUDA tensors; CPU
@@ -59,6 +61,13 @@ PARAM_KEYS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wproj", "bproj",
               "ln2_scale", "ln2_bias", "wmlp", "bmlp")
 _EPS = 1e-6
 KERNEL_HEAD_DIMS = (8, 12, 16, 24, 32, 48, 64)
+# Activation dtypes the kernels read and write (one flag per launch).
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def is_f32(t: torch.Tensor) -> int:
+    """The kernels' activation-dtype flag of ``t`` (1: fp32, 0: bf16)."""
+    return int(t.dtype == torch.float32)
 
 
 def fold_width(m: int, n_tokens: int) -> int:
@@ -99,6 +108,14 @@ def layer_norm(x: torch.Tensor, scale, bias, eps: float = _EPS):
     mu = x.mean(-1, keepdim=True)
     var = (x * x).mean(-1, keepdim=True) - mu * mu
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def kernel_matmul_dtype(dtype: torch.dtype, device) -> torch.dtype:
+    """Matmul operand dtype of a model in ``dtype`` on ``device``: bf16 on
+    the card, where the kernels compute (the JAX kernels round their
+    matmul operands to bf16 whatever the activations' dtype), else the
+    model's own (the JAX XLA path on the CPU)."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else dtype
 
 
 def round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -343,8 +360,8 @@ def check_kernel_args(x_win: torch.Tensor, ops: BlockOperands,
     """What the CUDA kernels take; raises naming the offending argument."""
     if not x_win.is_cuda:
         raise ValueError(f"{name}: x_win must be on a CUDA device")
-    if x_win.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: x_win must be bfloat16, got "
+    if x_win.dtype not in ACT_DTYPES:
+        raise ValueError(f"{name}: x_win must be float32 or bfloat16, got "
                          f"{x_win.dtype}")
     if not x_win.is_contiguous():
         raise ValueError(f"{name}: x_win must be contiguous")
@@ -372,6 +389,25 @@ def check_kernel_args(x_win: torch.Tensor, ops: BlockOperands,
                          f"{labels.device}")
 
 
+_SCRATCH_BYTES = {}
+
+
+def scratch_bytes(m: int, c: int, dh: int, n_ext: int) -> int:
+    """Device scratch per window that B1 needs at this geometry (CUDA
+    only): 0 when the window fits in a CTA's shared memory, else room for
+    x1 and the attention output (``csrc/fused_block.cu``'s SPILL form, as
+    for M 256 at C 192 under the reference padding)."""
+    key = (m, c, dh, n_ext)
+    if key not in _SCRATCH_BYTES:
+        import ctypes
+        from . import kernels
+        out = ctypes.c_longlong(0)
+        kernels.check(kernels.library().mivp_fused_swin_block_scratch(
+            m, c, dh, n_ext, ctypes.addressof(out)), "fused_swin_block")
+        _SCRATCH_BYTES[key] = out.value
+    return _SCRATCH_BYTES[key]
+
+
 def _forward(x_win: torch.Tensor, ops: BlockOperands,
              labels: Optional[torch.Tensor], dropout: Dropout
              ) -> torch.Tensor:
@@ -384,6 +420,9 @@ def _forward(x_win: torch.Tensor, ops: BlockOperands,
     b, pw, m, c = x_win.shape
     k = ops.kernel
     out = torch.empty_like(x_win)
+    nbytes = scratch_bytes(m, c, c // ops.num_heads, ops.n_ext)
+    scratch = torch.empty(b * pw * nbytes, device=x_win.device,
+                          dtype=torch.uint8) if nbytes else None
     err = kernels.library().mivp_fused_swin_block(
         x_win.data_ptr(), out.data_ptr(), k["wqkv"].data_ptr(),
         k["ext_kv"].data_ptr(), k["bias"].data_ptr(),
@@ -391,9 +430,11 @@ def _forward(x_win: torch.Tensor, ops: BlockOperands,
         k["ln1_bias"].data_ptr(), k["wproj"].data_ptr(),
         k["bproj"].data_ptr(), k["ln2_scale"].data_ptr(),
         k["ln2_bias"].data_ptr(), k["wmlp"].data_ptr(),
-        k["bmlp"].data_ptr(), b * pw, m, c, ops.num_heads,
+        k["bmlp"].data_ptr(), kernels.ptr(scratch), b * pw, m, c,
+        ops.num_heads,
         c // ops.num_heads, ops.n_ext, pw, ops.scale,
-        *dropout.kernel_args(), ops.drop_cols, kernels.stream_of(x_win))
+        *dropout.kernel_args(), ops.drop_cols, is_f32(x_win),
+        kernels.stream_of(x_win))
     kernels.check(err, "fused_swin_block")
     fused_swin_block.launches += 1
     return out
@@ -435,7 +476,7 @@ def fused_swin_block(x_win: torch.Tensor, ops: BlockOperands,
         attendable fold/prompt columns, or None (no mask).
       dropout: seeds and rates of the counter-based dropout.
 
-    CUDA tensors run ``csrc/fused_block.cu`` (bf16 ``x_win``); CPU
+    CUDA tensors run ``csrc/fused_block.cu`` (fp32 or bf16 ``x_win``); CPU
     tensors run :func:`block_reference`.  When grad is enabled and
     ``x_win`` or an operand requires it, the call is differentiable
     (:class:`FusedBlockFunction`).

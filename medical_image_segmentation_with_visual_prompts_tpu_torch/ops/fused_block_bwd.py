@@ -10,7 +10,8 @@ gradients on to the positional-bias parameters and the prompt tokens (the
 counterpart of the JAX ``jax.vjp(_operand_args)``).
 
 * :func:`block_backward` runs ``csrc/fused_block_bwd.cu`` (CUDA tensors
-  only; it raises on anything the kernel does not take).  Its fp32
+  only, fp32 or bf16 ``x_win`` and ``dout``, ``dx`` in their dtype; it
+  raises on anything the kernel does not take).  Its fp32
   cross-window sums are atomics, so two runs differ by fp32 rounding.
   ``block_backward.launches`` counts its launches.
 * :func:`block_backward_reference` is the autograd of
@@ -25,7 +26,7 @@ from typing import Optional
 import torch
 
 from .fused_block import (PARAM_KEYS, BlockOperands, Dropout, _check_args,
-                          block_reference, check_kernel_args)
+                          block_reference, check_kernel_args, is_f32)
 
 
 def block_backward_reference(x_win: torch.Tensor, dout: torch.Tensor,
@@ -110,7 +111,7 @@ def block_backward(x_win: torch.Tensor, dout: torch.Tensor,
         dvec["ln2_scale"].data_ptr(), dvec["ln2_bias"].data_ptr(),
         dbias.data_ptr(), dext.data_ptr(),
         bp, m, c, h, c // h, e, pw, ops.scale, *dropout.kernel_args(),
-        ops.drop_cols, kernels.stream_of(x_win))
+        ops.drop_cols, is_f32(x_win), kernels.stream_of(x_win))
     kernels.check(err, "block_backward")
     block_backward.launches += 1
     grads = {**dw, **dvec}

@@ -41,7 +41,8 @@ from typing import Optional
 import torch
 
 from .fused_block import (NO_DROPOUT, BlockOperands, Dropout, _check_args,
-                          _forward, block_reference, check_kernel_args)
+                          _forward, block_reference, check_kernel_args,
+                          is_f32)
 from .fused_block_bwd import block_backward, block_backward_reference
 from .windows import PairPlan
 
@@ -120,7 +121,7 @@ def _pair_forward(x_win, ops0, ops1, labels, plan, dropout0, dropout1):
         _operand_pointers(ops1), b * pw, m, c, ops0.num_heads,
         c // ops0.num_heads, ops0.n_ext, pw, ops0.scale,
         *dropout0.kernel_args(), *dropout1.kernel_args(), ops0.drop_cols,
-        kernels.stream_of(x_win))
+        is_f32(x_win), kernels.stream_of(x_win))
     kernels.check(err, "fused_swin_pair")
     fused_swin_pair.launches += 1
     return out
@@ -186,9 +187,9 @@ def fused_swin_pair(x_win: torch.Tensor, ops0: BlockOperands,
       plan: :func:`ops.windows.pair_plan` of the shift (on x_win's device).
       dropout0, dropout1: each block's seeds and rates.
 
-    CUDA tensors run ``csrc/fused_pair.cu`` (bf16 ``x_win``); CPU tensors
-    run :func:`pair_reference`.  When grad is enabled and ``x_win`` or an
-    operand requires it, the call is differentiable
+    CUDA tensors run ``csrc/fused_pair.cu`` (fp32 or bf16 ``x_win``); CPU
+    tensors run :func:`pair_reference`.  When grad is enabled and ``x_win``
+    or an operand requires it, the call is differentiable
     (:class:`FusedPairFunction`).
     """
     check_pair_args(x_win, ops0, ops1, labels, plan)

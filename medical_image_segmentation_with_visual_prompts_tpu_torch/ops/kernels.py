@@ -39,28 +39,32 @@ _DROP = _SEEDS + [_I]
 # C signatures of the entries in csrc/ (restype: cudaError_t as int).
 SIGNATURES = {
     # x, out, wqkv, ext_kv, bias, labels, ln1_s, ln1_b, wproj, bproj,
-    # ln2_s, ln2_b, wmlp, bmlp, bp, m, c, heads, dh, n_ext, p_windows,
-    # scale, dropout, stream
-    "mivp_fused_swin_block": [_P] * 14 + [_I] * 7 + [_F] + _DROP + [_P],
+    # ln2_s, ln2_b, wmlp, bmlp, scratch, bp, m, c, heads, dh, n_ext,
+    # p_windows, scale, dropout, x is fp32, stream
+    "mivp_fused_swin_block": [_P] * 15 + [_I] * 7 + [_F] + _DROP + [_I, _P],
+    # m, c, dh, n_ext, out: scratch bytes per window (long long)
+    "mivp_fused_swin_block_scratch": [_I] * 4 + [_P],
     # m, c, heads, dh, n_ext, dropout on, out: CTAs per SM
     "mivp_fused_swin_block_ctas_per_sm": [_I] * 6 + [_P],
     # x, out, src, tok, labels, ops0[11], ops1[11] (host pointer arrays),
     # bp, m, c, heads, dh, n_ext, p_windows, scale, block 1's and block
-    # 2's seeds and rates, drop_cols, stream
+    # 2's seeds and rates, drop_cols, x is fp32, stream
     "mivp_fused_swin_pair": [_P] * 7 + [_I] * 7 + [_F] + _SEEDS * 2
-    + [_I, _P],
+    + [_I, _I, _P],
     "mivp_fused_swin_pair_ctas_per_sm": [_I] * 6 + [_P],
     # x, dout, dx, wqkv, wqkv_t, ext_kv, bias, labels, ln1_s, ln1_b, wproj,
     # wproj_io, bproj, ln2_s, ln2_b, wmlp, wmlp_io, bmlp, 4 workspaces,
     # 13 gradient outputs, bp, m, c, heads, dh, n_ext, p_windows, scale,
-    # dropout, stream
-    "mivp_fused_block_bwd": [_P] * 35 + [_I] * 7 + [_F] + _DROP + [_P],
-    # xa, xb, w, bias, scale, shift, out, voxels, h, w, d, ca, cb, co,
-    # affine, leaky, stream
-    "mivp_conv3x3": [_P] * 7 + [_I] * 9 + [_P],
+    # dropout, x is fp32, stream
+    "mivp_fused_block_bwd": [_P] * 35 + [_I] * 7 + [_F] + _DROP + [_I, _P],
+    # xa, xb, w, bias, scale, shift, out, b, h, w, d, ca, cb, co, affine,
+    # leaky, out is fp32, rows per warp, bn, stream
+    "mivp_conv3x3": [_P] * 7 + [_I] * 12 + [_P],
+    # b, h, w, d, co, rows per warp, bn, out: int[7]
+    "mivp_conv3x3_info": [_I] * 7 + [_P],
     # y, wqkv, q, k, v, bias, labels, out, bp, m, n, c, heads, p_windows,
-    # scale, stream
-    "mivp_window_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # scale, activations are fp32, stream
+    "mivp_window_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -32,8 +32,10 @@ into the float ``[P, M, N]`` mask (:func:`label_mask`).
 ``matmul_dtype`` is the rounding of the plain versions: bf16 for the
 kernels' arithmetic (bf16 operands, fp32 sums), or fp32 for parity with
 the JAX model's fp32 XLA path.  CUDA tensors run ``csrc/
-window_attention.cu`` (bf16 only; B7 and B8 are one kernel, B6 the same
-kernel with the projection prologue); CPU tensors run the plain version.
+window_attention.cu`` (bf16 operands; B7 and B8 are one kernel, B6 the
+same kernel with the projection prologue); CPU tensors run the plain
+version.  Both take fp32 or bf16 inputs and return the inputs' dtype, as
+the JAX kernels' ``out_shape`` does.
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ from typing import Optional
 
 import torch
 
-from .fused_block import (KERNEL_HEAD_DIMS, matmul, qkv_kernel_weight,
-                          round_to)
+from .fused_block import (ACT_DTYPES, KERNEL_HEAD_DIMS, is_f32, matmul,
+                          qkv_kernel_weight, round_to)
 
 
 def label_mask(labels: torch.Tensor, m: int) -> torch.Tensor:
@@ -165,15 +167,19 @@ def _launch(name, inputs, y, wqkv, q, k, v, dims, pos_bias, labels, scale,
         raise ValueError(f"{name}: the kernel computes with bf16 operands, "
                          f"asked for {matmul_dtype}")
     ref = inputs[0]
+    act = y if y is not None else q
     for t in (y, wqkv, q, k, v):
         if t is None:
             continue
         if not t.is_cuda or t.device != ref.device:
             raise ValueError(f"{name}: every input must be on the first "
                              f"input's CUDA device, got {t.device}")
-        if t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous bfloat16, "
-                             f"got {t.dtype}")
+        want = torch.bfloat16 if t is wqkv else act.dtype
+        if act.dtype not in ACT_DTYPES or t.dtype != want \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous float32 or "
+                             f"bfloat16 of one dtype (wqkv bfloat16), got "
+                             f"{t.dtype}")
     dh = c // num_heads
     if dh not in KERNEL_HEAD_DIMS or (y is not None and c % 16):
         raise ValueError(f"{name}: the kernel takes head dims in "
@@ -191,12 +197,12 @@ def _launch(name, inputs, y, wqkv, q, k, v, dims, pos_bias, labels, scale,
                          f"on the inputs' device, got {labels.dtype} on "
                          f"{labels.device}")
     from . import kernels
-    out = torch.empty((b, pw, m, c), device=ref.device, dtype=torch.bfloat16)
+    out = torch.empty((b, pw, m, c), device=ref.device, dtype=act.dtype)
     err = kernels.library().mivp_window_attention(
         kernels.ptr(y), kernels.ptr(wqkv), kernels.ptr(q), kernels.ptr(k),
         kernels.ptr(v), bias.data_ptr(), kernels.ptr(labels), out.data_ptr(),
         b * pw, m, n, c, num_heads,
-        0 if labels is None else labels.shape[0], float(scale),
+        0 if labels is None else labels.shape[0], float(scale), is_f32(act),
         kernels.stream_of(ref))
     kernels.check(err, name)
     return out

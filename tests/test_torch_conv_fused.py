@@ -121,11 +121,49 @@ def test_wrapper_rejects_bad_calls_before_any_launch():
 
 
 def test_kernel_weight_layout_is_tap_major():
-    w = torch.arange(2 * 3 * 27, dtype=torch.float32).reshape(2, 3, 3, 3, 3)
+    """``[Ci / 16, 27, Co, 16]``: per chunk of 16 input channels, the 27
+    taps (kh slowest, kd fastest), each output channel's 16 weights; a
+    ragged last chunk is zero-padded."""
+    # Values below 256 are exact in bf16.
+    w = (torch.arange(2 * 40 * 27) % 251).float().reshape(2, 40, 3, 3, 3)
     w27 = cf.kernel_weight(w)
-    assert w27.shape == (27, 3, 2) and w27.dtype == torch.bfloat16
-    # tap (kh, kw, kd) = (1, 2, 0) -> index 9 + 6 + 0.
-    torch.testing.assert_close(w27[15].float(), w[:, :, 1, 2, 0].t())
+    assert w27.shape == (3, 27, 2, 16) and w27.dtype == torch.bfloat16
+    assert w27.is_contiguous()
+    for ci in (0, 17, 39):
+        # tap (kh, kw, kd) = (1, 2, 0) -> index 9 + 6 + 0.
+        torch.testing.assert_close(w27[ci // 16, 15, :, ci % 16].float(),
+                                   w[:, ci, 1, 2, 0])
+    full = w27.float().permute(2, 0, 3, 1).reshape(2, 48, 3, 3, 3)
+    torch.testing.assert_close(full[:, :40], w)
+    assert not full[:, 40:].any()
+
+
+@pytest.mark.parametrize("shape,ca,cb,co", [((2, 6, 5, 4), 32, 16, 16),
+                                            ((1, 5, 9, 2), 16, 16, 32)])
+def test_fp32_trunk_kernel_arithmetic_matches_interpret_kernel(shape, ca, cb,
+                                                               co):
+    """The fp32 trunk on the card: fp32 inputs rounded to bf16 (as the
+    wrapper does before the kernel), bf16 matmul operands
+    (``kernel_matmul_dtype``), fp32 output, against the JAX pair kernel
+    with ``out_dtype=float32`` (which rounds its inputs the same way)."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block import kernel_matmul_dtype
+    xa, xb, kernel, bias, scale, shift = _case(shape, ca, cb, co, seed=7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    dt = kernel_matmul_dtype(torch.float32, "cuda")
+    assert dt == torch.bfloat16
+    assert kernel_matmul_dtype(torch.float32, "cpu") == torch.float32
+    got = cf.conv_pair_reference(
+        cf._operand(t(xa)), cf._operand(t(xb)),
+        t(kernel.transpose(4, 3, 0, 1, 2)), t(bias), t(scale), t(shift),
+        matmul_dtype=dt, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    want = np.asarray(jax_conv_pair(
+        jnp.asarray(xa), jnp.asarray(xb), jnp.asarray(kernel),
+        jnp.asarray(bias), jnp.asarray(scale), jnp.asarray(shift),
+        leaky=True, out_dtype=jnp.float32, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=REL_TOL * np.abs(want).max())
 
 
 @pytest.mark.parametrize("affine,leaky", [(True, True), (True, False),

@@ -14,7 +14,10 @@ largest magnitude: it rounds P, dS and the row gradients to bf16 where
 the plain version (autograd of ``block_reference``) keeps fp32.  The
 block pair kernel (B5) is also held bit for bit to B1, the pair's row
 gather, B1 and the inverse gather: it runs B1's device code twice and
-rounds block 1's output to bf16 where the two launches store it.
+rounds block 1's output to the array dtype where the two launches store
+it.  Every kernel but the conv (which rounds fp32 inputs to bf16 in its
+wrapper) reads and writes fp32 activations as well as bf16 (an fp32
+trunk), with the same tolerances.
 """
 
 import pytest
@@ -102,28 +105,94 @@ def test_fused_swin_block_kernel_matches_plain(dev, c, heads, m, fold_mode,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,m", [(48, 4, 64), (96, 8, 100),
+                                       (192, 4, 128), (48, 4, 256)])
+@pytest.mark.parametrize("fold_mode,shifted,n_tok", [
+    (fb.FOLD_NONE, True, 5), (fb.FOLD_KEY, False, 7),
+    (fb.FOLD_COUNT, True, 3)])
+def test_fused_swin_block_kernel_takes_fp32(dev, c, heads, m, fold_mode,
+                                            shifted, n_tok):
+    """fp32 x_win (an fp32 trunk): read and written as fp32, LN, softmax
+    and residuals in fp32, only the matmul operands rounded to bf16."""
+    x, ops, labels = _block_case(dev, 2, 3, m, c, heads, fold_mode, shifted,
+                                 n_tok, seed=11)
+    x = x.float() + 1e-3 * torch.randn(x.shape, device=dev)  # not bf16
+    with torch.inference_mode():
+        ref = fb.block_reference(x, ops, labels)
+        got = fb.fused_swin_block(x, ops, labels)
+        got_drop = fb.fused_swin_block(x, ops, labels, DROP)
+        ref_drop = fb.block_reference(x, ops, labels, DROP)
+        torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    _assert_close(got, ref)
+    _assert_close(got_drop, ref_drop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(192, 4), (192, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_swin_block_spills_large_windows(dev, c, heads, dtype):
+    """M 256 at C 192 (the reference padding's 16x16x2 stages) exceeds a
+    CTA's shared memory: x1 and the attention output go to a device
+    scratch, with the same arithmetic."""
+    assert fb.scratch_bytes(256, c, c // heads, 5) > 0
+    assert fb.scratch_bytes(128, c, c // heads, 5) == 0
+    x, ops, labels = _block_case(dev, 1, 3, 256, c, heads, fb.FOLD_NONE,
+                                 True, 5, seed=14)
+    x = x.to(dtype)
+    with torch.inference_mode():
+        ref = fb.block_reference(x, ops, labels)
+        got = fb.fused_swin_block(x, ops, labels)
+        got_drop = fb.fused_swin_block(x, ops, labels, DROP)
+        ref_drop = fb.block_reference(x, ops, labels, DROP)
+        torch.cuda.synchronize()
+    assert got.dtype == dtype
+    _assert_close(got, ref)
+    _assert_close(got_drop, ref_drop)
+
+
+@pytest.mark.cuda
 def test_fused_swin_block_rejects_fp32_and_unsupported_head_dims(dev):
+    """fp32 and bf16 are the activation dtypes; anything else raises."""
     x, ops, labels = _block_case(dev, 1, 2, 32, 48, 4, fb.FOLD_NONE, True, 2)
-    with pytest.raises(ValueError, match="x_win must be bfloat16"):
-        fb.fused_swin_block(x.float(), ops, labels)
+    with pytest.raises(ValueError, match="x_win must be float32 or bfloat16"):
+        fb.fused_swin_block(x.half(), ops, labels)
     x, ops, labels = _block_case(dev, 1, 2, 32, 80, 4, fb.FOLD_NONE, False, 0)
     with pytest.raises(ValueError, match="head dim"):
         fb.fused_swin_block(x, ops, labels)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,ca,cb,co", [
-    ((2, 6, 5, 4), 32, 16, 16), ((1, 8, 8, 2), 96, 48, 48),
-    ((3, 5, 7, 3), 16, 16, 32), ((1, 16, 16, 2), 384, 192, 192)])
-def test_conv3x3_pair_kernel_matches_plain(dev, shape, ca, cb, co):
-    g = torch.Generator().manual_seed(1)
+# (shape, Ca, Cb, Co): the flagship's three decoder convs at batch 2,
+# then awkward ones: H and W not multiples of the brick, depths 1, 3, 5
+# and 6 (a depth of bricks, a partly used brick), a voxel count that is no
+# multiple of the tile.
+CONV_CASES = [((2, 64, 64, 4), 96, 48, 48), ((2, 32, 32, 2), 192, 96, 96),
+              ((2, 16, 16, 2), 384, 192, 192), ((1, 13, 11, 4), 32, 16, 16),
+              ((3, 9, 17, 3), 16, 32, 32), ((1, 20, 7, 5), 48, 16, 64),
+              ((2, 5, 9, 1), 16, 16, 48), ((1, 7, 6, 6), 32, 32, 16),
+              ((2, 6, 5, 4), 32, 16, 16), ((1, 8, 8, 2), 96, 48, 48),
+              ((3, 5, 7, 3), 16, 16, 32), ((1, 16, 16, 2), 384, 192, 192)]
+
+
+def _conv_case(dev, shape, ca, cb, co, seed=1, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-    xa = r(*shape, ca).to(dev, torch.bfloat16)
-    xb = r(*shape, cb).to(dev, torch.bfloat16)
-    w = (r(co, ca + cb, 3, 3, 3) / (27 * (ca + cb)) ** 0.5).to(dev)
+    xa = r(*shape, ca).to(dev, dtype)
+    xb = r(*shape, cb).to(dev, dtype) if cb else None
+    cin = ca + cb
+    w = (r(co, cin, 3, 3, 3) / (27 * cin) ** 0.5).to(dev)
     bias = (0.1 * r(co)).to(dev)
-    scale = (0.5 + torch.rand(ca + cb, generator=g)).to(dev)
-    shift = (2.0 + 0.3 * r(ca + cb)).to(dev)    # leaky(shift) != 0
+    scale = (0.5 + torch.rand(cin, generator=g)).to(dev)
+    # A large shift: leaky(shift) != 0, so padding before the prologue
+    # would move every border voxel.
+    shift = (3.0 + 0.3 * r(cin)).to(dev)
+    return xa, xb, w, bias, scale, shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ca,cb,co", CONV_CASES)
+def test_conv3x3_pair_kernel_matches_plain(dev, shape, ca, cb, co):
+    xa, xb, w, bias, scale, shift = _conv_case(dev, shape, ca, cb, co)
     with torch.inference_mode():
         ref = cf.conv_pair_reference(xa, xb, w, bias, scale, shift)
         before = cf.conv3x3_fused_pair.launches
@@ -131,6 +200,43 @@ def test_conv3x3_pair_kernel_matches_plain(dev, shape, ca, cb, co):
         torch.cuda.synchronize()
     assert cf.conv3x3_fused_pair.launches == before + 1
     assert got.shape == (*shape, co) and got.dtype == torch.bfloat16
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ca,cb,co", [CONV_CASES[0], CONV_CASES[3],
+                                            CONV_CASES[5]])
+def test_conv3x3_pair_kernel_writes_fp32(dev, shape, ca, cb, co):
+    """fp32 inputs (an fp32 trunk) are rounded to bf16 as the JAX wrapper
+    rounds them; the output is fp32."""
+    xa, xb, w, bias, scale, shift = _conv_case(dev, shape, ca, cb, co,
+                                               seed=3, dtype=torch.float32)
+    with torch.inference_mode():
+        ref = cf.conv_pair_reference(xa, xb, w, bias, scale, shift,
+                                     out_dtype=torch.float32)
+        got = cf.conv3x3_fused_pair(xa, xb, w, bias, scale, shift)
+        torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_warp", [32, 64])
+@pytest.mark.parametrize("bn", [16, 32, 48])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 2), (1, 13, 11, 4),
+                                   (1, 9, 9, 3)])
+def test_conv3x3_kernel_every_tile(dev, rows_per_warp, bn, shape):
+    """Each tile instantiation of the kernel on the same inputs."""
+    xa, xb, w, bias, scale, shift = _conv_case(dev, shape, 32, 64, 96)
+    with torch.inference_mode():
+        ref = cf.conv_pair_reference(xa, xb, w, bias, scale, shift)
+        got = cf._launch(xa, xb, cf.kernel_weight(w), bias, scale, shift,
+                         True, "conv3x3", torch.bfloat16,
+                         (rows_per_warp, bn))
+        info = cf.tile_info(shape[:4], 96, (rows_per_warp, bn))
+        torch.cuda.synchronize()
+    assert info["rows_per_warp"] == rows_per_warp and info["bn"] == bn
+    assert info["ctas_per_sm"] >= 1
     _assert_close(got, ref)
 
 
@@ -188,6 +294,35 @@ def test_block_backward_kernel_matches_plain(dev, c, heads, m, fold_mode,
         err = (g - r).abs().max().item()
         scale = r.abs().max().item()
         print(f"{name}: err {err:.4g} of max {scale:.4g}")
+        assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,m", [(48, 4, 64), (96, 4, 128),
+                                       (192, 4, 128), (48, 4, 256)])
+@pytest.mark.parametrize("fold_mode,shifted,n_tok", TRAIN_CASES[1:])
+def test_block_backward_kernel_takes_fp32(dev, c, heads, m, fold_mode,
+                                          shifted, n_tok):
+    """fp32 x_win and dout: dx in fp32; the residual gradients read dout
+    unrounded, the matmul operands are bf16."""
+    x, ops, labels = _block_case(dev, 2, 3, m, c, heads, fold_mode, shifted,
+                                 n_tok, seed=13)
+    x = x.float() + 1e-3 * torch.randn(x.shape, device=dev)
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        10)).to(dev)
+    ref_dx, ref = fbb.block_backward_reference(x, dout, ops, labels, DROP)
+    dx, got = fbb.block_backward(x, dout, ops, labels, DROP)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.float32
+    names = ["x", "bias", "ext_k", "ext_v", *fb.PARAM_KEYS]
+    for name, g, r in zip(names, (dx, *got), (ref_dx, *ref)):
+        if r is None:
+            assert g is None, name
+            continue
+        g, r = g.float(), r.float()
+        assert torch.isfinite(g).all(), name
+        err = (g - r).abs().max().item()
+        scale = r.abs().max().item()
         assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)
 
 
@@ -259,12 +394,45 @@ def test_packed_and_per_head_kernels_match_plain(dev, c, heads, m, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,m,n", [(48, 4, 256, 320), (96, 8, 256, 320),
+                                         (32, 2, 40, 45)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_kernels_take_fp32(dev, c, heads, m, n, masked):
+    """fp32 y / q / k / v: rounded to bf16 where the JAX kernels round
+    them (q after its fp32 scale); the output is fp32."""
+    r, bias, labels = _attn_case(dev, 2, 3, m, n, c, heads, masked, seed=8)
+    y = r(2, 3, n, c).to(dev)
+    q = r(2, 3, m, c).to(dev)
+    k = r(2, 3, n, c).to(dev)
+    v = r(2, 3, n, c).to(dev)
+    ws = [(r(c, c) / c ** 0.5).to(dev) for _ in range(3)]
+    scale = (c // heads) ** -0.5
+    dh = c // heads
+    with torch.inference_mode():
+        ref6 = wa.fused_window_attention_packed_qkv_reference(
+            y, *ws, m, bias, labels, scale, heads)
+        got6 = wa.fused_window_attention_packed_qkv(y, *ws, m, bias, labels,
+                                                    scale, heads)
+        ref7 = wa.fused_window_attention_packed_reference(
+            q, k, v, bias, labels, scale, heads)
+        got8 = wa.fused_window_attention(
+            q.view(2, 3, m, heads, dh), k.view(2, 3, n, heads, dh),
+            v.view(2, 3, n, heads, dh), bias, labels, scale)
+        torch.cuda.synchronize()
+    assert got6.dtype == got8.dtype == torch.float32
+    _assert_close(got6, ref6)
+    _assert_close(got8.reshape(2, 3, m, c), ref7)
+
+
+@pytest.mark.cuda
 def test_window_attention_rejects_fp32_and_unsupported_head_dims(dev):
+    """fp32 and bf16 are the activation dtypes; anything else raises."""
     r, bias, _ = _attn_case(dev, 1, 2, 16, 20, 80, 4, False)
     q = r(1, 2, 16, 80).to(dev)
     kv = r(1, 2, 20, 80).to(dev)
-    with pytest.raises(ValueError, match="bfloat16"):
-        wa.fused_window_attention_packed(q, kv, kv, bias, None, 1.0, 4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        wa.fused_window_attention_packed(q.half(), kv.half(), kv.half(),
+                                         bias, None, 1.0, 4)
     with pytest.raises(ValueError, match="head dims"):
         wa.fused_window_attention_packed(q.bfloat16(), kv.bfloat16(),
                                          kv.bfloat16(), bias, None, 1.0, 4)
@@ -385,10 +553,31 @@ def test_pair_backward_kernels_match_plain(dev, c, heads, dims, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims,window,n_tok", PAIR_CASES[:4])
+def test_pair_kernel_takes_fp32(dev, c, heads, dims, window, n_tok):
+    """fp32 x_win: block 1's output stays fp32 in the CTA's slot (the JAX
+    kernel rounds it to the array dtype), so B5 still equals B1 + gather
+    + B1 + gather element for element."""
+    x_win, ops0, ops1, labels, plan = _pair_case(dev, c, heads, dims, window,
+                                                 n_tok, seed=12)
+    x_win = x_win.float() + 1e-3 * torch.randn(x_win.shape, device=dev)
+    with torch.inference_mode():
+        ref = fp.pair_reference(x_win, ops0, ops1, labels, plan)
+        got = fp.fused_swin_pair(x_win, ops0, ops1, labels, plan)
+        x1 = fb.fused_swin_block(x_win, ops0, None)
+        chain = fp.plan_gather(fb.fused_swin_block(
+            fp.plan_gather(x1, plan.index), ops1, labels), plan.inverse)
+        torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    _assert_close(got, ref)
+    assert torch.equal(got, chain), int((got != chain).sum())
+
+
+@pytest.mark.cuda
 def test_pair_kernel_rejects_bad_calls(dev):
     x_win, ops0, ops1, labels, plan = _pair_case(dev, *PAIR_CASES[0])
-    with pytest.raises(ValueError, match="x_win must be bfloat16"):
-        fp.fused_swin_pair(x_win.float(), ops0, ops1, labels, plan)
+    with pytest.raises(ValueError, match="x_win must be float32 or bfloat16"):
+        fp.fused_swin_pair(x_win.half(), ops0, ops1, labels, plan)
     cpu_plan = plan._replace(src=plan.src.cpu())
     with pytest.raises(ValueError, match="plan.src must be"):
         fp.fused_swin_pair(x_win, ops0, ops1, labels, cpu_plan)

@@ -184,3 +184,73 @@ def test_serve_volumes_counts_failures(tmp_path):
                                stride=1.0)
     assert done == (1, 1)
     assert (tmp_path / "g_seg.nii").exists()
+
+
+def _jax_conf(configs, **cli):
+    """The JAX CLI's merged config (``utils/configs.py``)."""
+    from medical_image_segmentation_with_visual_prompts_tpu.utils import \
+        get_full_configs
+    from argparse import Namespace
+    base = dict(mode="fit", training_mode="downstream", configs=configs,
+                backbone="swin_unetr", run_name="infer")
+    for flag in ("load_ckpt_backbone", "save_ckpt_backbone",
+                 "load_ckpt_prompt_tokens", "save_ckpt_prompt_tokens"):
+        base[flag], base[flag + "_path"] = False, ""
+    return vars(get_full_configs(Namespace(**{**base, **cli})))
+
+
+def test_config_lookup_matches_jax_from_any_directory(tmp_path, monkeypatch):
+    """An absolute path, a ``~`` path and a bare name under
+    ``configurations/`` resolve, from another working directory, to the
+    file the JAX CLI resolves."""
+    from medical_image_segmentation_with_visual_prompts_tpu.utils import \
+        configs as jax_configs
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        config
+    home = tmp_path / "home"
+    home.mkdir()
+    (home / "mine.yml").write_text("alpha: 1\nroi_size: [8, 8, 4]\n")
+    monkeypatch.setenv("HOME", str(home))
+    monkeypatch.chdir(tmp_path)
+    assert config.DEFAULT_CONFIG_DIR == jax_configs.DEFAULT_CONFIG_DIR
+    cases = {str(home / "mine.yml"): home / "mine.yml",
+             "~/mine.yml": home / "mine.yml",
+             "example_configs.yml":
+                 config.DEFAULT_CONFIG_DIR / "example_configs.yml"}
+    for name, path in cases.items():
+        assert config.config_path(name) == path
+        with open(path) as f:
+            more = yaml.safe_load(f)
+        port, jax_conf = config.load_conf(name), _jax_conf(name)
+        assert {k: port[k] for k in more} == {k: jax_conf[k] for k in more}
+        assert {k: port[k] for k in more} == more
+
+
+def test_config_yaml_wins_over_the_command_line(tmp_path):
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        config
+    cfg = tmp_path / "c.yml"
+    cfg.write_text("compute_dtype: float32\nuse_encoder_prompting: true\n")
+    cli = dict(compute_dtype="bfloat16", use_encoder_prompting=False,
+               chunk=4)
+    port = config.load_conf(str(cfg), **cli)
+    want = _jax_conf(str(cfg), **cli)
+    assert port["compute_dtype"] == want["compute_dtype"] == "float32"
+    assert port["use_encoder_prompting"] is want["use_encoder_prompting"] \
+        is True
+    assert port["chunk"] == want["chunk"] == 4
+
+
+def test_config_lookup_raises_for_a_missing_file(tmp_path, monkeypatch):
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        config
+    monkeypatch.chdir(tmp_path)
+    for name in ("/nonexistent/path.yml", "no_such_config.yml"):
+        with pytest.raises(FileNotFoundError):
+            config.load_conf(name)
+        with pytest.raises(FileNotFoundError):
+            _jax_conf(name)
+    with pytest.raises(SystemExit):    # the flag is gone: YAML sets dtype
+        infer.main(["--configs", "example_configs.yml", "--ckpt", "m.pt",
+                    "--input", "a.nii.gz", "--output", "b.nii.gz",
+                    "--compute-dtype", "bfloat16"])

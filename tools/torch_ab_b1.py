@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
-"""A/B of the port's fused Swin block kernel (B1) between checkouts.
+"""A/B of the port's kernels between checkouts: the fused Swin block (B1)
+or the decoder conv (B2/B3).
 
 Run on a machine with one CUDA card, from the repository root::
 
     python3 tools/torch_ab_b1.py PARENT_DIR . . PARENT_DIR
+    python3 tools/torch_ab_b1.py --kernel b2 [--sweep] PARENT_DIR . . PARENT_DIR
 
 Each argument is the root of a checkout holding the PyTorch port; each
 runs in its own process, in the order given (alternate them: A B B A).
-Each process builds that checkout's kernels, runs B1 at the 12 flagship
-serving geometries (27 windows; no dropout, as serving calls it) on the
-same seeded blocks and inputs, and times each call with CUDA events.
-Outputs of every run are compared bit for bit with the first run's.
-``ptxas -v`` register counts of each checkout's ``fused_block.cu`` (and
-``window_attention.cu`` and ``fused_pair.cu``, which share its device
-code, where the checkout has them) are printed first.  Imports torch and the port only.
+Each process builds that checkout's kernels and times each call with
+CUDA events on the same seeded inputs.
+
+* ``--kernel b1`` (default): B1 at the 12 flagship serving geometries
+  (27 windows; no dropout, as serving calls it).  Outputs of every run
+  are compared bit for bit with the first run's.  ``ptxas -v`` of
+  ``fused_block.cu`` (and ``window_attention.cu``, ``fused_pair.cu`` and
+  the fp32 units, which share its device code, where the checkout has
+  them).
+* ``--kernel b2``: B2 at the 3 flagship decoder convs and B3 at 48->48 on
+  64x64x4 with and without its BN + LeakyReLU prologue (27 windows), each
+  held to its plain version (the kernels of two checkouts sum in other
+  orders, so their outputs are not compared bit for bit), beside one
+  cuDNN ``conv3d`` of the same shapes without the prologue (bf16,
+  channels-last); where the checkout reports it, each launch's tile,
+  registers, spills and CTAs per SM.  ``--sweep`` also times every tile
+  the checkout's kernel offers.  ``ptxas -v`` of ``conv3x3_pair.cu``.
+
+Imports torch and the port only.
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ PKG = "medical_image_segmentation_with_visual_prompts_tpu_torch"
 NVCC = shutil.which("nvcc") or os.path.join(
     os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
-CHILD = r'''
+CHILD_B1 = r'''
 import json, sys, time
 sys.path.insert(0, ".")
 import numpy as np, torch
@@ -78,48 +92,190 @@ np.savez(sys.argv[1], **outs)
 print(json.dumps({"build_s": build_s, "ms": times}))
 '''
 
+CHILD_B2 = r'''
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import torch.nn.functional as F
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import kernels
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
+    conv_fused as cf
+torch.backends.cudnn.allow_tf32 = False
+SHAPES = (("dec0", 384, 192, 192, (16, 16, 2)),
+          ("dec1", 192, 96, 96, (32, 32, 2)),
+          ("dec2", 96, 48, 48, (64, 64, 4)),
+          ("B3 prologue", 48, 0, 48, (64, 64, 4)),
+          ("B3 no prologue", 48, 0, 48, (64, 64, 4)))
+sweep = sys.argv[2] == "1"
 
-def ptxas(root: Path) -> None:
+
+def ms(fn, iters=20):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+t0 = time.perf_counter()
+kernels.library()
+build_s = time.perf_counter() - t0
+g = torch.Generator().manual_seed(0)
+res = {}
+for name, ca, cb, co, dims in SHAPES:
+    cin = ca + cb
+    xa = torch.randn((27, *dims, ca), generator=g).to("cuda", torch.bfloat16)
+    xb = torch.randn((27, *dims, cb), generator=g).to("cuda", torch.bfloat16) \
+        if cb else None
+    w = (torch.randn((co, cin, 3, 3, 3), generator=g)
+         * (27 * cin) ** -0.5).cuda()
+    bias = (0.1 * torch.randn(co, generator=g)).cuda()
+    scale = (0.5 + torch.rand(cin, generator=g)).cuda()
+    shift = (1.0 + torch.randn(cin, generator=g)).cuda()
+    w27 = cf.kernel_weight(w)
+    if name == "B3 no prologue":
+        args = (None, None, False)
+    elif cb:
+        args = None
+    else:
+        args = (scale, shift, True)
+    with torch.inference_mode():
+        if args is None:
+            run = lambda: cf.conv3x3_fused_pair(xa, xb, w, bias, scale,
+                                                shift, w27=w27)
+            ref = cf.conv_pair_reference(xa, xb, w, bias, scale, shift)
+        else:
+            run = lambda: cf.conv3x3_fused(xa, w, bias, *args, w27=w27)
+            ref = cf.conv_reference(xa, w, bias, *args)
+        out = run()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        big = ref.float().abs().max().item()
+        t = ms(run)
+        x = xa if xb is None else torch.cat([xa, xb], -1)
+        xc = x.permute(0, 4, 1, 2, 3)
+        wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+        t_lib = ms(lambda: F.conv3d(xc, wb, bb, padding=1))
+    row = {"ms": t, "cudnn_ms": t_lib, "max_abs_err": err, "max_ref": big}
+    if hasattr(cf, "tile_info"):
+        row["tile"] = cf.tile_info((27, *dims), co)
+        if sweep:
+            row["sweep"] = {}
+            for rpw in (32, 64):
+                for bn in (16, 32, 48):
+                    if co % bn:
+                        continue
+                    tile = (rpw, bn)
+                    with torch.inference_mode():
+                        fn = lambda: cf._launch(
+                            xa, xb, w27, bias, *(args or (scale, shift,
+                                                          True)),
+                            "conv3x3", torch.bfloat16, tile)
+                        try:
+                            t_tile = ms(fn)
+                        except RuntimeError as e:
+                            t_tile = str(e)
+                    row["sweep"][f"{rpw}x{bn}"] = {
+                        "ms": t_tile, **cf.tile_info((27, *dims), co, tile)}
+    res[name] = row
+print(json.dumps({"build_s": build_s, "res": res}))
+'''
+
+
+def ptxas(root: Path, names) -> None:
     """Registers, shared memory and spills of each kernel instantiation
-    of the checkout's attention sources (``nvcc -Xptxas -v``)."""
-    for name in ("fused_block.cu", "window_attention.cu", "fused_pair.cu"):
-        src = root / PKG / "csrc" / name
-        if not src.exists():
-            continue
-        print(f"  {name}:")
-        with tempfile.TemporaryDirectory() as tmp:
-            out = subprocess.run(
-                [NVCC, "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-Xptxas", "-v", "-c", str(src),
-                 "-o", f"{tmp}/k.o"], capture_output=True, text=True)
+    of the checkout's sources ``names`` (``nvcc -Xptxas -v``, all
+    compiled at once)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for name in names:
+            src = root / PKG / "csrc" / name
+            if src.exists():
+                runs.append((name, subprocess.Popen(
+                    [NVCC, "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-std=c++17", "-O3", "-Xptxas", "-v", "-c", str(src),
+                     "-o", f"{tmp}/{name}.o"], stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)))
+        for name, proc in runs:
+            _, err = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+            print(f"  {name}:")
+            kernel = None
+            for line in err.splitlines():
+                if "Compiling entry function" in line:
+                    kernel = line.split("'")[1]
+                elif ("registers" in line or "spill" in line) and kernel:
+                    print(f"    {kernel}: {line.split(':', 1)[-1].strip()}")
+
+
+def main_b2(roots, sweep: bool) -> int:
+    """B2/B3 in each checkout: ms per call beside cuDNN, error vs plain."""
+    for i, root in enumerate(roots):
+        out = subprocess.run([sys.executable, "-c", CHILD_B2, "-",
+                              str(int(sweep))], cwd=root, capture_output=True,
+                             text=True)
         if out.returncode:
-            raise RuntimeError(f"nvcc failed for {src}:\n{out.stderr}")
-        kernel = None
-        for line in out.stderr.splitlines():
-            if "Compiling entry function" in line:
-                kernel = line.split("'")[1]
-            elif ("registers" in line or "spill" in line) and kernel:
-                print(f"    {kernel}: {line.split(':', 1)[-1].strip()}")
+            print(out.stderr, file=sys.stderr)
+            return 1
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        convs = [r for k, r in res["res"].items() if k.startswith("dec")]
+        b2 = sum(r["ms"] for r in convs)
+        lib = sum(r["cudnn_ms"] for r in convs)
+        print(f"run {i}: {root}: build {res['build_s']:.1f} s, B2 sum "
+              f"{b2:.4f} ms per 27-window forward (cuDNN conv3d without the "
+              f"prologue {lib:.4f})")
+        for name, r in res["res"].items():
+            line = (f"  {name}: {r['ms']:.4f} ms, cuDNN {r['cudnn_ms']:.4f} "
+                    f"ms, max_abs_err {r['max_abs_err']:.4g} of "
+                    f"{r['max_ref']:.4g}")
+            if "tile" in r:
+                line += f"; tile {r['tile']}"
+            print(line)
+            for tile, t in r.get("sweep", {}).items():
+                print(f"    tile {tile}: {t}")
+            if not r["max_abs_err"] <= 2.0 ** -6 * max(1.0, r["max_ref"]):
+                print(f"  {name}: error above 2^-6 of the largest output")
+                return 1
+    return 0
 
 
 def main(argv) -> int:
     import numpy as np
+    kernel, sweep = "b1", False
+    while argv and argv[0].startswith("--"):
+        if argv[0] == "--kernel":
+            kernel, argv = argv[1], argv[2:]
+        elif argv[0] == "--sweep":
+            sweep, argv = True, argv[1:]
+        else:
+            break
     roots = [Path(a).resolve() for a in argv]
-    if not roots:
+    if not roots or kernel not in ("b1", "b2"):
         print(__doc__, file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
+    names = ("conv3x3_pair.cu",) if kernel == "b2" else (
+        "fused_block.cu", "fused_block_f32.cu", "window_attention.cu",
+        "fused_pair.cu", "fused_pair_f32.cu")
     for root in dict.fromkeys(roots):
         print(f"ptxas -v, {root}:")
-        ptxas(root)
+        ptxas(root, names)
+    if kernel == "b2":
+        return main_b2(roots, sweep)
     first = None
     with tempfile.TemporaryDirectory() as tmp:
         for i, root in enumerate(roots):
             dump = f"{tmp}/run{i}.npz"
-            out = subprocess.run([sys.executable, "-c", CHILD, dump],
+            out = subprocess.run([sys.executable, "-c", CHILD_B1, dump],
                                  cwd=root, capture_output=True, text=True)
             if out.returncode:
                 print(out.stderr, file=sys.stderr)
