@@ -47,7 +47,9 @@ the port's paths:
 
 B2 and B3 are timed beside one cuDNN ``conv3d`` on the same shapes
 without the prologue (bf16, channels-last), and each B2 launch reports
-its tile, registers, spills and CTAs per SM.
+its tile, registers, spills and CTAs per SM; each B1 and B5 launch of the
+serving geometries reports its cluster size (CTAs per window), CTAs,
+CTAs per SM, registers, spills and shared bytes.
 
 Each path runs with the launch counters set to 0 just before and read
 just after.  It prints one JSON line describing the kernels (times,
@@ -171,15 +173,19 @@ class Bound:
         return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
 
 
-def block_work(x_win, ops, labels):
+def block_work(x_win, ops, labels, bias_array: bool = False):
     """(flops, bytes) of one B1 call: five C x C products per row and the
-    two attention products over N keys; bf16 x in and out, bf16 weights
-    and extra K/V rows, the fp32 bias and vectors, int32 labels."""
+    two attention products over N keys; x in and out (its dtype), bf16
+    weights and extra K/V rows, the bias's factors (fp32 tables, int32
+    coordinates) or, with ``bias_array`` (B4's input), the fp32 [H, M, N]
+    bias, fp32 vectors, int32 labels."""
     b, p, m, c = x_win.shape
     bp, n, h, e = b * p, m + ops.n_ext, ops.num_heads, ops.n_ext
     flops = bp * (10 * m * c * c + 4 * m * n * c)
-    nbytes = (2 * bp * m * c * 2 + 5 * c * c * 2 + 2 * e * c * 2
-              + h * m * n * 4 + 6 * c * 4
+    bias = h * m * n * 4 if bias_array else \
+        ops.kernel["pe_tab"].numel() * 4 + ops.kernel["pe_coord"].numel() * 4
+    nbytes = (2 * bp * m * c * x_win.element_size() + 5 * c * c * 2
+              + 2 * e * c * 2 + bias + 6 * c * 4
               + (0 if labels is None else labels.numel() * 4))
     return flops, nbytes
 
@@ -187,12 +193,13 @@ def block_work(x_win, ops, labels):
 def block_bwd_work(x_win, ops, labels):
     """(flops, bytes) of one B4 call: the forward's products once more
     (recompute) and twice for the gradients; reads x, dout and the
-    forward's inputs, writes dx (bf16) and the fp32 operand gradients."""
+    forward's inputs, writes dx (x's dtype) and the fp32 operand
+    gradients."""
     b, p, m, c = x_win.shape
     bp, n, h, e = b * p, m + ops.n_ext, ops.num_heads, ops.n_ext
-    fwd_flops, fwd_bytes = block_work(x_win, ops, labels)
-    nbytes = fwd_bytes + bp * m * c * 2 + (5 * c * c * 4 + 6 * c * 4
-                                           + h * m * n * 4 + 2 * e * c * 4)
+    fwd_flops, fwd_bytes = block_work(x_win, ops, labels, bias_array=True)
+    nbytes = fwd_bytes + bp * m * c * x_win.element_size() + (
+        5 * c * c * 4 + 6 * c * 4 + h * m * n * 4 + 2 * e * c * 4)
     return 3 * fwd_flops, nbytes
 
 
@@ -254,7 +261,7 @@ def phase_blocks(gen_seed: int = SEED):
     """B1 at the 6 flagship geometries, no-shift and shift, 27 windows."""
     import torch
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
-        .fused_block import block_reference, fused_swin_block
+        .fused_block import block_reference, fused_swin_block, launch_info
     print("phase B1: fused Swin block vs block_reference (bf16, serving)")
     failures, errs = [], []
     ms = plain_ms = 0.0
@@ -276,7 +283,8 @@ def phase_blocks(gen_seed: int = SEED):
                 t_k = cuda_ms(lambda: fused_swin_block(x_win, ops, labels))
                 t_p = cuda_ms(lambda: block_reference(x_win, ops, labels), 3)
             bound.add(*block_work(x_win, ops, labels))
-            print(f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+            print(f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms; launch "
+                  f"{launch_info(x_win, ops, labels)}")
             ms += t_k
             plain_ms += t_p
     if failures:
@@ -600,7 +608,7 @@ def pair_work(x_win, ops0, ops1, labels):
     once, both operand sets, the shifted block's labels."""
     f0, b0 = block_work(x_win, ops0, None)
     f1, b1 = block_work(x_win, ops1, labels)
-    io = 2 * x_win.numel() * 2
+    io = 2 * x_win.numel() * x_win.element_size()
     return f0 + f1, b0 + b1 - io
 
 
@@ -609,14 +617,16 @@ def phase_pair(gen_seed: int = SEED + 8):
     the serve path calls it): against ``pair_reference`` within
     KERNEL_TOL, and against its two-launch counterpart (B1, the plan's
     row gather, B1, the inverse gather) element for element; then with
-    dropout at the training batch.  Prints CTAs per SM of B1 and B5."""
+    dropout at the training batch.  Prints the launch shapes (cluster
+    size, CTAs, CTAs per SM, registers, spills, shared bytes) of B1 and
+    B5."""
     import torch
-    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
-        kernels
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
-        .fused_block import NO_DROPOUT, Dropout, fused_swin_block
+        .fused_block import NO_DROPOUT, Dropout, fused_swin_block, launch_info
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .fused_pair import fused_swin_pair, pair_reference, plan_gather
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_pair import launch_info as pair_launch_info
     print("phase B5: Swin block pair vs pair_reference and vs B1 + gather + "
           "B1 + gather (bf16, serving, 27 windows)")
     failures, errs = [], []
@@ -656,10 +666,8 @@ def phase_pair(gen_seed: int = SEED + 8):
             t_2 = cuda_ms(lambda: two_launch(x_win))
             t_p = cuda_ms(lambda: pair_reference(x_win, ops0, ops1, labels,
                                                  plan), 3)
-            m, e = x_win.shape[2], ops0.n_ext
-            ctas = {k: [kernels.ctas_per_sm(f"mivp_fused_swin_{k}", m, c,
-                                            heads, e, d) for d in (0, 1)]
-                    for k in ("block", "pair")}
+            shapes = {"B1": launch_info(x_win, ops0),
+                      "B5": pair_launch_info(x_win, ops0, ops1, labels, plan)}
             # Dropout (the train path's instantiation) at the batch of 2.
             d0 = Dropout((2000 + 4 * i, 2001 + 4 * i), DROP_RATE, DROP_RATE)
             d1 = Dropout((2002 + 4 * i, 2003 + 4 * i), DROP_RATE, DROP_RATE)
@@ -680,8 +688,7 @@ def phase_pair(gen_seed: int = SEED + 8):
         print(f"    kernel {t_k:.4f} ms, B1 + gather + B1 + gather {t_2:.4f} "
               f"ms, plain {t_p:.4f} ms; {differ} of {out.numel()} elements "
               f"differ from the two launches ({differ_d} with dropout); "
-              f"CTAs per SM (no dropout, dropout): B1 {ctas['block']}, B5 "
-              f"{ctas['pair']}; dropout batch {TRAIN_BATCH}: kernel "
+              f"launches: {shapes}; dropout batch {TRAIN_BATCH}: kernel "
               f"{t_kd:.4f} ms, plain {t_pd:.4f} ms")
         res["differing"] += differ_d
         res["elements"] += out_d.numel()

@@ -5,8 +5,10 @@
 // and the warp GEMMs built on it, the shared-memory row padding, the
 // counter-based dropout hash (the murmur3 finalizer of ops/prng.py, bit
 // for bit), one head's attention of a 16-row tile (label-equality mask,
-// online fp32 softmax), and one whole Swin block on one window
-// (swin_block_window: B1's body, run once by B1 and twice by B5).
+// online fp32 softmax; the bias read from device memory or built from its
+// factors), and one whole Swin block on one window, split over a thread
+// block cluster (swin_block_window: B1's body, run once by B1 and twice
+// by B5), with the host code that sizes and launches the cluster.
 
 #pragma once
 
@@ -15,6 +17,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -125,7 +128,12 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
 // acc[mt][nt] += A[r0 + 16 mt .. +16, 0..K) @ Bt[n0 + 8 nt .. +8, 0..K)^T
 // for the warp's `mtiles` row tiles and `ntiles` <= kNT column tiles.
 // A: row-major, stride lda (shared or global memory, rows up to r0 + 31
-// readable); Bt: device memory, [N][K].
+// readable); Bt: device memory, [N][K], or with KP in the block body's
+// k-packed layout (ops/fused_block.py::pack_k16: within each 16-wide k
+// block the values 2cq, 2cq + 1, 8 + 2cq and 9 + 2cq of a row are
+// adjacent, so a lane's B fragment is one 8-byte load; the same products
+// in the same order).
+template <bool KP = false>
 __device__ __forceinline__ void warp_gemm_acc(float (&acc)[2][kNT][4],
                                               const bf16* A, int lda, int r0,
                                               int mtiles, const bf16* Bt,
@@ -145,8 +153,16 @@ __device__ __forceinline__ void warp_gemm_acc(float (&acc)[2][kNT][4],
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
       if (nt < ntiles) {
-        const bf16* b = Bt + (size_t)(n0 + nt * 8 + g) * ldb + k0 + 2 * cq;
-        const uint32_t b0 = ldg32(b), b1 = ldg32(b + 8);
+        const bf16* row = Bt + (size_t)(n0 + nt * 8 + g) * ldb + k0;
+        uint32_t b0, b1;
+        if (KP) {
+          const uint2 b = __ldg(reinterpret_cast<const uint2*>(row + 4 * cq));
+          b0 = b.x;
+          b1 = b.y;
+        } else {
+          b0 = ldg32(row + 2 * cq);
+          b1 = ldg32(row + 2 * cq + 8);
+        }
         mma16816(acc[0][nt], af[0], b0, b1);
         if (mtiles > 1) mma16816(acc[1][nt], af[1], b0, b1);
       }
@@ -162,12 +178,13 @@ __device__ __forceinline__ void zero_acc(float (&acc)[2][kNT][4]) {
       acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
 }
 
+template <bool KP = false>
 __device__ __forceinline__ void warp_gemm(float (&acc)[2][kNT][4],
                                           const bf16* A, int lda, int r0,
                                           int mtiles, const bf16* Bt, int ldb,
                                           int n0, int ntiles, int K, int lane) {
   zero_acc(acc);
-  warp_gemm_acc(acc, A, lda, r0, mtiles, Bt, ldb, n0, ntiles, K, lane);
+  warp_gemm_acc<KP>(acc, A, lda, r0, mtiles, Bt, ldb, n0, ntiles, K, lane);
 }
 
 // murmur3 finalizer over the counter (ops/prng.py::hash_u32).
@@ -212,6 +229,106 @@ struct AttnDrop {
   int m, gap;
 };
 
+// The additive attention bias of one head as [m, n] fp32 rows in device
+// memory (B6/B7/B8, and B4's layout): bias[i, j] = rows[i * n + j].
+struct GlobalBias {
+  const float* rows;
+  int n;
+  typedef const float* Row;
+  __device__ __forceinline__ Row row(int i) const {
+    return rows + (size_t)i * n;
+  }
+  __device__ __forceinline__ int col(int) const { return 0; }
+  // bias[i, j] and bias[i, j + 1] (j even) where they are keys (< n).
+  __device__ __forceinline__ void pair(Row r, int, int j, float& b0,
+                                       float& b1) const {
+    b0 = j < n ? __ldg(r + j) : 0.f;
+    b1 = j + 1 < n ? __ldg(r + j + 1) : 0.f;
+  }
+};
+
+// Design probes (tools/torch_ab_b1.py --probe): a nonzero MIVP_B1_SKIP
+// compiles parts of the block body out (1: attention, 2: q|k|v, 4: the
+// row phase's products, 8: LN1, 16: the bias build, 64: P.V) and a
+// nonzero MIVP_B1_KS sets the cluster size where it is valid.  A probe's
+// output is garbage and only its time is read; the port's own builds
+// define neither.
+#ifndef MIVP_B1_SKIP
+#define MIVP_B1_SKIP 0
+#endif
+#ifndef MIVP_B1_KS
+#define MIVP_B1_KS 0
+#endif
+
+constexpr float kThird = 1.0f / 3.0f;
+
+// The same bias built from its factors in shared memory (B1, B5), bit for
+// bit the [H, M, N] array that models/relative_pe.py and
+// models/swin_block.py assemble on the card:
+//
+//   j <  m:  ((R[ih_i, ih_j] + Cw[iw_i, iw_j]) + D[id_i, id_j]) / 3 * s
+//   j == m:  fold[i]                     (pad-folded geometries)
+//   j >  m:  ext[j - m]                  (prompt-token columns)
+//
+// where (ih, iw, id) is a content row's coordinate in the full window
+// (packed ih | iw << 8 | id << 16, plus kNextInDepth when row j + 1 is
+// (ih, iw, id + 1): then keys j and j + 1 share R + Cw) and R, Cw, D are
+// the per-axis tables of the head.  PyTorch's CUDA division by a scalar
+// multiplies by its fp32 reciprocal, so "/ 3" is a product with kThird;
+// the adds and products are the _rn intrinsics, which the compiler never
+// contracts into an FMA.  tab: the head's [ph*ph | pw*pw | pd*pd | E | M
+// (fold only)] table.
+constexpr int kNextInDepth = 1 << 24;
+
+struct FactoredBias {
+  const float* tab;
+  const int* coord;
+  int m, ph, pw, pd, oc, od, oe, of;
+  bool fold;
+  float scale;
+  struct Row {
+    int r, c, d;
+    float f;
+  };
+  __device__ __forceinline__ Row row(int i) const {
+    const int ci = coord[i];
+    return {(ci & 255) * ph, oc + ((ci >> 8) & 255) * pw,
+            od + ((ci >> 16) & 255) * pd, fold ? tab[of + i] : 0.f};
+  }
+  __device__ __forceinline__ int col(int j) const {
+    return j < m ? coord[j] : 0;
+  }
+  __device__ __forceinline__ float scaled(float t) const {
+    return __fmul_rn(__fmul_rn(t, kThird), scale);
+  }
+  __device__ __forceinline__ float at(const Row& r, int j) const {
+    if (j < m) {
+      const int cj = coord[j];
+      return scaled(__fadd_rn(__fadd_rn(tab[r.r + (cj & 255)],
+                                        tab[r.c + ((cj >> 8) & 255)]),
+                              tab[r.d + ((cj >> 16) & 255)]));
+    }
+    return (fold && j == m) ? r.f : tab[oe + j - m];
+  }
+  // bias[i, j] and bias[i, j + 1] for j even, cj = col(j); values past
+  // the keys are garbage (reads stay inside the CTA's tables).
+  __device__ __forceinline__ void pair(const Row& r, int cj, int j,
+                                       float& b0, float& b1) const {
+    if (MIVP_B1_SKIP & 16) {
+      b0 = b1 = 0.f;
+    } else if (j < m && (cj & kNextInDepth)) {
+      const float rc = __fadd_rn(tab[r.r + (cj & 255)],
+                                 tab[r.c + ((cj >> 8) & 255)]);
+      const int dj = r.d + ((cj >> 16) & 255);
+      b0 = scaled(__fadd_rn(rc, tab[dj]));
+      b1 = scaled(__fadd_rn(rc, tab[dj + 1]));
+    } else {
+      b0 = at(r, j);
+      b1 = at(r, j + 1);
+    }
+  }
+};
+
 // Attention of one head for the 16 query rows t0..t0+15 of a warp, on
 // tensor cores.  Each lane quad holds rows a = t0 + g and b = t0 + g + 8:
 //
@@ -221,15 +338,15 @@ struct AttnDrop {
 //
 // Shared memory: Q rows (stride qs) and K rows [npad][qs] of DHK bf16
 // (the head dim zero-padded to the k-step), V^T [DHK][vs]; key rows n..npad
-// of K and V^T are zero.  bias: the head's [m, n] fp32 rows in device
-// memory; slab: the window's key labels (read only when `masked`).  On
+// of K and V^T are zero.  bias: a GlobalBias or a FactoredBias of the
+// head; slab: the window's key labels (read only when `masked`).  On
 // return o[dt] holds the normalised output of row a (o[dt][0..1]) and row b
 // (o[dt][2..3]) at head columns dt * 8 + 2 * (lane % 4) + {0, 1}.
-template <int DHK, bool DROP>
-__device__ __forceinline__ void attend_tile(
+template <int DHK, bool DROP, class Bias>
+__device__ __forceinline__ void attend_rows(
     float (&o)[DHK / 8][4], const bf16* sq, const bf16* sk, int qs,
     const bf16* svt, int vs, const int* slab, bool masked,
-    const float* bias, int t0, int m, int n, int npad, float scale,
+    const Bias& bias, int t0, int m, int n, int npad, float scale,
     const AttnDrop& dr, int lane) {
   constexpr int KSTEPS = DHK / 16;   // k-steps of QK^T
   constexpr int DTILES = DHK / 8;    // n-tiles of P.V
@@ -247,8 +364,8 @@ __device__ __forceinline__ void attend_tile(
   const bool va = ra < m, vb = rb < m;
   const int lab_a = (masked && va) ? slab[ra] : 0;
   const int lab_b = (masked && vb) ? slab[rb] : 0;
-  const float* bias_a = bias + (size_t)(va ? ra : 0) * n;
-  const float* bias_b = bias + (size_t)(vb ? rb : 0) * n;
+  const typename Bias::Row bias_a = bias.row(va ? ra : 0);
+  const typename Bias::Row bias_b = bias.row(vb ? rb : 0);
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 #pragma unroll
   for (int dt = 0; dt < DTILES; ++dt)
@@ -268,12 +385,17 @@ __device__ __forceinline__ void attend_tile(
 #pragma unroll
         for (int ks = 0; ks < KSTEPS; ++ks)
           mma16816(sc, qa[ks], lds32(k0 + ks * 16), lds32(k0 + ks * 16 + 8));
+        const int jp = j0 + nt * 8 + 2 * cq;   // keys jp, jp + 1
+        const int cj = bias.col(jp);
+        float bv[4];
+        bias.pair(bias_a, cj, jp, bv[0], bv[1]);
+        bias.pair(bias_b, cj, jp, bv[2], bv[3]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = j0 + nt * 8 + 2 * cq + (e & 1);
+          const int j = jp + (e & 1);
           if (j < n) {
             const bool top = e < 2;
-            float v = sc[e] * scale + __ldg((top ? bias_a : bias_b) + j);
+            float v = sc[e] * scale + bv[e];
             if (masked) {
               const int lj = slab[j];
               if (!(lj == (top ? lab_a : lab_b) || lj < 0)) v = 0.f;
@@ -335,7 +457,8 @@ __device__ __forceinline__ void attend_tile(
 #pragma unroll
         for (int dt = 0; dt < DTILES; ++dt) {
           const bf16* v0 = svt + (dt * 8 + g) * vs + jk;
-          mma16816(o[dt], pa, lds32(v0), lds32(v0 + 8));
+          if (!(MIVP_B1_SKIP & 64))
+            mma16816(o[dt], pa, lds32(v0), lds32(v0 + 8));
         }
       }
     }
@@ -354,77 +477,156 @@ __device__ __forceinline__ void attend_tile(
   }
 }
 
+// attend_rows with the bias as [m, n] rows in device memory (B6/B7/B8).
+template <int DHK, bool DROP>
+__device__ __forceinline__ void attend_tile(
+    float (&o)[DHK / 8][4], const bf16* sq, const bf16* sk, int qs,
+    const bf16* svt, int vs, const int* slab, bool masked,
+    const float* bias, int t0, int m, int n, int npad, float scale,
+    const AttnDrop& dr, int lane) {
+  attend_rows<DHK, DROP>(o, sq, sk, qs, svt, vs, slab, masked,
+                         GlobalBias{bias, n}, t0, m, n, npad, scale, dr, lane);
+}
+
 // Operands of one fused-block call: B1's arguments, and each half of B5's.
 struct BlockArgs {
   const void* x;        // [BP, M, C], fp32 or bf16 (f32)
   void* out;            // [BP, M, C], x's dtype
-  const bf16* wqkv;     // [H, 3, DHK, C]: Wq|Wk|Wv of head h, transposed
+  const bf16* wqkv;     // [H, 3, DHK, C]: Wq|Wk|Wv of head h, transposed,
+                        // k-packed (warp_gemm_acc)
   const bf16* ext_kv;   // [H, 2, E, DHK]: extra K rows, then extra V rows
-  const float* bias;    // [H, M, N], N = M + E
+  const float* pe_tab;  // [H, tabw]: each head's FactoredBias table
+  const int* pe_coord;  // [M] packed window coordinates of the rows
   const int* labels;    // [P, N] shift-region labels, or null
   const float* ln1_s;
   const float* ln1_b;
-  const bf16* wproj;    // [C, C] (out, in)
+  const bf16* wproj;    // [C, C] (out, in), k-packed
   const float* bproj;
   const float* ln2_s;
   const float* ln2_b;
-  const bf16* wmlp;     // [C, C] (out, in)
+  const bf16* wmlp;     // [C, C] (out, in), k-packed
   const float* bmlp;
   int m, c, heads, n_ext, p_windows;
-  float scale;
+  int ph, pw, pd;       // window dims of the per-axis bias tables
+  int tabw;             // ph^2 + pw^2 + pd^2 + E (+ M with a fold column)
+  bool fold;            // key column M is the pad-fold column
+  float scale, pe_scale;
   DropArgs drop;
   bool f32;             // x and out are fp32 (else bf16)
-  unsigned char* scratch;  // B1 windows too large for shared memory:
-                           // x1 and region 2 per window (BlockSmem)
+  int ks;               // CTAs per window (the cluster size)
 };
 
-// Shared-memory layout, in bytes.  Region 1 holds LN1(x), the head's Q,
-// K and V^T tiles and the key labels during the projections and
-// attention, and x1 (fp32) afterwards; region 2 holds the attention
-// output, then LN2(x1).  All row-major over the CTA's rows (mp = rows
-// rounded up to the warps' 32).  Strides: bf16 rows of C + 8, Q/K rows of
-// dhk + 8, V^T rows of npad + 8, x1 rows of C + 4 floats.  With `spill`
-// (windows whose layout exceeds a CTA's shared memory, such as M 256 at C
-// 192) x1 and region 2 live in a device scratch of `spill_bytes` per
-// window instead (x1 at 0, region 2 at `a`), and shared memory holds
-// region 1's attention part only.
+__host__ __device__ inline int bias_table_floats(int ph, int pw, int pd,
+                                                 int m, int e, bool fold) {
+  return ph * ph + pw * pw + pd * pd + e + (fold ? m : 0);
+}
+
+// Rows of each CTA's row phase (proj, LN2, MLP) when a window is split
+// over ks CTAs: the window's rows in blocks of 16-row tiles.
+__host__ __device__ inline int row_block(int m, int ks) {
+  return ks == 1 ? m : pad16((m + ks - 1) / ks);
+}
+
+// Shared-memory layout of one CTA, in bytes.  The head phase holds LN1(x)
+// of every row (y), the head's Q, K and V^T tiles, the key labels, the
+// bias tables of the CTA's heads and the rows' window coordinates; the
+// row phase reuses that space for x1 (fp32) of the CTA's rows.  `ra`
+// (after both) receives the attention output of the CTA's rows from
+// every CTA of the cluster, then holds LN2(x1).  Row-major; strides: bf16
+// rows of C + 8, Q/K rows of dhk + 8, V^T rows of npad + 8, x1 rows of
+// C + 4 floats (fragment loads free of bank conflicts).  mp = rows
+// rounded up to the warps' 32.
 struct BlockSmem {
-  int npad, mp, cs, qks, vts, xs;
-  size_t y, q, k, vt, lab, x1, a, total, spill_bytes;
+  int npad, mp, cs, qks, vts, xs, rb;
+  size_t y, q, k, vt, lab, tab, coord, x1, ra, total;
   __host__ __device__ BlockSmem(int m, int c, int n, int dhk, int threads,
-                                bool spill = false) {
+                                int ks, int tab_floats) {
     npad = pad16(n);
     mp = threads;
     cs = c + 8;
     qks = dhk + 8;
     vts = npad + 8;
     xs = c + 4;
+    rb = row_block(m, ks);
     y = 0;
     q = align16(y + (size_t)mp * cs * 2);
     k = align16(q + (size_t)mp * qks * 2);
     vt = align16(k + (size_t)npad * qks * 2);
     lab = align16(vt + (size_t)dhk * vts * 2);
-    size_t attn_end = align16(lab + (size_t)npad * 4);
+    tab = align16(lab + (size_t)npad * 4);
+    coord = align16(tab + (size_t)tab_floats * 4);
+    const size_t head_end = align16(coord + (size_t)m * 4);
     x1 = 0;
-    size_t x1_end = align16((size_t)mp * xs * 4);
-    if (spill) {
-      a = x1_end;
-      spill_bytes = a + align16((size_t)mp * cs * 2);
-      total = attn_end;
-    } else {
-      a = attn_end > x1_end ? attn_end : x1_end;
-      total = a + align16((size_t)mp * cs * 2);
-      spill_bytes = 0;
-    }
+    const size_t x1_end = align16((size_t)rb * xs * 4);
+    ra = head_end > x1_end ? head_end : x1_end;
+    total = ra + align16((size_t)((rb + 31) / 32 * 32) * cs * 2);
   }
 };
 
-// One whole Swin block on one window, by a CTA of blockDim.x = M rounded
-// up to 32 threads (each warp owns 32 rows): the body of B1
+__host__ __device__ inline BlockSmem block_smem(const BlockArgs& a, int dhk,
+                                                int ks) {
+  return BlockSmem(a.m, a.c, a.m + a.n_ext, dhk, (a.m + 31) / 32 * 32, ks,
+                   (a.heads / ks) * a.tabw);
+}
+
+// ---- thread block clusters (sm_90) ----
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The two halves of a cluster barrier without memory ordering: after the
+// wait, every CTA of the cluster has started (its shared memory may be
+// written).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// All threads of every CTA of the cluster: the CTA's earlier writes
+// (shared memory of any CTA of the cluster, and device memory) are
+// visible to every thread of the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 32 bits into the shared memory of CTA `rank` of the cluster, at the
+// offset that `local` has in this CTA's.
+__device__ __forceinline__ void st_cluster32(const void* local, uint32_t rank,
+                                             uint32_t v) {
+  uint32_t addr = (uint32_t)__cvta_generic_to_shared(local), remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(remote), "r"(v)
+               : "memory");
+}
+
+// One whole Swin block on one window, by a cluster of a.ks CTAs of
+// blockDim.x = M rounded up to 32 threads each: the body of B1
 // (fused_block.cu) and of each half of B5 (fused_pair.cu).
+//
+//   Head phase.  Every CTA takes LN1 of all M rows (thread per row), then
+//   runs q|k|v (one GEMM per head, N = 3 DHK) and attention for its H/ks
+//   heads on all rows (each warp owns 32 rows).  Each attention output
+//   goes straight to the shared memory (`ra`) of the CTA that owns its
+//   row: CTA r owns rows [r rb, (r + 1) rb).  One cluster barrier.
+//   Row phase.  Each CTA runs proj, residual, LN2 (warp per row), MLP and
+//   residual on its own rows; its warps split the rows in 32-row groups
+//   and each group's columns between them.
+//
+// Every output element takes the arithmetic of the one-CTA form (same
+// per-head softmax, same K order in every product), so the output does
+// not depend on ks.
 //   xw, ow  the window's M input rows and where its output rows go, in
-//           the activation dtype a.f32 (ow may be xw: every row is read
-//           and then written by its own warp);
+//           the activation dtype (ow may be xw: a row is read and then
+//           written by the CTA that owns it, and every CTA's LN1 reads
+//           happen before the cluster barrier);
 //   rows    PERM: row t of the block reads and writes row rows[t] of xw
 //           and ow (M ints in shared memory: B5's in-window token roll);
 //           else row t itself;
@@ -432,55 +634,87 @@ struct BlockSmem {
 //   lab     the window's [N] key labels, or null (no mask);
 //   smem    BlockSmem's regions.
 // DROP: the dropout code is compiled in only for calls with a nonzero rate.
-// SPILL: x1 and region 2 in a.scratch, at window `win`'s slot (B1 only).
 // F32: xw and ow are fp32 (else bf16; a.f32 chose the instance).
-template <int DH, bool DROP, bool PERM, bool SPILL, bool F32>
+template <int DH, bool DROP, bool PERM, bool F32>
 __device__ __forceinline__ void swin_block_window(
     const BlockArgs& a, const void* xw, void* ow, const int* rows,
     uint32_t win, const int* lab, unsigned char* smem) {
   constexpr int DHK = pad16(DH);
-  constexpr int DTILES = DHK / 8;    // n-tiles of a head's q/k/v and P.V
+  constexpr int DTILES = DHK / 8;    // n-tiles of a head's P.V
   const int M = a.m, C = a.c, E = a.n_ext, N = a.m + a.n_ext;
-  const BlockSmem L(M, C, N, DHK, blockDim.x, SPILL);
+  const int KS = a.ks, HK = a.heads / KS;
+  const BlockSmem L = block_smem(a, DHK, KS);
   const int CS = L.cs, QS = L.qks, VS = L.vts, XS = L.xs, NPAD = L.npad;
-  unsigned char* big = SPILL ? a.scratch + (size_t)win * L.spill_bytes
-                             : smem;
+  const int RB = L.rb;
   bf16* sy = reinterpret_cast<bf16*>(smem + L.y);
   bf16* sq = reinterpret_cast<bf16*>(smem + L.q);
   bf16* sk = reinterpret_cast<bf16*>(smem + L.k);
   bf16* svt = reinterpret_cast<bf16*>(smem + L.vt);
   int* slab = reinterpret_cast<int*>(smem + L.lab);
-  float* sx1 = reinterpret_cast<float*>(big + L.x1);
-  bf16* sa = reinterpret_cast<bf16*>(big + L.a);
+  float* stab = reinterpret_cast<float*>(smem + L.tab);
+  int* scoord = reinterpret_cast<int*>(smem + L.coord);
+  float* sx1 = reinterpret_cast<float*>(smem + L.x1);
+  bf16* sra = reinterpret_cast<bf16*>(smem + L.ra);
 
   const int i = threadIdx.x;
   const bf16 zero = __float2bfloat16_rn(0.f);
   const int warp = i / 32, lane = i % 32, g = lane / 4, cq = lane % 4;
+  const int nwarps = blockDim.x / 32;
   const int r0 = warp * 32;                       // the warp's first row
   const int dgap = a.drop.drop_cols - N;          // JAX alignment columns
   const int mtiles = r0 + 16 < M ? 2 : 1;         // its 16-row tiles
+  const int rank = KS > 1 ? (int)cluster_rank() : 0;
+  const int h0 = rank * HK;                       // the CTA's first head
+  if (KS > 1) cluster_arrive_relaxed();   // waited for before the first push
 
-  // ---- LN1 of the thread's row -> y (bf16, row-major) ----
+  // ---- LN1, a thread per row -> y (bf16, row-major) ----
+  // bf16 rows are first copied into y with coalesced 16-byte loads and
+  // normalised there in place; fp32 rows are read from device memory.
+  // Either way the statistics sum the row's pairs in order.
   typedef typename std::conditional<F32, float, bf16>::type T;
   const T* xt = static_cast<const T*>(xw);
   T* ot = static_cast<T*>(ow);
-  if (i < M) {
-    const T* xr = xt + (size_t)(PERM ? rows[i] : i) * C;
+  if (!F32 && !(MIVP_B1_SKIP & 8)) {
+    const int chunks = C / 8;
+    for (int t = i; t < M * chunks; t += blockDim.x) {
+      const int r = t / chunks, c8 = (t - r * chunks) * 8;
+      *reinterpret_cast<uint4*>(sy + r * CS + c8) =
+          *reinterpret_cast<const uint4*>(xt + (size_t)(PERM ? rows[r] : r) * C + c8);
+    }
+    __syncthreads();
+  }
+  if (i < M && !(MIVP_B1_SKIP & 8)) {
+    const T* xr = F32 ? xt + (size_t)(PERM ? rows[i] : i) * C
+                      : reinterpret_cast<const T*>(sy + i * CS);
     float sum = 0.f, sq2 = 0.f;
-    for (int c = 0; c < C; c += 2) {
-      const float2 v = ld2(xr, c);
-      sum += v.x + v.y;
-      sq2 += v.x * v.x + v.y * v.y;
+    for (int c = 0; c < C; c += 8) {
+      float2 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = ld2(xr, c + 2 * k);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        sum += v[k].x + v[k].y;
+        sq2 += v[k].x * v[k].x + v[k].y * v[k].y;
+      }
     }
     const float mu = sum / C;
     const float rstd = rsqrtf(sq2 / C - mu * mu + kEps);
-    for (int c = 0; c < C; c += 2) {
-      const float2 v = ld2(xr, c);
-      *reinterpret_cast<uint32_t*>(sy + i * CS + c) = pack2(
-          (v.x - mu) * rstd * __ldg(a.ln1_s + c) + __ldg(a.ln1_b + c),
-          (v.y - mu) * rstd * __ldg(a.ln1_s + c + 1) + __ldg(a.ln1_b + c + 1));
+    for (int c = 0; c < C; c += 8) {
+      float2 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = ld2(xr, c + 2 * k);
+      uint32_t packed[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int cc = c + 2 * k;
+        packed[k] = pack2(
+            (v[k].x - mu) * rstd * __ldg(a.ln1_s + cc) + __ldg(a.ln1_b + cc),
+            (v[k].y - mu) * rstd * __ldg(a.ln1_s + cc + 1) + __ldg(a.ln1_b + cc + 1));
+      }
+      *reinterpret_cast<uint4*>(sy + i * CS + c) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
     }
-  } else {
+  } else if (i >= M) {
     for (int c = 0; c < C; ++c) sy[i * CS + c] = zero;   // unused tile rows
   }
   // Key rows past N are zero in K and V^T for every head.
@@ -493,26 +727,34 @@ __device__ __forceinline__ void swin_block_window(
   const bool masked = lab != nullptr;
   if (masked)
     for (int t = i; t < N; t += blockDim.x) slab[t] = __ldg(lab + t);
+  // The bias tables of the CTA's heads and the rows' coordinates.
+  for (int t = i; t < HK * a.tabw; t += blockDim.x)
+    stab[t] = __ldg(a.pe_tab + (size_t)h0 * a.tabw + t);
+  for (int t = i; t < M; t += blockDim.x) scoord[t] = __ldg(a.pe_coord + t);
+  const int oc = a.ph * a.ph, od = oc + a.pw * a.pw, oe = od + a.pd * a.pd;
 
   float acc[2][kNT][4];
-  for (int h = 0; h < a.heads; ++h) {
-    __syncthreads();  // y, labels, pads written; previous head's K/V read
-    // ---- q/k/v of the warp's rows for head h (tensor cores) ----
+  for (int hl = 0; hl < HK; ++hl) {
+    const int h = h0 + hl;
+    __syncthreads();  // y, labels, tables written; previous head's K/V read
+    // ---- q|k|v of the warp's rows for head h: one GEMM, N = 3 DHK ----
     const bf16* wh = a.wqkv + (size_t)h * 3 * DHK * C;
 #pragma unroll 1
-    for (int which = 0; which < 3; ++which) {
-      warp_gemm(acc, sy, CS, r0, mtiles, wh + (size_t)which * DHK * C, C, 0,
-                DTILES, C, lane);
+    for (int n0 = 0; n0 < (MIVP_B1_SKIP & 2 ? 0 : 3 * DHK); n0 += 8 * kNT) {
+      const int ntiles = min(kNT, (3 * DHK - n0) / 8);
+      warp_gemm<true>(acc, sy, CS, r0, mtiles, wh, C, n0, ntiles, C, lane);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-        for (int nt = 0; nt < DTILES; ++nt) {
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int col = n0 + nt * 8;
+          const int which = col / DHK;            // 0 q, 1 k, 2 v
+          const int d = col - which * DHK + 2 * cq;
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
             const int r = r0 + mt * 16 + g + hf * 8;
-            const int d = nt * 8 + 2 * cq;
             const float v0 = acc[mt][nt][2 * hf], v1 = acc[mt][nt][2 * hf + 1];
-            if (mt >= mtiles) continue;
+            if (mt >= mtiles || nt >= ntiles) continue;
             if (which == 0) {          // Q (rows past M hold zeros)
               *reinterpret_cast<uint32_t*>(sq + r * QS + d) = pack2(v0, v1);
             } else if (r < M) {
@@ -542,8 +784,11 @@ __device__ __forceinline__ void swin_block_window(
     __syncthreads();
 
     // ---- attention of the warp's row tiles (tensor cores) ----
+    if (KS > 1 && hl == 0) cluster_wait();   // every peer has started
+    const FactoredBias bias{stab + hl * a.tabw, scoord, M, a.ph, a.pw, a.pd,
+                            oc, od, oe, oe + E, a.fold, a.pe_scale};
 #pragma unroll 1
-    for (int mt = 0; mt < mtiles; ++mt) {
+    for (int mt = 0; mt < (MIVP_B1_SKIP & 1 ? 0 : mtiles); ++mt) {
       const int t0 = r0 + mt * 16;
       const int ra = t0 + g, rb = t0 + g + 8;
       // Dropout counter bases of the two rows (uint32 arithmetic wraps
@@ -554,35 +799,57 @@ __device__ __forceinline__ void swin_block_window(
           (((uint32_t)win * a.heads + h) * M + rb) * (uint32_t)a.drop.drop_cols,
           M, dgap};
       float o[DTILES][4];
-      attend_tile<DHK, DROP>(o, sq, sk, QS, svt, VS, slab, masked,
-                             a.bias + (size_t)h * M * N, t0, M, N, NPAD,
-                             a.scale, dr, lane);
+      attend_rows<DHK, DROP>(o, sq, sk, QS, svt, VS, slab, masked, bias, t0,
+                             M, N, NPAD, a.scale, dr, lane);
+      // Each row's output columns of head h to the CTA that owns the row.
 #pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt) {
-        const int d = dt * 8 + 2 * cq;   // DH is even: d < DH => d + 1 < DH
-        if (d < DH) {
-          *reinterpret_cast<uint32_t*>(sa + ra * CS + h * DH + d) =
-              pack2(o[dt][0], o[dt][1]);
-          *reinterpret_cast<uint32_t*>(sa + rb * CS + h * DH + d) =
-              pack2(o[dt][2], o[dt][3]);
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = hf ? rb : ra;
+        if (r >= M) continue;
+        const int owner = KS > 1 ? r / RB : 0;
+        bf16* dst = sra + (r - owner * RB) * CS + h * DH + 2 * cq;
+#pragma unroll
+        for (int dt = 0; dt < DTILES; ++dt) {
+          if (dt * 8 + 2 * cq < DH) {   // DH is even: d < DH => d + 1 < DH
+            const uint32_t v = pack2(o[dt][2 * hf], o[dt][2 * hf + 1]);
+            if (KS > 1) st_cluster32(dst + dt * 8, owner, v);
+            else *reinterpret_cast<uint32_t*>(dst + dt * 8) = v;
+          }
         }
       }
     }
   }
-  __syncthreads();  // region 1 (y, q, k, v) is dead from here on
+  // Every CTA's attention rows have landed in their owners' `ra`; y, Q, K,
+  // V, the labels and the tables are dead from here on.
+  if (KS > 1) cluster_sync();
+  else __syncthreads();
 
-  // ---- x1 = x + a Wproj^T + bproj -> region 1 (fp32) ----
-  for (int n0 = 0; n0 < C; n0 += 8 * kNT) {
-    const int ntiles = min(kNT, (C - n0) / 8);
-    warp_gemm(acc, sa, CS, r0, mtiles, a.wproj, C, n0, ntiles, C, lane);
+  // ---- row phase: the CTA's rows [rbase, rbase + nrows) ----
+  const int rbase = rank * RB;
+  const int nrows = max(0, min(M - rbase, RB));
+  const int groups = (nrows + 31) / 32;           // 32-row groups
+  const int wpg = groups ? nwarps / groups : 1;   // warps per group
+  const int grp = warp / wpg, sub = warp % wpg;
+  const bool active = grp < groups;
+  const int g0 = grp * 32;                        // the group's first row
+  const int gtiles = g0 + 16 < nrows ? 2 : 1;
+  const int ct0 = sub * (C / 8) / wpg,
+            ct1 = MIVP_B1_SKIP & 4 ? ct0 : (sub + 1) * (C / 8) / wpg;
+  const bool split = wpg > 1;                     // groups share columns
+
+  // ---- x1 = x + a Wproj^T + bproj -> sx1 (fp32) ----
+  for (int n0 = ct0 * 8; active && n0 < ct1 * 8; n0 += 8 * kNT) {
+    const int ntiles = min(kNT, ct1 - n0 / 8);
+    warp_gemm<true>(acc, sra, CS, g0, gtiles, a.wproj, C, n0, ntiles, C, lane);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          const int r = r0 + mt * 16 + g + hf * 8, col = n0 + nt * 8 + 2 * cq;
-          if (mt < mtiles && nt < ntiles && r < M) {
+          const int lr = g0 + mt * 16 + g + hf * 8, col = n0 + nt * 8 + 2 * cq;
+          if (mt < gtiles && nt < ntiles && lr < nrows) {
+            const int r = rbase + lr;
             const float2 xv = ld2(xt, (size_t)(PERM ? rows[r] : r) * C + col);
             float p0 = acc[mt][nt][2 * hf] + __ldg(a.bproj + col);
             float p1 = acc[mt][nt][2 * hf + 1] + __ldg(a.bproj + col + 1);
@@ -591,19 +858,20 @@ __device__ __forceinline__ void swin_block_window(
               p0 *= keep_value(a.drop.seed_p, base, a.drop.thr_p, a.drop.keep_p);
               p1 *= keep_value(a.drop.seed_p, base + 1, a.drop.thr_p, a.drop.keep_p);
             }
-            sx1[r * XS + col] = xv.x + p0;
-            sx1[r * XS + col + 1] = xv.y + p1;
+            sx1[lr * XS + col] = xv.x + p0;
+            sx1[lr * XS + col + 1] = xv.y + p1;
           }
         }
   }
-  __syncwarp();
-  // ---- LN2 of the warp's rows -> region 2 (bf16), one row at a time ----
-  for (int rr = 0; rr < 32; ++rr) {
-    const int r = r0 + rr;
-    if (r >= M) break;
+  if (split) __syncthreads();
+  else __syncwarp();
+  // ---- LN2 -> ra (bf16), a warp per row: the group's own rows, or all
+  // of the CTA's rows in turn when groups share columns ----
+  for (int lr = split ? warp : g0, end = split ? nrows : min(g0 + 32, nrows);
+       lr < end; lr += split ? nwarps : 1) {
     float sum = 0.f, sq2 = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float v = sx1[r * XS + c];
+      const float v = sx1[lr * XS + c];
       sum += v;
       sq2 += v * v;
     }
@@ -615,27 +883,139 @@ __device__ __forceinline__ void swin_block_window(
     const float mu = sum / C;
     const float rstd = rsqrtf(sq2 / C - mu * mu + kEps);
     for (int c = lane; c < C; c += 32)
-      sa[r * CS + c] = __float2bfloat16_rn(
-          (sx1[r * XS + c] - mu) * rstd * __ldg(a.ln2_s + c) + __ldg(a.ln2_b + c));
+      sra[lr * CS + c] = __float2bfloat16_rn(
+          (sx1[lr * XS + c] - mu) * rstd * __ldg(a.ln2_s + c) + __ldg(a.ln2_b + c));
   }
-  __syncwarp();
+  if (split) __syncthreads();
+  else __syncwarp();
   // ---- out = x1 + LN2(x1) Wmlp^T + bmlp ----
-  for (int n0 = 0; n0 < C; n0 += 8 * kNT) {
-    const int ntiles = min(kNT, (C - n0) / 8);
-    warp_gemm(acc, sa, CS, r0, mtiles, a.wmlp, C, n0, ntiles, C, lane);
+  for (int n0 = ct0 * 8; active && n0 < ct1 * 8; n0 += 8 * kNT) {
+    const int ntiles = min(kNT, ct1 - n0 / 8);
+    warp_gemm<true>(acc, sra, CS, g0, gtiles, a.wmlp, C, n0, ntiles, C, lane);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          const int r = r0 + mt * 16 + g + hf * 8, col = n0 + nt * 8 + 2 * cq;
-          if (mt < mtiles && nt < ntiles && r < M)
+          const int lr = g0 + mt * 16 + g + hf * 8, col = n0 + nt * 8 + 2 * cq;
+          if (mt < gtiles && nt < ntiles && lr < nrows) {
+            const int r = rbase + lr;
             st2(ot, (size_t)(PERM ? rows[r] : r) * C + col,
-                sx1[r * XS + col] + (acc[mt][nt][2 * hf] + __ldg(a.bmlp + col)),
-                sx1[r * XS + col + 1] + (acc[mt][nt][2 * hf + 1] + __ldg(a.bmlp + col + 1)));
+                sx1[lr * XS + col] + (acc[mt][nt][2 * hf] + __ldg(a.bmlp + col)),
+                sx1[lr * XS + col + 1] + (acc[mt][nt][2 * hf + 1] + __ldg(a.bmlp + col + 1)));
+          }
         }
   }
+}
+
+// ---- host side: the cluster size and the launch ----
+
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// CTAs of `kernel` that fit on one SM at this launch shape (the
+// occupancy calculator, remembered per shape) and the card's SMs.
+template <class Kernel>
+int resident_ctas(Kernel kernel, int threads, size_t bytes) {
+  struct Shape {
+    const void* kernel;
+    int threads;
+    size_t bytes;
+    int ctas;
+  };
+  static std::mutex lock;
+  static Shape seen[256];
+  static int n_seen = 0;
+  std::lock_guard<std::mutex> hold(lock);
+  for (int t = 0; t < n_seen; ++t)
+    if (seen[t].kernel == (const void*)kernel && seen[t].threads == threads &&
+        seen[t].bytes == bytes)
+      return seen[t].ctas;
+  int ctas = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kMaxSmem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads,
+                                                    bytes) != cudaSuccess)
+    return 0;
+  if (n_seen < 256) seen[n_seen++] = {(const void*)kernel, threads, bytes, ctas};
+  return ctas;
+}
+
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// The cluster size of a launch of bp windows, and its shared bytes per
+// CTA (`extra` more than the block body's: B5's row map); 0 if no size
+// fits a CTA's shared memory.  Of the sizes a window may take (1, 2, 4
+// or 8 CTAs, dividing the heads, 16 rows or more each), the fewest CTAs
+// per window that reach the most resident CTAs per SM (smaller per-CTA
+// tiles can raise it), then more while the grid is less than one wave.
+template <class Kernel>
+int cluster_size(Kernel kernel, const BlockArgs& a, int bp, int dhk,
+                 size_t extra, size_t* bytes) {
+  const int threads = (a.m + 31) / 32 * 32;
+  int sizes[4], occ[4], n = 0, pick = -1;
+  size_t need[4];
+  for (int ks = 1; ks <= 8; ks *= 2) {
+    if (ks > 1 && (a.heads % ks != 0 || a.m < 16 * ks)) break;
+    const size_t total = block_smem(a, dhk, ks).total + extra;
+    if (total > kMaxSmem) continue;
+    sizes[n] = ks;
+    need[n] = total;
+    occ[n] = resident_ctas(kernel, threads, total);
+    if (occ[n] < 1) continue;
+    if (pick < 0 || occ[n] > occ[pick]) pick = n;
+    ++n;
+  }
+  if (pick < 0) return 0;
+  while (pick + 1 < n && (long)bp * sizes[pick] < (long)sm_count() * occ[pick])
+    ++pick;
+  for (int t = 0; MIVP_B1_KS && t < n; ++t)
+    if (sizes[t] == MIVP_B1_KS) pick = t;
+  *bytes = need[pick];
+  return sizes[pick];
+}
+
+// Launch (info null) `kernel` over bp windows of ks CTAs each, or write
+// info[0..6] = cluster size, CTAs, threads per CTA, CTAs per SM,
+// registers, local (spill) bytes per thread and shared bytes per CTA.
+template <class Kernel, class Args>
+cudaError_t launch_clustered(Kernel kernel, const Args& args, int bp, int ks,
+                             int threads, size_t bytes, cudaStream_t stream,
+                             int* info) {
+  cudaError_t err;
+  if (info != nullptr) {
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return err;
+    const int v[7] = {ks, bp * ks, threads,
+                      resident_ctas(kernel, threads, bytes), fa.numRegs,
+                      (int)fa.localSizeBytes, (int)bytes};
+    for (int t = 0; t < 7; ++t) info[t] = v[t];
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(bp * ks));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)ks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = ks > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -1,0 +1,8 @@
+// The fp32-activation instances of the Swin block pair forward (B5) with
+// dropout: a translation unit of their own (fused_pair.cu), so the
+// library's quarters build in parallel.
+
+#define MIVP_PAIR_SET mivp_fused_swin_pair_f32_drop
+#define MIVP_PAIR_F32 true
+#define MIVP_PAIR_DROP true
+#include "fused_pair.cu"

@@ -47,10 +47,13 @@ class RelativePE(nn.Module):
              for _ in range(max_prompts)])
         self.weights_token = nn.Parameter(torch.empty(num_heads, embed_dim))
 
-    def forward(self, dim_h: int, dim_w: int, dim_d: int,
-                dim_i: int = 0) -> torch.Tensor:
-        """Bias ``[heads, n + dim_i, n + dim_i]``, n = dim_h*dim_w*dim_d (fp32)."""
-        scale = self.embed_dim ** -0.5
+    @property
+    def scale(self) -> float:
+        return self.embed_dim ** -0.5
+
+    def axis_tables(self, dim_h: int, dim_w: int, dim_d: int):
+        """The per-axis tables ``[heads, dim, dim]`` of the content bias
+        (rows, columns, depth)."""
         axes = []
         for name, dim in zip("hwd", (dim_h, dim_w, dim_d)):
             idx = getattr(self, f"relative_dist_{name}")[:dim, :dim]
@@ -58,6 +61,15 @@ class RelativePE(nn.Module):
             axes.append(torch.einsum("hc,nmc->hnm",
                                      getattr(self, f"weights_content_{name}"),
                                      emb))
+        return tuple(axes)
+
+    def forward(self, dim_h: int, dim_w: int, dim_d: int,
+                dim_i: int = 0, axes=None) -> torch.Tensor:
+        """Bias ``[heads, n + dim_i, n + dim_i]``, n = dim_h*dim_w*dim_d
+        (fp32), from ``axes`` (:meth:`axis_tables`) when given."""
+        scale = self.scale
+        if axes is None:
+            axes = self.axis_tables(dim_h, dim_w, dim_d)
         row, col, dep = axes
         content = (row[:, :, None, None, :, None, None]
                    + col[:, None, :, None, None, :, None]

@@ -68,7 +68,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_block import (FOLD_COUNT, FOLD_KEY, FOLD_NONE, NO_DROPOUT,
-                               Dropout, block_reference, fused_swin_block,
+                               BiasFactors, Dropout, block_reference,
+                               fused_swin_block,
                                kernel_matmul_dtype, labels_tensor,
                                layer_norm, make_operands)
 from ..ops.fused_pair import fused_swin_pair, pair_reference
@@ -174,11 +175,17 @@ class SwinTransformerBlock(nn.Module):
                 self._cache[key] = build()
         return self._cache[key]
 
-    def _make(self, bias, labels, fold_mode, tokens, device):
+    def _make(self, bias, labels, fold_mode, tokens, device, axes, index):
+        """The block's operands; ``axes`` and ``index`` (the content rows'
+        flat window positions) are the bias's factors, which B1 and B5
+        take in place of the ``[H, M, N]`` array."""
+        factors = BiasFactors(tuple(t.detach().to(device) for t in axes),
+                              torch.as_tensor(index, device=device),
+                              self.pe.scale)
         ops = make_operands(self.block_params(), tokens, bias.to(device),
                             fold_mode, self.num_heads,
                             (self.hidden_channels // self.num_heads) ** -0.5,
-                            kernel_matmul_dtype(self.dtype, device))
+                            kernel_matmul_dtype(self.dtype, device), factors)
         return ops, labels_tensor(labels, device)
 
     def forward(self, x: torch.Tensor,
@@ -278,7 +285,9 @@ class SwinTransformerBlock(nn.Module):
         fused block's, or (unfused) the bias and the labels."""
         ws = self.window_size
         n_tok = 0 if tokens is None else tokens.shape[0]
-        bias = self.pe(*ws, n_tok)[:, :int(np.prod(ws)), :]
+        n_full = int(np.prod(ws))
+        axes = self.pe.axis_tables(*ws)
+        bias = self.pe(*ws, n_tok, axes=axes)[:, :n_full, :]
         labels = None
         if any(shift):
             labels = get_attn_labels(padded, ws, shift, ref_pads)
@@ -290,7 +299,8 @@ class SwinTransformerBlock(nn.Module):
         if not self.fused_block:
             return (bias.to(device).float().contiguous(),
                     labels_tensor(labels, device))
-        return self._make(bias, labels, FOLD_NONE, tokens, device)
+        return self._make(bias, labels, FOLD_NONE, tokens, device, axes,
+                          np.arange(n_full))
 
     def _build_folded(self, dims, shift, paddings, fold_axes, tokens, device):
         """Operands of a pad-folded geometry: content rows and columns of
@@ -300,7 +310,8 @@ class SwinTransformerBlock(nn.Module):
         ci = content_indices(dims, ws, paddings, fold_axes)
         n_full = int(np.prod(ws))
         n_pad = n_full - ci.size
-        pos_bias = self.pe(*ws, n_tok)                    # [H, N+I, N+I]
+        axes = self.pe.axis_tables(*ws)
+        pos_bias = self.pe(*ws, n_tok, axes=axes)         # [H, N+I, N+I]
         ci_t = torch.as_tensor(ci, device=pos_bias.device)
         rows = pos_bias[:, ci_t]                          # [H, Mc, N+I]
         if any(shift):
@@ -326,7 +337,7 @@ class SwinTransformerBlock(nn.Module):
             fold_mode = FOLD_KEY
         bias = torch.cat([rows[:, :, ci_t], fold_col, rows[:, :, n_full:]],
                          dim=-1)
-        return self._make(bias, labels, fold_mode, tokens, device)
+        return self._make(bias, labels, fold_mode, tokens, device, axes, ci)
 
 
 class ConsecutiveSwinBlocks(nn.Module):

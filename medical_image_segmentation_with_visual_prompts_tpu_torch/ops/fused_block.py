@@ -34,6 +34,14 @@ XLA path (:func:`kernel_matmul_dtype` picks it).  ``x_win`` may be fp32
 or bf16 on both paths: LN statistics, softmax and the residuals are fp32,
 and the output takes x's dtype, as the JAX kernel's does.
 
+The bias is ``[H, M, N]``: the content part from the relative-position
+module's per-axis tables, then the fold column and the prompt-token
+columns.  The forward kernels build it in shared memory from those
+factors (:class:`BiasFactors`, :func:`bias_tables`; :func:`table_bias` is
+the plain version of that build); the plain version, the backward kernel
+and autograd take the assembled array, so the gradients to the
+positional-bias parameters flow through it.
+
 The kernels (``csrc/fused_block.cu``, and ``csrc/fused_block_bwd.cu`` for
 the gradient, ``ops/fused_block_bwd.py``) run for CUDA tensors; CPU
 tensors take :func:`block_reference` and its autograd.  The one
@@ -128,6 +136,33 @@ def matmul(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
     return round_to(a, dtype) @ round_to(b, dtype)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class BiasFactors:
+    """The content part of a block's bias as ``models/relative_pe.py``
+    builds it: ``((R[ih_i, ih_j] + Cw[iw_i, iw_j]) + D[id_i, id_j]) / 3 *
+    scale`` for content rows and keys i, j.
+
+    ``axes``: the per-axis tables ``(R [H, ph, ph], Cw [H, pw, pw], D [H,
+    pd, pd])`` (fp32, no graph); ``index``: ``[M]`` flat position of each
+    content row in the ``(ph, pw, pd)`` window (``arange`` when padded,
+    ``content_indices`` when pad-folded); ``scale``: the module's
+    embedding scale."""
+
+    axes: tuple
+    index: torch.Tensor
+    scale: float
+
+    @property
+    def dims(self) -> Tuple[int, int, int]:
+        return tuple(int(t.shape[-1]) for t in self.axes)
+
+    def coords(self) -> torch.Tensor:
+        """``[M, 3]`` int64 window coordinates (ih, iw, id) of the rows."""
+        _, pw, pd = self.dims
+        i = self.index.to(torch.int64)
+        return torch.stack([i // (pw * pd), (i // pd) % pw, i % pd], -1)
+
+
 @dataclasses.dataclass
 class BlockOperands:
     """Everything one block call needs besides ``x``, the labels and the
@@ -138,8 +173,10 @@ class BlockOperands:
     extra K/V rows (None when E = 0).  In training they are built from
     tensors that require grad and carry it.  ``drop_cols`` is the key
     count of the attention-dropout counter (``N`` plus the JAX kernel's
-    fold alignment columns).  ``kernel`` holds the same operands,
-    detached, in the CUDA kernel's layout, built by :func:`make_operands`
+    fold alignment columns).  ``factors`` are the bias's content factors
+    and ``fold_mode`` says whether column ``M`` is a fold column; the
+    forward kernels need both.  ``kernel`` holds the same operands,
+    detached, in the CUDA kernels' layout, built by :func:`make_operands`
     for CUDA tensors only.
     """
 
@@ -152,6 +189,8 @@ class BlockOperands:
     matmul_dtype: torch.dtype
     drop_cols: int
     kernel: Optional[dict] = None
+    factors: Optional[BiasFactors] = None
+    fold_mode: int = FOLD_NONE
 
     @property
     def n_ext(self) -> int:
@@ -209,12 +248,72 @@ def qkv_kernel_weight(wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
         torch.bfloat16).contiguous()
 
 
+def bias_tables(ops: BlockOperands, bias: torch.Tensor):
+    """The forward kernels' bias operands: ``pe_tab`` ``[H, tabw]`` fp32,
+    each head's R, Cw and D tables flattened, its ``E`` extra columns (row
+    0's: the prompt columns, after the fold column's slot) and, with a
+    fold, its fold column ``[M]``; ``pe_coord`` ``[M]`` int32, each row's
+    window coordinate packed as ``ih | iw << 8 | id << 16``, plus ``1 <<
+    24`` where the next row is ``(ih, iw, id + 1)``, whose key shares ``R
+    + Cw`` (``csrc/fused_block_common.cuh::FactoredBias``)."""
+    f = ops.factors
+    h, m, _ = bias.shape
+    parts = [t.float().reshape(h, -1) for t in f.axes]
+    parts.append(bias[:, 0, m:])
+    if ops.fold_mode:
+        parts.append(bias[:, :, m])
+    coords = f.coords()
+    nxt = torch.cat([coords[1:], torch.full_like(coords[:1], -1)])
+    step = torch.tensor([0, 0, 1], device=coords.device)
+    next_in_depth = (nxt == coords + step).all(-1).to(torch.int64)
+    packed = (coords[:, 0] | (coords[:, 1] << 8) | (coords[:, 2] << 16)
+              | (next_in_depth << 24))
+    return (torch.cat(parts, 1).contiguous(),
+            packed.to(device=bias.device, dtype=torch.int32).contiguous())
+
+
+def table_bias(pe_tab: torch.Tensor, pe_coord: torch.Tensor, dims,
+               m: int, n: int, fold: bool, scale: float) -> torch.Tensor:
+    """Plain version of the bias that B1 and B5 build from
+    :func:`bias_tables`' operands: ``[H, M, N]``, with
+    ``FactoredBias``'s indexing and order of operations (two adds, the
+    division by 3 -- on the card PyTorch's and the kernel's product with
+    the fp32 reciprocal --, the scale)."""
+    ph, pw, pd = dims
+    oc = ph * ph
+    od = oc + pw * pw
+    oe = od + pd * pd
+    h, e = pe_tab.shape[0], n - m
+    c = pe_coord.to(torch.int64)
+    ih, iw, id_ = c & 255, (c >> 8) & 255, (c >> 16) & 255
+    t = pe_tab[:, ih[:, None] * ph + ih[None, :]] \
+        + pe_tab[:, oc + iw[:, None] * pw + iw[None, :]]
+    t = t + pe_tab[:, od + id_[:, None] * pd + id_[None, :]]
+    ext = pe_tab[:, None, oe:oe + e].expand(h, m, e)
+    if fold:
+        ext = torch.cat([pe_tab[:, oe + e:oe + e + m, None], ext[:, :, 1:]],
+                        -1)
+    return torch.cat([t / 3.0 * scale, ext], -1)
+
+
+def pack_k16(w: torch.Tensor) -> torch.Tensor:
+    """The forward kernels' k-packed weight layout (``warp_gemm_acc``): along
+    the last (k) dim, within each block of 16, the values 2c, 2c + 1, 8 +
+    2c, 9 + 2c of lane quad c become adjacent."""
+    *lead, k = w.shape
+    return w.reshape(*lead, k // 16, 2, 4, 2).transpose(-3, -2).reshape(
+        *lead, k).contiguous()
+
+
 def _kernel_layout(ops: BlockOperands) -> dict:
     """Operands in ``csrc/fused_block.cu``'s layout: bf16 weights stored
     transposed (out, in) for the tensor-core B operand, each head's q|k|v
     rows zero-padded to a multiple of 16 (the k-step,
-    :func:`qkv_kernel_weight`), and the extra K/V rows per head with the
-    same padding."""
+    :func:`qkv_kernel_weight`), the extra K/V rows per head with the
+    same padding, the bias array (the backward kernel's), the forward
+    kernels' k-packed copies of the three weights (``*_kp``,
+    :func:`pack_k16`) and, where the operands carry factors, their bias
+    tables (:func:`bias_tables`)."""
     p = {k: v.detach() for k, v in ops.params.items()}
     c = p["wq"].shape[0]
     h = ops.num_heads
@@ -228,33 +327,45 @@ def _kernel_layout(ops: BlockOperands) -> dict:
             ext[:, i, :e, :dh] = rows.detach().float().reshape(
                 e, h, dh).permute(1, 0, 2)
     bf = torch.bfloat16
-    return {
+    bias = ops.bias.detach().float().contiguous()
+    out = {
         "wqkv": wqkv,
         "ext_kv": ext.to(bf).contiguous(),
-        "bias": ops.bias.detach().float().contiguous(),
+        "bias": bias,
         "wproj": p["wproj"].t().to(bf).contiguous(),
         "wmlp": p["wmlp"].t().to(bf).contiguous(),
         **{k: p[k].float().contiguous() for k in
            ("ln1_scale", "ln1_bias", "bproj", "ln2_scale", "ln2_bias",
             "bmlp")},
     }
+    for key in ("wqkv", "wproj", "wmlp"):
+        out[f"{key}_kp"] = pack_k16(out[key])
+    if ops.factors is not None:
+        out["pe_tab"], out["pe_coord"] = bias_tables(ops, bias)
+    return out
 
 
 def make_operands(params: dict, tokens: Optional[torch.Tensor],
                   bias: torch.Tensor, fold_mode: int, num_heads: int,
-                  scale: float, matmul_dtype: torch.dtype = torch.bfloat16
-                  ) -> BlockOperands:
+                  scale: float, matmul_dtype: torch.dtype = torch.bfloat16,
+                  factors: Optional[BiasFactors] = None) -> BlockOperands:
     """Assemble a block's operands.  Under ``torch.no_grad`` the result
     holds no graph (callers cache it per geometry); with grad enabled the
     extra rows and the bias keep theirs, so gradients reach the prompt
-    tokens, the block parameters and the positional-bias parameters."""
+    tokens, the block parameters and the positional-bias parameters.
+    ``factors``: the content factors of ``bias`` (the forward kernels
+    read them in its place)."""
     params = {k: params[k].float() for k in PARAM_KEYS}
     ext_k, ext_v = extra_kv_rows(params, tokens, fold_mode, matmul_dtype)
     m, n = bias.shape[1], bias.shape[2]
     n_tok = 0 if tokens is None else tokens.shape[0]
     drop_cols = n + (fold_width(m, n_tok) - 1 if fold_mode else 0)
+    if factors is not None and tuple(factors.index.shape) != (m,):
+        raise ValueError(f"make_operands: bias factors index {m} rows, got "
+                         f"{tuple(factors.index.shape)}")
     ops = BlockOperands(params, bias.float(), ext_k, ext_v, num_heads,
-                        float(scale), matmul_dtype, drop_cols)
+                        float(scale), matmul_dtype, drop_cols,
+                        factors=factors, fold_mode=fold_mode)
     if bias.is_cuda:
         with torch.no_grad():
             ops.kernel = _kernel_layout(ops)
@@ -377,6 +488,12 @@ def check_kernel_args(x_win: torch.Tensor, ops: BlockOperands,
     if ops.kernel is None:
         raise ValueError(f"{name}: ops were built from CPU tensors "
                          "(make_operands on the CUDA device)")
+    if "pe_tab" not in ops.kernel:
+        raise ValueError(f"{name}: ops carry no bias factors (make_operands "
+                         "with factors=BiasFactors(...))")
+    if max(ops.factors.dims) > 255:
+        raise ValueError(f"{name}: the kernel takes window dims up to 255, "
+                         f"got {ops.factors.dims}")
     for key, t in ops.kernel.items():
         if t.device != x_win.device:
             raise ValueError(f"{name}: operand {key} is on {t.device}, "
@@ -389,23 +506,42 @@ def check_kernel_args(x_win: torch.Tensor, ops: BlockOperands,
                          f"{labels.device}")
 
 
-_SCRATCH_BYTES = {}
+def _launch(x_win: torch.Tensor, out: Optional[torch.Tensor],
+            ops: BlockOperands, labels: Optional[torch.Tensor],
+            dropout: Dropout, info=None) -> int:
+    """Call ``csrc/fused_block.cu``: launch into ``out``, or (``info`` an
+    int[7] ctypes array) only size the launch."""
+    import ctypes
+    from . import kernels
+    b, pw, m, c = x_win.shape
+    k = ops.kernel
+    return kernels.library().mivp_fused_swin_block(
+        x_win.data_ptr(), kernels.ptr(out), k["wqkv_kp"].data_ptr(),
+        k["ext_kv"].data_ptr(), k["pe_tab"].data_ptr(),
+        k["pe_coord"].data_ptr(), kernels.ptr(labels),
+        k["ln1_scale"].data_ptr(), k["ln1_bias"].data_ptr(),
+        k["wproj_kp"].data_ptr(), k["bproj"].data_ptr(),
+        k["ln2_scale"].data_ptr(), k["ln2_bias"].data_ptr(),
+        k["wmlp_kp"].data_ptr(), k["bmlp"].data_ptr(),
+        None if info is None else ctypes.addressof(info), b * pw, m, c,
+        ops.num_heads, c // ops.num_heads, ops.n_ext, pw, *ops.factors.dims,
+        int(ops.fold_mode != FOLD_NONE), ops.scale, ops.factors.scale,
+        *dropout.kernel_args(), ops.drop_cols, is_f32(x_win),
+        kernels.stream_of(x_win))
 
 
-def scratch_bytes(m: int, c: int, dh: int, n_ext: int) -> int:
-    """Device scratch per window that B1 needs at this geometry (CUDA
-    only): 0 when the window fits in a CTA's shared memory, else room for
-    x1 and the attention output (``csrc/fused_block.cu``'s SPILL form, as
-    for M 256 at C 192 under the reference padding)."""
-    key = (m, c, dh, n_ext)
-    if key not in _SCRATCH_BYTES:
-        import ctypes
-        from . import kernels
-        out = ctypes.c_longlong(0)
-        kernels.check(kernels.library().mivp_fused_swin_block_scratch(
-            m, c, dh, n_ext, ctypes.addressof(out)), "fused_swin_block")
-        _SCRATCH_BYTES[key] = out.value
-    return _SCRATCH_BYTES[key]
+def launch_info(x_win: torch.Tensor, ops: BlockOperands,
+                labels: Optional[torch.Tensor] = None,
+                dropout: Dropout = NO_DROPOUT) -> dict:
+    """Shape of B1's launch for these arguments (CUDA only; nothing
+    runs): cluster size (CTAs per window), CTAs, threads per CTA, CTAs
+    per SM, registers, spill bytes per thread, shared bytes per CTA."""
+    from . import kernels
+    check_kernel_args(x_win, ops, labels)
+    info = kernels.info_array()
+    kernels.check(_launch(x_win, None, ops, labels, dropout, info),
+                  "fused_swin_block")
+    return kernels.info_dict(info)
 
 
 def _forward(x_win: torch.Tensor, ops: BlockOperands,
@@ -417,25 +553,9 @@ def _forward(x_win: torch.Tensor, ops: BlockOperands,
         return block_reference(x_win, ops, labels, dropout)
     check_kernel_args(x_win, ops, labels)
     from . import kernels
-    b, pw, m, c = x_win.shape
-    k = ops.kernel
     out = torch.empty_like(x_win)
-    nbytes = scratch_bytes(m, c, c // ops.num_heads, ops.n_ext)
-    scratch = torch.empty(b * pw * nbytes, device=x_win.device,
-                          dtype=torch.uint8) if nbytes else None
-    err = kernels.library().mivp_fused_swin_block(
-        x_win.data_ptr(), out.data_ptr(), k["wqkv"].data_ptr(),
-        k["ext_kv"].data_ptr(), k["bias"].data_ptr(),
-        kernels.ptr(labels), k["ln1_scale"].data_ptr(),
-        k["ln1_bias"].data_ptr(), k["wproj"].data_ptr(),
-        k["bproj"].data_ptr(), k["ln2_scale"].data_ptr(),
-        k["ln2_bias"].data_ptr(), k["wmlp"].data_ptr(),
-        k["bmlp"].data_ptr(), kernels.ptr(scratch), b * pw, m, c,
-        ops.num_heads,
-        c // ops.num_heads, ops.n_ext, pw, ops.scale,
-        *dropout.kernel_args(), ops.drop_cols, is_f32(x_win),
-        kernels.stream_of(x_win))
-    kernels.check(err, "fused_swin_block")
+    kernels.check(_launch(x_win, out, ops, labels, dropout),
+                  "fused_swin_block")
     fused_swin_block.launches += 1
     return out
 

@@ -47,8 +47,9 @@ from .fused_block_bwd import block_backward, block_backward_reference
 from .windows import PairPlan
 
 # Each block's operands in the order csrc/fused_pair.cu reads them.
-_KERNEL_OPERANDS = ("wqkv", "ext_kv", "bias", "ln1_scale", "ln1_bias",
-                    "wproj", "bproj", "ln2_scale", "ln2_bias", "wmlp", "bmlp")
+_KERNEL_OPERANDS = ("wqkv_kp", "ext_kv", "pe_tab", "pe_coord", "ln1_scale",
+                    "ln1_bias", "wproj_kp", "bproj", "ln2_scale", "ln2_bias",
+                    "wmlp_kp", "bmlp")
 
 
 def plan_gather(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -92,6 +93,12 @@ def _check_kernel_pair_args(x_win, ops0, ops1, labels, plan) -> None:
     name = "fused_swin_pair"
     check_kernel_args(x_win, ops0, None, name)
     check_kernel_args(x_win, ops1, labels, name)
+    f0, f1 = ops0.factors, ops1.factors
+    if f0.dims != f1.dims or f0.scale != f1.scale or \
+            bool(ops0.fold_mode) != bool(ops1.fold_mode):
+        raise ValueError(f"{name}: ops0 and ops1 differ in their bias "
+                         f"factors' window {f0.dims} vs {f1.dims}, scale "
+                         f"{f0.scale} vs {f1.scale} or fold column")
     for key in ("src", "tok"):
         t = getattr(plan, key)
         if t.device != x_win.device or t.dtype != torch.int32 or \
@@ -106,6 +113,35 @@ def _operand_pointers(ops: BlockOperands):
         *(ops.kernel[k].data_ptr() for k in _KERNEL_OPERANDS))
 
 
+def _launch(x_win, out, ops0, ops1, labels, plan, dropout0, dropout1,
+            info=None) -> int:
+    """Call ``csrc/fused_pair.cu``: launch into ``out``, or (``info`` an
+    int[7] ctypes array) only size the launch."""
+    from . import kernels
+    b, pw, m, c = x_win.shape
+    return kernels.library().mivp_fused_swin_pair(
+        x_win.data_ptr(), kernels.ptr(out), plan.src.data_ptr(),
+        plan.tok.data_ptr(), kernels.ptr(labels), _operand_pointers(ops0),
+        _operand_pointers(ops1),
+        None if info is None else ctypes.addressof(info), b * pw, m, c,
+        ops0.num_heads, c // ops0.num_heads, ops0.n_ext, pw,
+        *ops0.factors.dims, int(bool(ops0.fold_mode)), ops0.scale,
+        ops0.factors.scale, *dropout0.kernel_args(), *dropout1.kernel_args(),
+        ops0.drop_cols, is_f32(x_win), kernels.stream_of(x_win))
+
+
+def launch_info(x_win, ops0, ops1, labels, plan, dropout0=NO_DROPOUT,
+                dropout1=NO_DROPOUT) -> dict:
+    """Shape of B5's launch for these arguments (CUDA only; nothing runs):
+    the keys of ``ops/kernels.py::INFO_KEYS``."""
+    from . import kernels
+    _check_kernel_pair_args(x_win, ops0, ops1, labels, plan)
+    info = kernels.info_array()
+    kernels.check(_launch(x_win, None, ops0, ops1, labels, plan, dropout0,
+                          dropout1, info), "fused_swin_pair")
+    return kernels.info_dict(info)
+
+
 def _pair_forward(x_win, ops0, ops1, labels, plan, dropout0, dropout1):
     """One pair forward: B5 for CUDA tensors, else the plain version."""
     if not x_win.is_cuda:
@@ -113,16 +149,9 @@ def _pair_forward(x_win, ops0, ops1, labels, plan, dropout0, dropout1):
                               dropout1)
     _check_kernel_pair_args(x_win, ops0, ops1, labels, plan)
     from . import kernels
-    b, pw, m, c = x_win.shape
     out = torch.empty_like(x_win)
-    err = kernels.library().mivp_fused_swin_pair(
-        x_win.data_ptr(), out.data_ptr(), plan.src.data_ptr(),
-        plan.tok.data_ptr(), kernels.ptr(labels), _operand_pointers(ops0),
-        _operand_pointers(ops1), b * pw, m, c, ops0.num_heads,
-        c // ops0.num_heads, ops0.n_ext, pw, ops0.scale,
-        *dropout0.kernel_args(), *dropout1.kernel_args(), ops0.drop_cols,
-        is_f32(x_win), kernels.stream_of(x_win))
-    kernels.check(err, "fused_swin_pair")
+    kernels.check(_launch(x_win, out, ops0, ops1, labels, plan, dropout0,
+                          dropout1), "fused_swin_pair")
     fused_swin_pair.launches += 1
     return out
 

@@ -38,20 +38,18 @@ _SEEDS = [_U] * 4 + [_F, _F]
 _DROP = _SEEDS + [_I]
 # C signatures of the entries in csrc/ (restype: cudaError_t as int).
 SIGNATURES = {
-    # x, out, wqkv, ext_kv, bias, labels, ln1_s, ln1_b, wproj, bproj,
-    # ln2_s, ln2_b, wmlp, bmlp, scratch, bp, m, c, heads, dh, n_ext,
-    # p_windows, scale, dropout, x is fp32, stream
-    "mivp_fused_swin_block": [_P] * 15 + [_I] * 7 + [_F] + _DROP + [_I, _P],
-    # m, c, dh, n_ext, out: scratch bytes per window (long long)
-    "mivp_fused_swin_block_scratch": [_I] * 4 + [_P],
-    # m, c, heads, dh, n_ext, dropout on, out: CTAs per SM
-    "mivp_fused_swin_block_ctas_per_sm": [_I] * 6 + [_P],
-    # x, out, src, tok, labels, ops0[11], ops1[11] (host pointer arrays),
-    # bp, m, c, heads, dh, n_ext, p_windows, scale, block 1's and block
-    # 2's seeds and rates, drop_cols, x is fp32, stream
-    "mivp_fused_swin_pair": [_P] * 7 + [_I] * 7 + [_F] + _SEEDS * 2
+    # x, out, wqkv, ext_kv, pe_tab, pe_coord, labels, ln1_s, ln1_b, wproj,
+    # bproj, ln2_s, ln2_b, wmlp, bmlp, info, bp, m, c, heads, dh, n_ext,
+    # p_windows, ph, pw, pd, fold, scale, pe_scale, dropout, x is fp32,
+    # stream
+    "mivp_fused_swin_block": [_P] * 16 + [_I] * 11 + [_F, _F] + _DROP
+    + [_I, _P],
+    # x, out, src, tok, labels, ops0[12], ops1[12] (host pointer arrays),
+    # info, bp, m, c, heads, dh, n_ext, p_windows, ph, pw, pd, fold,
+    # scale, pe_scale, block 1's and block 2's seeds and rates, drop_cols,
+    # x is fp32, stream
+    "mivp_fused_swin_pair": [_P] * 8 + [_I] * 11 + [_F, _F] + _SEEDS * 2
     + [_I, _I, _P],
-    "mivp_fused_swin_pair_ctas_per_sm": [_I] * 6 + [_P],
     # x, dout, dx, wqkv, wqkv_t, ext_kv, bias, labels, ln1_s, ln1_b, wproj,
     # wproj_io, bproj, ln2_s, ln2_b, wmlp, wmlp_io, bmlp, 4 workspaces,
     # 13 gradient outputs, bp, m, c, heads, dh, n_ext, p_windows, scale,
@@ -160,16 +158,18 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} failed to launch: cudaError {err} ({msg})")
 
 
-def ctas_per_sm(entry: str, m: int, c: int, heads: int, n_ext: int,
-                dropout: bool) -> int:
-    """CTAs of B1 (``entry`` ``"mivp_fused_swin_block"``) or B5
-    (``"mivp_fused_swin_pair"``) that fit on one SM at this geometry
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    out = ctypes.c_int(0)
-    err = getattr(library(), f"{entry}_ctas_per_sm")(
-        m, c, heads, c // heads, n_ext, int(dropout), ctypes.addressof(out))
-    check(err, f"{entry}_ctas_per_sm")
-    return out.value
+INFO_KEYS = ("cluster", "ctas", "threads", "ctas_per_sm", "registers",
+             "spill_bytes", "smem")
+
+
+def info_array():
+    """The int[7] a block or pair entry fills when asked only to size its
+    launch (``csrc/fused_block_common.cuh::launch_clustered``)."""
+    return (ctypes.c_int * len(INFO_KEYS))()
+
+
+def info_dict(info) -> dict:
+    return dict(zip(INFO_KEYS, (int(v) for v in info)))
 
 
 def ptr(t) -> int:

@@ -28,7 +28,7 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     fused_block as fb
 from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
-    ConsecutiveSwinBlocks
+    ConsecutiveSwinBlocks, SwinTransformerBlock
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     fused_block_bwd as fbb
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
@@ -59,6 +59,28 @@ def _assert_close(got, ref):
     assert err <= TOL * max(1.0, ref.abs().max().item()), err
 
 
+def _bias_case(dev, g, heads, m, fold_mode, n_tok):
+    """A block bias and its factors: per-axis tables of an 8x8xpd window
+    holding the m content rows (all of it, or m positions of it as where
+    a geometry is pad-folded), a fold column, prompt-token columns; the
+    content in the relative-position module's order of operations."""
+    r = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa: E731
+    pd = -(-m // 64)
+    index = torch.arange(m) if m == 64 * pd else \
+        torch.randperm(64 * pd, generator=g)[:m].sort().values
+    factors = fb.BiasFactors((r(heads, 8, 8), r(heads, 8, 8),
+                              r(heads, pd, pd)), index.to(dev), 64 ** -0.5)
+    ih, iw, id_ = factors.coords().to(dev).unbind(-1)
+    rt, ct, dt = factors.axes
+    cols = [(rt[:, ih[:, None], ih[None, :]] + ct[:, iw[:, None], iw[None, :]]
+             + dt[:, id_[:, None], id_[None, :]]) / 3.0 * factors.scale]
+    if fold_mode:
+        cols.append(r(heads, m, 1))
+    if n_tok:
+        cols.append(r(heads, 1, n_tok).expand(heads, m, n_tok))
+    return torch.cat(cols, -1), factors
+
+
 def _block_case(dev, b, p, m, c, heads, fold_mode, shifted, n_tok, seed=0):
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
@@ -71,9 +93,9 @@ def _block_case(dev, b, p, m, c, heads, fold_mode, shifted, n_tok, seed=0):
     params = {k: v.to(dev) for k, v in params.items()}
     tokens = r(n_tok, c).to(dev) if n_tok else None
     n = m + (1 if fold_mode else 0) + n_tok
-    bias = r(heads, m, n).to(dev)
+    bias, factors = _bias_case(dev, g, heads, m, fold_mode, n_tok)
     ops = fb.make_operands(params, tokens, bias, fold_mode, heads,
-                           (c // heads) ** -0.5)
+                           (c // heads) ** -0.5, factors=factors)
     labels = None
     if shifted:
         labels = torch.cat([torch.randint(0, 4, (p, m), generator=g),
@@ -132,14 +154,14 @@ def test_fused_swin_block_kernel_takes_fp32(dev, c, heads, m, fold_mode,
 @pytest.mark.parametrize("c,heads", [(192, 4), (192, 16)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_swin_block_spills_large_windows(dev, c, heads, dtype):
-    """M 256 at C 192 (the reference padding's 16x16x2 stages) exceeds a
-    CTA's shared memory: x1 and the attention output go to a device
-    scratch, with the same arithmetic."""
-    assert fb.scratch_bytes(256, c, c // heads, 5) > 0
-    assert fb.scratch_bytes(128, c, c // heads, 5) == 0
+    """M 256 at C 192 (the reference padding's 16x16x2 stages) exceeds one
+    CTA's shared memory: the window is split over a cluster of CTAs
+    whatever the batch (3 windows here), with the same arithmetic."""
     x, ops, labels = _block_case(dev, 1, 3, 256, c, heads, fb.FOLD_NONE,
                                  True, 5, seed=14)
     x = x.to(dtype)
+    info = fb.launch_info(x, ops, labels)
+    assert info["cluster"] > 1 and info["smem"] <= 227 * 1024, info
     with torch.inference_mode():
         ref = fb.block_reference(x, ops, labels)
         got = fb.fused_swin_block(x, ops, labels)
@@ -160,6 +182,87 @@ def test_fused_swin_block_rejects_fp32_and_unsupported_head_dims(dev):
     x, ops, labels = _block_case(dev, 1, 2, 32, 80, 4, fb.FOLD_NONE, False, 0)
     with pytest.raises(ValueError, match="head dim"):
         fb.fused_swin_block(x, ops, labels)
+
+
+# The flagship's six block geometries (C, heads, dims; window 8x8x4, 64
+# prompt tokens): 64x64x4 padded-free (M 256, N 320), 32x32x2 and 16x16x2
+# pad-folded (M 128, N 193).
+FLAGSHIP_BLOCKS = [(48, 4, (64, 64, 4)), (96, 8, (32, 32, 2)),
+                   (192, 16, (16, 16, 2)), (192, 4, (16, 16, 2)),
+                   (96, 4, (32, 32, 2)), (48, 4, (64, 64, 4))]
+
+
+def _flagship_block(dev, c, heads, dims, shift, batch, dtype, seed=15):
+    """A flagship Swin block's windows, operands (bias factors from its
+    relative-position module) and labels at ``batch`` images."""
+    g = torch.Generator().manual_seed(seed)
+    blk = SwinTransformerBlock(c, (8, 8, 4), 64, heads, 1, 64,
+                               shift_size=shift, pad_mode="aligned",
+                               dtype=torch.bfloat16)
+    blk = init_weights(blk, g).to(dev)
+    x = torch.randn((batch, *dims, c), generator=g).to(dev, dtype)
+    tok = (0.5 * torch.randn((64, c), generator=g)).to(dev)
+    with torch.no_grad():
+        x_win, ops, labels, _ = blk.windows(x, tok)
+    return x_win, ops, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", FLAGSHIP_BLOCKS)
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_fused_swin_block_flagship_geometries(dev, c, heads, dims, shift,
+                                              dtype, dropout):
+    """B1 on the flagship's blocks at batch 2 (the training batch: 2-8
+    CTAs per window), bias built in the kernel from the module's
+    factors."""
+    x, ops, labels = _flagship_block(dev, c, heads, dims, shift, 2, dtype)
+    drop = DROP if dropout else fb.NO_DROPOUT
+    with torch.inference_mode():
+        ref = fb.block_reference(x, ops, labels, drop)
+        got = fb.fused_swin_block(x, ops, labels, drop)
+        torch.cuda.synchronize()
+    assert got.dtype == dtype
+    _assert_close(got, ref)
+
+
+# (C, heads, dims, images, the cluster size B1 picks for that many
+# windows, images of a second batch that picks another size)
+CLUSTER_CASES = [(48, 4, (64, 64, 4), 27, 1, 1),
+                 (96, 8, (32, 32, 2), 27, 2, 1),
+                 (48, 4, (64, 64, 4), 2, 4, 40),
+                 (192, 16, (16, 16, 2), 2, 8, 40),
+                 (192, 4, (16, 16, 2), 27, 2, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims,batch,ks,other_batch", CLUSTER_CASES)
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_fused_swin_block_each_cluster_size(dev, c, heads, dims, batch, ks,
+                                            other_batch, shift, dropout):
+    """B1 at each cluster size it picks, against its plain version, and
+    bit for bit the same output (dropout masks included) when the same
+    windows lead a batch that picks another cluster size."""
+    x, ops, labels = _flagship_block(dev, c, heads, dims, shift, batch,
+                                     torch.bfloat16)
+    drop = DROP if dropout else fb.NO_DROPOUT
+    assert fb.launch_info(x, ops, labels, drop)["cluster"] == ks
+    other = x[:other_batch].contiguous() if other_batch < batch else \
+        torch.cat([x, x[:1].expand(other_batch - batch, *x.shape[1:])])
+    assert fb.launch_info(other, ops, labels, drop)["cluster"] != ks
+    with torch.inference_mode():
+        ref = fb.block_reference(x, ops, labels, drop)
+        before = fb.fused_swin_block.launches
+        got = fb.fused_swin_block(x, ops, labels, drop)
+        got_other = fb.fused_swin_block(other, ops, labels, drop)
+        torch.cuda.synchronize()
+    assert fb.fused_swin_block.launches == before + 2
+    _assert_close(got, ref)
+    n = min(len(x), len(other))
+    assert torch.equal(got[:n], got_other[:n]), \
+        int((got[:n] != got_other[:n]).sum())
 
 
 # (shape, Ca, Cb, Co): the flagship's three decoder convs at batch 2,

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""A/B of the port's kernels between checkouts: the fused Swin block (B1)
-or the decoder conv (B2/B3).
+"""A/B of the port's kernels between checkouts: the fused Swin block (B1),
+the window attention kernels (B6/B7/B8) or the decoder conv (B2/B3).
 
 Run on a machine with one CUDA card, from the repository root::
 
-    python3 tools/torch_ab_b1.py PARENT_DIR . . PARENT_DIR
+    python3 tools/torch_ab_b1.py [--quick] PARENT_DIR . . PARENT_DIR
     python3 tools/torch_ab_b1.py --kernel b2 [--sweep] PARENT_DIR . . PARENT_DIR
+    python3 tools/torch_ab_b1.py --kernel b6 [--quick] PARENT_DIR . . PARENT_DIR
+    python3 tools/torch_ab_b1.py --probe . [PROBE_INDEX ...]
 
 Each argument is the root of a checkout holding the PyTorch port; each
 runs in its own process, in the order given (alternate them: A B B A).
@@ -14,10 +16,23 @@ CUDA events on the same seeded inputs.
 
 * ``--kernel b1`` (default): B1 at the 12 flagship serving geometries
   (27 windows; no dropout, as serving calls it).  Outputs of every run
-  are compared bit for bit with the first run's.  ``ptxas -v`` of
+  are compared bit for bit with the first run's.  Each launch's cluster
+  size, CTAs, threads, CTAs per SM, registers, spill bytes and shared
+  bytes per CTA (``fused_block.launch_info``; for a checkout without it,
+  one CTA per window, registers and spills in the ``ptxas`` lines).
+  ``ptxas -v`` (unless ``--quick``) of
   ``fused_block.cu`` (and ``window_attention.cu``, ``fused_pair.cu`` and
-  the fp32 units, which share its device code, where the checkout has
-  them).
+  the fp32 and dropout units, which share its device code, where the
+  checkout has them).
+* ``--probe ROOT [I ...]``: B1 of one checkout at the same geometries,
+  built once per entry of ``PROBES`` (or the entries I;
+  ``csrc/fused_block_common.cuh``'s ``MIVP_B1_SKIP`` and ``MIVP_B1_KS``):
+  the time of the body with attention, q|k|v, the row phase's products,
+  LN1, the bias build or P.V compiled out, and of each cluster size.
+  Outputs are not compared.
+* ``--kernel b6``: B6 (C <= 128) or B8 (C 192) and B7 on pre-projected
+  q/k/v at the same 12 geometries through the unfused block (27 windows),
+  outputs compared bit for bit with the first run's as for B1.
 * ``--kernel b2``: B2 at the 3 flagship decoder convs and B3 at 48->48 on
   64x64x4 with and without its BN + LeakyReLU prologue (27 windows), each
   held to its plain version (the kernels of two checkouts sum in other
@@ -58,11 +73,48 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
 GEOMETRIES = (("enc0", 48, 4, (64, 64, 4)), ("enc1", 96, 8, (32, 32, 2)),
               ("enc2", 192, 16, (16, 16, 2)), ("dec0", 192, 4, (16, 16, 2)),
               ("dec1", 96, 4, (32, 32, 2)), ("dec2", 48, 4, (64, 64, 4)))
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
+    fused_block as fb
+
+
+def parent_smem(m, c, n, dh):
+    """Shared bytes per CTA of the one-CTA-per-window B1 (checkouts from
+    before ``fused_block.launch_info``): its BlockSmem layout."""
+    a16 = lambda v: (v + 15) // 16 * 16  # noqa: E731
+    dhk, npad, mp = a16(dh), a16(n), (m + 31) // 32 * 32
+    q = a16(mp * (c + 8) * 2)
+    k = a16(q + mp * (dhk + 8) * 2)
+    vt = a16(k + npad * (dhk + 8) * 2)
+    lab = a16(vt + dhk * (npad + 8) * 2)
+    attn_end = a16(lab + npad * 4)
+    return max(attn_end, a16(mp * (c + 4) * 4)) + a16(mp * (c + 8) * 2)
+
+
+def launch_info(x_win, ops, labels, heads):
+    if hasattr(fb, "launch_info"):
+        return fb.launch_info(x_win, ops, labels)
+    b, pw, m, c = x_win.shape
+    return {"cluster": 1, "ctas": b * pw, "threads": (m + 31) // 32 * 32,
+            "ctas_per_sm": kernels.ctas_per_sm(
+                "mivp_fused_swin_block", m, c, heads, ops.n_ext, False),
+            "registers": "ptxas above", "spill_bytes": "ptxas above",
+            "smem": parent_smem(m, c, m + ops.n_ext, c // heads)}
+
+
+if len(sys.argv) > 2:   # a probe's library: B1's entry only
+    import ctypes
+    probe = ctypes.CDLL(sys.argv[2])
+    probe.mivp_fused_swin_block.argtypes = \
+        kernels.SIGNATURES["mivp_fused_swin_block"]
+    probe.mivp_fused_swin_block.restype = ctypes.c_int
+    probe.mivp_error_string.argtypes = [ctypes.c_int]
+    probe.mivp_error_string.restype = ctypes.c_char_p
+    kernels._lib = probe
 t0 = time.perf_counter()
 kernels.library()
 build_s = time.perf_counter() - t0
 g = torch.Generator().manual_seed(0)
-outs, times = {}, {}
+outs, times, info = {}, {}, {}
 for name, c, heads, dims in GEOMETRIES:
     for shift in ((0, 0, 0), (4, 4, 2)):
         blk = SwinTransformerBlock(c, (8, 8, 4), 64, heads, 1, 64,
@@ -88,8 +140,73 @@ for name, c, heads, dims in GEOMETRIES:
             end.record()
             torch.cuda.synchronize()
         times[tag] = start.elapsed_time(end) / 10
+        info[tag] = launch_info(x_win, ops, labels, heads)
 np.savez(sys.argv[1], **outs)
-print(json.dumps({"build_s": build_s, "ms": times}))
+print(json.dumps({"build_s": build_s, "ms": times, "info": info}))
+'''
+
+CHILD_B6 = r'''
+import json, sys
+sys.path.insert(0, ".")
+import numpy as np, torch
+from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
+    SwinTransformerBlock
+from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+    .window_attention import linear
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
+    window_attention as wa
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
+    init_weights
+GEOMETRIES = (("enc0", 48, 4, (64, 64, 4)), ("enc1", 96, 8, (32, 32, 2)),
+              ("enc2", 192, 16, (16, 16, 2)), ("dec0", 192, 4, (16, 16, 2)),
+              ("dec1", 96, 4, (32, 32, 2)), ("dec2", 48, 4, (64, 64, 4)))
+g = torch.Generator().manual_seed(0)
+outs, times = {}, {}
+for name, c, heads, dims in GEOMETRIES:
+    for shift in ((0, 0, 0), (4, 4, 2)):
+        blk = SwinTransformerBlock(c, (8, 8, 4), 64, heads, 1, 64,
+                                   shift_size=shift, pad_mode="aligned",
+                                   dtype=torch.bfloat16)
+        blk = init_weights(blk, g).cuda()
+        blk.fused_block = False
+        x = torch.randn((27, *dims, c), generator=g).to("cuda", torch.bfloat16)
+        tok = (0.5 * torch.randn((64, c), generator=g)).cuda()
+        at, scale = blk.attn, (c // heads) ** -0.5
+        with torch.inference_mode():
+            x_win, bias, labels, _ = blk.windows(x, tok)
+            y = blk.attn_input(x_win, tok)
+            b, pw, m = x_win.shape[:3]
+            q = linear(y[:, :, :m], at.to_q).contiguous()
+            k = linear(y, at.to_k).contiguous()
+            v = linear(y, at.to_v).contiguous()
+            calls = {"B7": lambda: wa.fused_window_attention_packed(
+                q, k, v, bias, labels, scale, heads)}
+            if c <= 128:
+                ws = tuple(lin.weight.t() for lin in (at.to_q, at.to_k,
+                                                      at.to_v))
+                wqkv = at.kernel_weight()
+                calls["B6"] = lambda: wa.fused_window_attention_packed_qkv(
+                    y, *ws, m, bias, labels, scale, heads, wqkv=wqkv)
+            else:
+                hs = lambda t: t.view(b, pw, t.shape[2], heads, -1)
+                calls["B8"] = lambda: wa.fused_window_attention(
+                    hs(q), hs(k), hs(v), bias, labels, scale)
+            for key, fn in calls.items():
+                tag = f"{key} {name} {'shift' if any(shift) else 'noshift'}"
+                out = fn()
+                torch.cuda.synchronize()
+                outs[tag] = out.view(torch.int16).cpu().numpy()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(10):
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                times[tag] = start.elapsed_time(end) / 10
+np.savez(sys.argv[1], **outs)
+print(json.dumps({"build_s": 0.0, "ms": times,
+                  "info": {k: "" for k in times}}))
 '''
 
 CHILD_B2 = r'''
@@ -245,18 +362,77 @@ def main_b2(roots, sweep: bool) -> int:
     return 0
 
 
+# B1 design probes (fused_block_common.cuh, MIVP_B1_SKIP / MIVP_B1_KS):
+# parts of the body compiled out, or a fixed cluster size.
+PROBES = (("as built", {}),
+          ("no attention", {"MIVP_B1_SKIP": 1}),
+          ("no q|k|v", {"MIVP_B1_SKIP": 2}),
+          ("no row phase", {"MIVP_B1_SKIP": 4}),
+          ("no LN1", {"MIVP_B1_SKIP": 8}),
+          ("no bias build", {"MIVP_B1_SKIP": 16}),
+          ("no P.V", {"MIVP_B1_SKIP": 64}),
+          ("no bias build, no P.V", {"MIVP_B1_SKIP": 80}),
+          *((f"{ks} CTAs per window where valid", {"MIVP_B1_KS": ks})
+            for ks in (1, 2, 4, 8)))
+
+
+def main_probe(root: Path, only=None) -> int:
+    """Time B1 at the 12 serving geometries with each probe of PROBES
+    compiled in (outputs are garbage and not compared): where the time
+    goes inside the block body, and each cluster size's time."""
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        chosen = [(i, PROBES[i]) for i in (only or range(len(PROBES)))]
+        for i, (_, defs) in chosen:
+            flags = [f"-D{k}={v}" for k, v in defs.items()]
+            for unit in ("fused_block.cu", "fused_block_f32.cu"):
+                procs.append(subprocess.Popen(
+                    [NVCC, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     *flags, "-c", str(root / PKG / "csrc" / unit), "-o",
+                     f"{tmp}/p{i}_{unit}.o"], stderr=subprocess.PIPE,
+                    text=True))
+        for proc in procs:
+            if proc.wait():
+                print(proc.stderr.read(), file=sys.stderr)
+                return 1
+        for i, (name, _) in chosen:
+            lib = f"{tmp}/p{i}.so"
+            subprocess.run([NVCC, *arch, "-shared", "-o", lib,
+                            f"{tmp}/p{i}_fused_block.cu.o",
+                            f"{tmp}/p{i}_fused_block_f32.cu.o"], check=True)
+            out = subprocess.run([sys.executable, "-c", CHILD_B1,
+                                  f"{tmp}/p{i}.npz", lib], cwd=root,
+                                 capture_output=True, text=True)
+            if out.returncode:
+                print(out.stderr, file=sys.stderr)
+                return 1
+            res = json.loads(out.stdout.strip().splitlines()[-1])
+            print(f"probe {name}: B1 sum {sum(res['ms'].values()):.4f} ms")
+            for k, v in res["ms"].items():
+                print(f"  {k}: {v:.4f} ms, cluster "
+                      f"{res['info'][k]['cluster']}, CTAs per SM "
+                      f"{res['info'][k]['ctas_per_sm']}")
+    return 0
+
+
 def main(argv) -> int:
     import numpy as np
-    kernel, sweep = "b1", False
+    kernel, sweep, quick = "b1", False, False
     while argv and argv[0].startswith("--"):
         if argv[0] == "--kernel":
             kernel, argv = argv[1], argv[2:]
         elif argv[0] == "--sweep":
             sweep, argv = True, argv[1:]
+        elif argv[0] == "--quick":
+            quick, argv = True, argv[1:]
+        elif argv[0] == "--probe":
+            return main_probe(Path(argv[1]).resolve(),
+                              [int(a) for a in argv[2:]])
         else:
             break
     roots = [Path(a).resolve() for a in argv]
-    if not roots or kernel not in ("b1", "b2"):
+    if not roots or kernel not in ("b1", "b2", "b6"):
         print(__doc__, file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -264,9 +440,11 @@ def main(argv) -> int:
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
     names = ("conv3x3_pair.cu",) if kernel == "b2" else (
+        "window_attention.cu",) if kernel == "b6" else (
         "fused_block.cu", "fused_block_f32.cu", "window_attention.cu",
-        "fused_pair.cu", "fused_pair_f32.cu")
-    for root in dict.fromkeys(roots):
+        "fused_pair.cu", "fused_pair_drop.cu", "fused_pair_f32.cu",
+        "fused_pair_f32_drop.cu")
+    for root in dict.fromkeys(roots if not quick else ()):
         print(f"ptxas -v, {root}:")
         ptxas(root, names)
     if kernel == "b2":
@@ -275,7 +453,8 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for i, root in enumerate(roots):
             dump = f"{tmp}/run{i}.npz"
-            out = subprocess.run([sys.executable, "-c", CHILD_B1, dump],
+            child = CHILD_B6 if kernel == "b6" else CHILD_B1
+            out = subprocess.run([sys.executable, "-c", child, dump],
                                  cwd=root, capture_output=True, text=True)
             if out.returncode:
                 print(out.stderr, file=sys.stderr)
@@ -286,11 +465,12 @@ def main(argv) -> int:
                 first = outs
             differ = sum(int((outs[k] != first[k]).sum()) for k in first)
             total = sum(v.size for v in first.values())
-            print(f"run {i}: {root}: build {res['build_s']:.1f} s, B1 sum "
-                  f"{sum(res['ms'].values()):.4f} ms per 27-window forward; "
+            print(f"run {i}: {root}: build {res['build_s']:.1f} s, "
+                  f"{kernel.upper()} sum {sum(res['ms'].values()):.4f} ms "
+                  f"per 27-window forward; "
                   f"{differ} of {total} output elements differ from run 0")
-            print("  " + ", ".join(f"{k} {v:.4f}" for k, v in
-                                   res["ms"].items()))
+            for k, v in res["ms"].items():
+                print(f"  {k}: {v:.4f} ms; {res['info'][k]}")
     return 0
 
 
