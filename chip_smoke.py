@@ -48,8 +48,10 @@ the port's paths:
 B2 and B3 are timed beside one cuDNN ``conv3d`` on the same shapes
 without the prologue (bf16, channels-last), and each B2 launch reports
 its tile, registers, spills and CTAs per SM; each B1 and B5 launch of the
-serving geometries reports its cluster size (CTAs per window), CTAs,
-CTAs per SM, registers, spills and shared bytes.
+serving geometries and each B4 launch of the training geometries reports
+its cluster size (CTAs per window), CTAs, CTAs per SM, registers, spills
+and shared bytes, and B4 runs twice on the same inputs with bit-identical
+outputs.
 
 Each path runs with the launch counters set to 0 just before and read
 just after.  It prints one JSON line describing the kernels (times,
@@ -85,8 +87,7 @@ KERNEL_TOL = 2.0 ** -6
 # B4 vs the autograd of the plain block, per gradient output, relative
 # to that output's largest magnitude: the kernel rounds P, dS, dP and the
 # row gradients to bf16 for its tensor-core products where the plain
-# version keeps fp32, and sums across windows with fp32 atomics in a
-# run-dependent order (~1e-6 relative between runs).
+# version keeps fp32, and sums in another (fixed) order.
 GRAD_TOL = 2.0 ** -5
 # Flagship logits, kernels vs plain versions on the same weights: the
 # bf16 rounding differences above pass through 12 blocks and 4 convs.
@@ -96,8 +97,8 @@ SERVE_REPEATS = 10
 # Trainer, kernels vs plain versions from the same weights, crops and
 # dropout seeds: per-step loss within 2% relative.  Each step's loss is a
 # mean over 2x128x128x8 voxels; the kernels' bf16 rounding of P (forward
-# and backward) and the atomics' order move the gradients by ~1% (GRAD_TOL
-# above) and so the AdamW updates of the following steps.
+# and backward) moves the gradients by ~1% (GRAD_TOL above) and so the
+# AdamW updates of the following steps.
 TRAIN_LOSS_RTOL = 2e-2
 TRAIN_VOLUMES = 8   # 6 train volumes x 2 crops = 6 steps of batch 2
 DROP_RATE = 0.1
@@ -173,17 +174,15 @@ class Bound:
         return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
 
 
-def block_work(x_win, ops, labels, bias_array: bool = False):
+def block_work(x_win, ops, labels):
     """(flops, bytes) of one B1 call: five C x C products per row and the
     two attention products over N keys; x in and out (its dtype), bf16
     weights and extra K/V rows, the bias's factors (fp32 tables, int32
-    coordinates) or, with ``bias_array`` (B4's input), the fp32 [H, M, N]
-    bias, fp32 vectors, int32 labels."""
+    coordinates), fp32 vectors, int32 labels."""
     b, p, m, c = x_win.shape
-    bp, n, h, e = b * p, m + ops.n_ext, ops.num_heads, ops.n_ext
+    bp, n, e = b * p, m + ops.n_ext, ops.n_ext
     flops = bp * (10 * m * c * c + 4 * m * n * c)
-    bias = h * m * n * 4 if bias_array else \
-        ops.kernel["pe_tab"].numel() * 4 + ops.kernel["pe_coord"].numel() * 4
+    bias = ops.kernel["pe_tab"].numel() * 4 + ops.kernel["pe_coord"].numel() * 4
     nbytes = (2 * bp * m * c * x_win.element_size() + 5 * c * c * 2
               + 2 * e * c * 2 + bias + 6 * c * 4
               + (0 if labels is None else labels.numel() * 4))
@@ -193,11 +192,11 @@ def block_work(x_win, ops, labels, bias_array: bool = False):
 def block_bwd_work(x_win, ops, labels):
     """(flops, bytes) of one B4 call: the forward's products once more
     (recompute) and twice for the gradients; reads x, dout and the
-    forward's inputs, writes dx (x's dtype) and the fp32 operand
-    gradients."""
+    forward's inputs (the bias as its factors), writes dx (x's dtype) and
+    the fp32 operand gradients (the bias's as [H, M, N])."""
     b, p, m, c = x_win.shape
     bp, n, h, e = b * p, m + ops.n_ext, ops.num_heads, ops.n_ext
-    fwd_flops, fwd_bytes = block_work(x_win, ops, labels, bias_array=True)
+    fwd_flops, fwd_bytes = block_work(x_win, ops, labels)
     nbytes = fwd_bytes + bp * m * c * x_win.element_size() + (
         5 * c * c * 4 + 6 * c * 4 + h * m * n * 4 + 2 * e * c * 4)
     return 3 * fwd_flops, nbytes
@@ -525,9 +524,11 @@ def phase_blocks_train(gen_seed: int = SEED + 5):
         .fused_block import (PARAM_KEYS, Dropout, block_reference,
                              fused_swin_block)
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
-        .fused_block_bwd import block_backward, block_backward_reference
+        .fused_block_bwd import (block_backward, block_backward_reference,
+                                 launch_info)
     print(f"phase blocks-train: B1 with dropout {DROP_RATE}/{DROP_RATE} and "
-          f"B4 vs their plain versions (bf16, batch {TRAIN_BATCH})")
+          f"B4 vs their plain versions (bf16, batch {TRAIN_BATCH}); B4 run "
+          "twice, its outputs bit-identical")
     failures, fwd_errs, bwd_errs = [], [], []
     fwd = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound()}
     bwd = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound()}
@@ -561,8 +562,13 @@ def phase_blocks_train(gen_seed: int = SEED + 5):
             ref_dx, ref_g = block_backward_reference(x_win, dout, ops,
                                                      labels, drop)
             dx, got_g = block_backward(x_win, dout, ops, labels, drop)
+            dx2, got_g2 = block_backward(x_win, dout, ops, labels, drop)
             torch.cuda.synchronize()
-            print(f"  B4 {tag}")
+            print(f"  B4 {tag}; launch {launch_info(x_win, ops, labels, drop)}")
+            for gname, a, b in zip(names, (dx, *got_g), (dx2, *got_g2)):
+                if a is not None and not torch.equal(a, b):
+                    failures.append(f"B4 {tag} d{gname}: two runs differ in "
+                                    f"{int((a != b).sum())} elements")
             for gname, got, want in zip(names, (dx, *got_g),
                                         (ref_dx, *ref_g)):
                 if want is None:
@@ -1035,7 +1041,8 @@ def profile_steps(tr, hp, steps: int = 2) -> None:
         torch.cuda.synchronize()
     buckets = (("B1 fused_swin_block_kernel", ("fused_swin_block_kernel",)),
                ("B5 fused_swin_pair_kernel", ("fused_swin_pair_kernel",)),
-               ("B4 fused_block_bwd_kernel", ("fused_block_bwd_kernel",)),
+               ("B4 fused_block_bwd_kernel + bwd_reduce_kernel",
+                ("fused_block_bwd_kernel", "bwd_reduce_kernel")),
                ("convolutions (cuDNN, fwd + bwd)",
                 ("conv", "cudnn", "dgrad", "wgrad", "fprop", "implicit")),
                ("GEMMs (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
@@ -1292,7 +1299,9 @@ def main() -> int:
                      "only; no model calls B3"),
         kernel_entry("fused_block_bwd", "fused_block_bwd.cu",
                      "ops/fused_block_bwd.py:158", train_launches["B4"],
-                     paths("B4"), b4),
+                     paths("B4"), b4,
+                     library_null_reason="no single PyTorch call computes "
+                     "a Swin block's backward"),
         kernel_entry("fused_swin_pair", "fused_pair.cu",
                      "ops/fused_block.py:592", pair_launches["B5"],
                      paths("B5"), b5,

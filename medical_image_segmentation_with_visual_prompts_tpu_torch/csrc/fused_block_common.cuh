@@ -230,7 +230,7 @@ struct AttnDrop {
 };
 
 // The additive attention bias of one head as [m, n] fp32 rows in device
-// memory (B6/B7/B8, and B4's layout): bias[i, j] = rows[i * n + j].
+// memory (B6/B7/B8): bias[i, j] = rows[i * n + j].
 struct GlobalBias {
   const float* rows;
   int n;
@@ -341,13 +341,15 @@ struct FactoredBias {
 // of K and V^T are zero.  bias: a GlobalBias or a FactoredBias of the
 // head; slab: the window's key labels (read only when `masked`).  On
 // return o[dt] holds the normalised output of row a (o[dt][0..1]) and row b
-// (o[dt][2..3]) at head columns dt * 8 + 2 * (lane % 4) + {0, 1}.
+// (o[dt][2..3]) at head columns dt * 8 + 2 * (lane % 4) + {0, 1}, and,
+// where `ml` is given (the block backward's recompute), ml[0] and ml[1]
+// the softmax max and (undropped) sum of rows a and b.
 template <int DHK, bool DROP, class Bias>
 __device__ __forceinline__ void attend_rows(
     float (&o)[DHK / 8][4], const bf16* sq, const bf16* sk, int qs,
     const bf16* svt, int vs, const int* slab, bool masked,
     const Bias& bias, int t0, int m, int n, int npad, float scale,
-    const AttnDrop& dr, int lane) {
+    const AttnDrop& dr, int lane, float (*ml)[2] = nullptr) {
   constexpr int KSTEPS = DHK / 16;   // k-steps of QK^T
   constexpr int DTILES = DHK / 8;    // n-tiles of P.V
   const int g = lane / 4, cq = lane % 4;
@@ -468,6 +470,12 @@ __device__ __forceinline__ void attend_rows(
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
   const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+  if (ml != nullptr) {
+    ml[0][0] = m_a;
+    ml[0][1] = l_a;
+    ml[1][0] = m_b;
+    ml[1][1] = l_b;
+  }
 #pragma unroll
   for (int dt = 0; dt < DTILES; ++dt) {
     o[dt][0] *= inv_a;

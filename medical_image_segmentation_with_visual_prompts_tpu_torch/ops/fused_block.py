@@ -38,9 +38,10 @@ The bias is ``[H, M, N]``: the content part from the relative-position
 module's per-axis tables, then the fold column and the prompt-token
 columns.  The forward kernels build it in shared memory from those
 factors (:class:`BiasFactors`, :func:`bias_tables`; :func:`table_bias` is
-the plain version of that build); the plain version, the backward kernel
-and autograd take the assembled array, so the gradients to the
-positional-bias parameters flow through it.
+the plain version of that build), and so does the backward kernel; the
+plain version and autograd take the assembled array, so the gradients to
+the positional-bias parameters flow through it (the backward kernel
+writes the gradient of that array).
 
 The kernels (``csrc/fused_block.cu``, and ``csrc/fused_block_bwd.cu`` for
 the gradient, ``ops/fused_block_bwd.py``) run for CUDA tensors; CPU
@@ -306,14 +307,16 @@ def pack_k16(w: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_layout(ops: BlockOperands) -> dict:
-    """Operands in ``csrc/fused_block.cu``'s layout: bf16 weights stored
-    transposed (out, in) for the tensor-core B operand, each head's q|k|v
-    rows zero-padded to a multiple of 16 (the k-step,
-    :func:`qkv_kernel_weight`), the extra K/V rows per head with the
-    same padding, the bias array (the backward kernel's), the forward
-    kernels' k-packed copies of the three weights (``*_kp``,
-    :func:`pack_k16`) and, where the operands carry factors, their bias
-    tables (:func:`bias_tables`)."""
+    """Operands in the CUDA kernels' layout, k-packed (:func:`pack_k16`)
+    for the tensor-core B operand: the forward's bf16 weights stored
+    transposed (out, in), each head's q|k|v rows zero-padded to a
+    multiple of 16 (the k-step, :func:`qkv_kernel_weight`); the extra K/V
+    rows per head with the same padding; the fp32 vectors; the bias
+    tables (:func:`bias_tables`, where the operands carry factors); and
+    the backward's weights in (in, out) layout: ``wproj_io_kp``,
+    ``wmlp_io_kp`` and ``wqkv_io_kp`` (``[C, 3C]``, Wq | Wk | Wv) for
+    d(attention output), d(LN2 output) and the head sum of d(LN1
+    output)."""
     p = {k: v.detach() for k, v in ops.params.items()}
     c = p["wq"].shape[0]
     h = ops.num_heads
@@ -327,21 +330,22 @@ def _kernel_layout(ops: BlockOperands) -> dict:
             ext[:, i, :e, :dh] = rows.detach().float().reshape(
                 e, h, dh).permute(1, 0, 2)
     bf = torch.bfloat16
-    bias = ops.bias.detach().float().contiguous()
     out = {
-        "wqkv": wqkv,
+        "wqkv_kp": pack_k16(wqkv),
         "ext_kv": ext.to(bf).contiguous(),
-        "bias": bias,
-        "wproj": p["wproj"].t().to(bf).contiguous(),
-        "wmlp": p["wmlp"].t().to(bf).contiguous(),
+        "wproj_kp": pack_k16(p["wproj"].t().to(bf)),
+        "wmlp_kp": pack_k16(p["wmlp"].t().to(bf)),
+        "wproj_io_kp": pack_k16(p["wproj"].to(bf)),
+        "wmlp_io_kp": pack_k16(p["wmlp"].to(bf)),
+        "wqkv_io_kp": pack_k16(torch.cat([p["wq"], p["wk"], p["wv"]], 1)
+                               .to(bf)),
         **{k: p[k].float().contiguous() for k in
            ("ln1_scale", "ln1_bias", "bproj", "ln2_scale", "ln2_bias",
             "bmlp")},
     }
-    for key in ("wqkv", "wproj", "wmlp"):
-        out[f"{key}_kp"] = pack_k16(out[key])
     if ops.factors is not None:
-        out["pe_tab"], out["pe_coord"] = bias_tables(ops, bias)
+        out["pe_tab"], out["pe_coord"] = bias_tables(
+            ops, ops.bias.detach().float())
     return out
 
 

@@ -11,9 +11,12 @@ counterpart of the JAX ``jax.vjp(_operand_args)``).
 
 * :func:`block_backward` runs ``csrc/fused_block_bwd.cu`` (CUDA tensors
   only, fp32 or bf16 ``x_win`` and ``dout``, ``dx`` in their dtype; it
-  raises on anything the kernel does not take).  Its fp32
-  cross-window sums are atomics, so two runs differ by fp32 rounding.
-  ``block_backward.launches`` counts its launches.
+  raises on anything the kernel does not take).  A window runs on a
+  thread block cluster (:func:`backward_plan`); cross-window sums are
+  fp32 partials in one workspace, summed in window order by a second
+  kernel, so two runs on the same inputs give the same bits.
+  ``block_backward.launches`` counts its calls (one per call, whatever
+  it launches); :func:`launch_info` gives the launch's shape.
 * :func:`block_backward_reference` is the autograd of
   ``fused_block.block_reference`` (the plain version; CPU tests and the
   comparison on the card).
@@ -21,12 +24,27 @@ counterpart of the JAX ``jax.vjp(_operand_args)``).
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 from typing import Optional
 
 import torch
 
-from .fused_block import (PARAM_KEYS, BlockOperands, Dropout, _check_args,
-                          block_reference, check_kernel_args, is_f32)
+from .fused_block import (FOLD_NONE, NO_DROPOUT, PARAM_KEYS, BlockOperands,
+                          Dropout, _check_args, block_reference,
+                          check_kernel_args, is_f32)
+
+# The kernel's operands, in the order of its C entry's pointer array
+# (``ops/fused_block.py::_kernel_layout`` keys).
+_OPERANDS = ("wqkv_kp", "ext_kv", "pe_tab", "pe_coord", "ln1_scale",
+             "ln1_bias", "wproj_kp", "wproj_io_kp", "bproj", "ln2_scale",
+             "ln2_bias", "wmlp_kp", "wmlp_io_kp", "bmlp", "wqkv_io_kp")
+SMEM_PER_CTA = 227 * 1024     # shared bytes a CTA may use (H100)
+SMEM_PER_SM = 228 * 1024      # shared memory of an SM
+SMEM_RESERVED = 1024          # reserved per resident CTA
+THREADS_PER_SM = 2048
+REGS_PER_SM = 65536
 
 
 def block_backward_reference(x_win: torch.Tensor, dout: torch.Tensor,
@@ -48,23 +66,184 @@ def block_backward_reference(x_win: torch.Tensor, dout: torch.Tensor,
     return dx, tuple(dtensors)
 
 
-def _backward_layout(ops: BlockOperands) -> dict:
-    """The extra operands the backward kernel reads: q/k/v weights per
-    head in (in, out) order ``[H, 3, C, DHK]`` and the projection and MLP
-    weights in (in, out) layout, all bf16."""
+def _pad16(v: int) -> int:
+    """``v`` rounded up to a multiple of 16 (rows, columns or bytes)."""
+    return -(-v // 16) * 16
+
+
+def row_block(m: int, ks: int) -> int:
+    """Rows of each CTA's row phase when a window runs on ``ks`` CTAs
+    (``csrc/fused_block_common.cuh::row_block``)."""
+    return m if ks == 1 else _pad16(-(-m // ks))
+
+
+def backward_smem(m: int, n: int, c: int, heads: int, tabw: int,
+                  ks: int) -> int:
+    """Shared bytes per CTA of B4 at cluster size ``ks``: the
+    ``BwdSmem`` layout of ``csrc/fused_block_bwd.cu``, region for
+    region."""
+    dhk = _pad16(c // heads)
+    hk = heads // math.gcd(ks, heads)
+    npad, mp, r16 = _pad16(n), -(-m // 32) * 32, _pad16(row_block(m, ks))
+    ds, cs, xs, qks = dhk + 8, c + 8, c + 4, 3 * c + 8
+    off = 0
+    for size in (npad * 4, hk * tabw * 4, m * 4, mp * 8, r16 * 8,
+                 hk * mp * 16, mp * 16, hk * mp * ds * 2, r16 * cs * 2,
+                 r16 * xs * 4):
+        off = _pad16(off + size)
+    u = off
+    k = _pad16(u + mp * ds * 2)
+    end_a = _pad16(_pad16(k + npad * ds * 2) + dhk * (npad + 8) * 2)
+    end_r = u
+    for size in (r16 * xs * 4, r16 * cs * 2, r16 * cs * 2, r16 * cs * 2):
+        end_r = _pad16(end_r + size)
+    end_e = _pad16(_pad16(_pad16(k + npad * ds * 2) + npad * ds * 2)
+                   + mp * ds * 2)
+    dqkv = max(end_e, _pad16(u + r16 * xs * 4))
+    y = max(end_a, end_r, _pad16(dqkv + r16 * qks * 2))
+    return _pad16(y + mp * cs * 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """B4's launch: ``ks`` CTAs per window (a thread block cluster),
+    ``hs`` head groups of ``heads // hs`` heads times ``qs`` CTAs per
+    group (query rows and key tiles split between them), ``threads`` per
+    CTA, ``smem`` shared bytes per CTA and ``ctas_per_sm`` that fit by
+    threads, registers and shared memory."""
+
+    ks: int
+    hs: int
+    qs: int
+    threads: int
+    smem: int
+    ctas_per_sm: int
+
+
+def _ctas_per_sm(threads: int, smem: int) -> int:
+    regs = 255 if threads == 256 else 128    # the kernel's launch bounds
+    return min(THREADS_PER_SM // threads, REGS_PER_SM // (threads * regs),
+               SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(bp: int, m: int, n: int, c: int, heads: int, tabw: int,
+                  sms: int = 132, cluster: Optional[int] = None,
+                  threads: Optional[int] = None) -> BackwardPlan:
+    """The cluster size of a B4 launch over ``bp`` windows, from the
+    shapes alone: of the sizes 1, 2, 4, 8 (16 rows or more per CTA) whose
+    CTA fits in shared memory, the fewest CTAs per window that reach the
+    most CTAs per SM, then more while the grid stays within half a wave
+    (``sms`` SMs; every CTA per window beyond that costs more in the work
+    each CTA repeats -- LN1 and q|k|v of every row, the row phase's
+    steps -- than the SMs it adds bring).  Head groups: ``gcd(ks,
+    heads)``; the rest of the cluster splits each group's rows.  Threads
+    per CTA: 512 where a CTA walks more than 256 (head, query row) pairs,
+    else 256.  ``cluster`` and ``threads`` force a choice."""
+    plans = []
+    for ks in (1, 2, 4, 8):
+        if ks > 1 and m < 16 * ks:
+            break
+        smem = backward_smem(m, n, c, heads, tabw, ks)
+        if smem > SMEM_PER_CTA:
+            continue
+        hs = math.gcd(ks, heads)
+        qs = ks // hs
+        rows = (heads // hs) * -(-m // qs)
+        t = threads or (512 if rows > 256 else 256)
+        plans.append(BackwardPlan(ks, hs, qs, t, smem, _ctas_per_sm(t, smem)))
+    if cluster is not None:
+        for plan in plans:
+            if plan.ks == cluster:
+                return plan
+        raise ValueError(f"block_backward: no cluster of {cluster} CTAs "
+                         f"fits M={m}, N={n}, C={c}, {heads} heads")
+    if not plans:
+        raise ValueError(f"block_backward: no cluster size fits M={m}, "
+                         f"N={n}, C={c}, {heads} heads in shared memory")
+    best = max(p.ctas_per_sm for p in plans)
+    pick = next(i for i, p in enumerate(plans) if p.ctas_per_sm == best)
+    while pick + 1 < len(plans) and \
+            2 * bp * plans[pick + 1].ks <= sms * plans[pick + 1].ctas_per_sm:
+        pick += 1
+    return plans[pick]
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan(x_win: torch.Tensor, ops: BlockOperands, cluster: Optional[int],
+          threads: Optional[int]) -> BackwardPlan:
+    b, pw, m, c = x_win.shape
+    tabw = ops.kernel["pe_tab"].shape[1]
+    sms = _sm_count(x_win.device)
+    return backward_plan(b * pw, m, m + ops.n_ext, c, ops.num_heads, tabw,
+                         sms, cluster, threads)
+
+
+def _bias_stride(n: int) -> int:
+    """Row stride of the bias gradient's partials and output: N rounded
+    up to even (``bias_stride``), so its 8-byte stores stay aligned."""
+    return n + n % 2
+
+
+def _part_sizes(m: int, c: int, heads: int, e: int):
+    """Floats of the per-window and per-CTA partials (and of the two
+    halves of the output): ``bwd_part_w`` and ``bwd_part_c``."""
+    n_w = 3 * c * c + 2 * e * c + heads * m * _bias_stride(m + e)
+    return -(-n_w // 4) * 4, 2 * c * c + 6 * c
+
+
+def _launch(x_win, dout, dx, ops, labels, dropout, plan, ws, out,
+            info=None) -> int:
+    """Call ``csrc/fused_block_bwd.cu``: launch (B4 and its reduction),
+    or (``info`` an int[7] ctypes array) only size the launch."""
+    import ctypes
+    from . import kernels
+    b, pw, m, c = x_win.shape
     k = ops.kernel
-    bf = torch.bfloat16
-    return {
-        "wqkv_t": k["wqkv"].transpose(-1, -2).contiguous(),
-        "wproj_io": ops.params["wproj"].detach().to(bf).contiguous(),
-        "wmlp_io": ops.params["wmlp"].detach().to(bf).contiguous(),
-    }
+    operands = (ctypes.c_void_p * len(_OPERANDS))(
+        *(k[key].data_ptr() for key in _OPERANDS))
+    n_w, n_c = _part_sizes(m, c, ops.num_heads, ops.n_ext)
+    bp = b * pw
+    return kernels.library().mivp_fused_block_bwd(
+        x_win.data_ptr(), kernels.ptr(dout), kernels.ptr(dx), operands,
+        kernels.ptr(labels), kernels.ptr(ws),
+        None if ws is None else ws.data_ptr() + 4 * bp * n_w,
+        kernels.ptr(out), None if info is None else ctypes.addressof(info),
+        bp, m, c, ops.num_heads, c // ops.num_heads, ops.n_ext, pw,
+        *ops.factors.dims, int(ops.fold_mode != FOLD_NONE), plan.ks, plan.hs,
+        plan.qs, plan.threads, ops.scale, ops.factors.scale,
+        *dropout.kernel_args(), ops.drop_cols, is_f32(x_win),
+        kernels.stream_of(x_win))
+
+
+def launch_info(x_win: torch.Tensor, ops: BlockOperands,
+                labels: Optional[torch.Tensor] = None,
+                dropout: Dropout = NO_DROPOUT,
+                cluster: Optional[int] = None,
+                threads: Optional[int] = None) -> dict:
+    """Shape of B4's launch for these arguments (CUDA only; nothing
+    runs): cluster size (CTAs per window), CTAs, threads per CTA, CTAs
+    per SM, registers, spill bytes per thread, shared bytes per CTA."""
+    from . import kernels
+    check_kernel_args(x_win, ops, labels, "block_backward")
+    plan = _plan(x_win, ops, cluster, threads)
+    info = kernels.info_array()
+    kernels.check(_launch(x_win, None, None, ops, labels, dropout, plan, None,
+                          None, info), "block_backward")
+    return kernels.info_dict(info)
 
 
 def block_backward(x_win: torch.Tensor, dout: torch.Tensor,
                    ops: BlockOperands, labels: Optional[torch.Tensor],
-                   dropout: Dropout):
-    """Block backward on the card (``csrc/fused_block_bwd.cu``)."""
+                   dropout: Dropout, cluster: Optional[int] = None,
+                   threads: Optional[int] = None):
+    """Block backward on the card (``csrc/fused_block_bwd.cu``).
+    ``cluster`` and ``threads`` force the cluster size and the threads
+    per CTA (``backward_plan``)."""
     _check_args(x_win, ops, labels)
     check_kernel_args(x_win, ops, labels, "block_backward")
     if dout.shape != x_win.shape or dout.dtype != x_win.dtype or \
@@ -77,46 +256,29 @@ def block_backward(x_win: torch.Tensor, dout: torch.Tensor,
     from . import kernels
     b, pw, m, c = x_win.shape
     bp, h, e = b * pw, ops.num_heads, ops.n_ext
-    mp = -(-m // 32) * 32
-    dev = x_win.device
-    k = ops.kernel
-    kb = _backward_layout(ops)
-    f32 = dict(device=dev, dtype=torch.float32)
-    ws_h = torch.empty((bp, 6, mp, c), device=dev, dtype=torch.bfloat16)
-    ws_f = torch.empty((bp, 4, mp, c), **f32)
-    ws_s = torch.empty((bp, mp, 4), **f32)
-    ws_sm = torch.empty((bp, h, mp, 2), **f32)
+    plan = _plan(x_win, ops, cluster, threads)
+    n_w, n_c = _part_sizes(m, c, h, e)
+    f32 = dict(device=x_win.device, dtype=torch.float32)
+    ws = torch.empty(bp * n_w + bp * plan.ks * n_c, **f32)
+    out = torch.empty(n_w + n_c, **f32)
     dx = torch.empty_like(x_win)
-    dw = {key: torch.zeros((c, c), **f32)
-          for key in ("wq", "wk", "wv", "wproj", "wmlp")}
-    dvec = {key: torch.zeros((c,), **f32)
-            for key in ("bproj", "bmlp", "ln1_scale", "ln1_bias",
-                        "ln2_scale", "ln2_bias")}
-    dbias = torch.zeros((h, m, m + e), **f32)
-    dext = torch.zeros((2, max(e, 1), c), **f32)
-    err = kernels.library().mivp_fused_block_bwd(
-        x_win.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-        k["wqkv"].data_ptr(), kb["wqkv_t"].data_ptr(),
-        k["ext_kv"].data_ptr(), k["bias"].data_ptr(), kernels.ptr(labels),
-        k["ln1_scale"].data_ptr(), k["ln1_bias"].data_ptr(),
-        k["wproj"].data_ptr(), kb["wproj_io"].data_ptr(),
-        k["bproj"].data_ptr(), k["ln2_scale"].data_ptr(),
-        k["ln2_bias"].data_ptr(), k["wmlp"].data_ptr(),
-        kb["wmlp_io"].data_ptr(), k["bmlp"].data_ptr(),
-        ws_h.data_ptr(), ws_f.data_ptr(), ws_s.data_ptr(), ws_sm.data_ptr(),
-        dw["wq"].data_ptr(), dw["wk"].data_ptr(), dw["wv"].data_ptr(),
-        dw["wproj"].data_ptr(), dw["wmlp"].data_ptr(),
-        dvec["bproj"].data_ptr(), dvec["bmlp"].data_ptr(),
-        dvec["ln1_scale"].data_ptr(), dvec["ln1_bias"].data_ptr(),
-        dvec["ln2_scale"].data_ptr(), dvec["ln2_bias"].data_ptr(),
-        dbias.data_ptr(), dext.data_ptr(),
-        bp, m, c, h, c // h, e, pw, ops.scale, *dropout.kernel_args(),
-        ops.drop_cols, is_f32(x_win), kernels.stream_of(x_win))
-    kernels.check(err, "block_backward")
+    kernels.check(_launch(x_win, dout, dx, ops, labels, dropout, plan, ws,
+                          out), "block_backward")
     block_backward.launches += 1
-    grads = {**dw, **dvec}
-    dparams = tuple(grads[key] for key in PARAM_KEYS)
-    dext_k, dext_v = (dext[0, :e], dext[1, :e]) if e else (None, None)
+    cc = c * c
+    w = {key: out[i * cc:(i + 1) * cc].view(c, c)
+         for i, key in enumerate(("wq", "wk", "wv"))}
+    dext = out[3 * cc:3 * cc + 2 * e * c].view(2, e, c)
+    nb = _bias_stride(m + e)
+    dbias = out[3 * cc + 2 * e * c:3 * cc + 2 * e * c + h * m * nb].view(
+        h, m, nb)[:, :, :m + e]
+    rest = out[n_w:]
+    w["wproj"], w["wmlp"] = rest[:cc].view(c, c), rest[cc:2 * cc].view(c, c)
+    for i, key in enumerate(("bproj", "bmlp", "ln1_scale", "ln1_bias",
+                             "ln2_scale", "ln2_bias")):
+        w[key] = rest[2 * cc + i * c:2 * cc + (i + 1) * c]
+    dparams = tuple(w[key] for key in PARAM_KEYS)
+    dext_k, dext_v = (dext[0], dext[1]) if e else (None, None)
     return dx, (dbias, dext_k, dext_v, *dparams)
 
 

@@ -50,11 +50,12 @@ SIGNATURES = {
     # x is fp32, stream
     "mivp_fused_swin_pair": [_P] * 8 + [_I] * 11 + [_F, _F] + _SEEDS * 2
     + [_I, _I, _P],
-    # x, dout, dx, wqkv, wqkv_t, ext_kv, bias, labels, ln1_s, ln1_b, wproj,
-    # wproj_io, bproj, ln2_s, ln2_b, wmlp, wmlp_io, bmlp, 4 workspaces,
-    # 13 gradient outputs, bp, m, c, heads, dh, n_ext, p_windows, scale,
-    # dropout, x is fp32, stream
-    "mivp_fused_block_bwd": [_P] * 35 + [_I] * 7 + [_F] + _DROP + [_I, _P],
+    # x, dout, dx, operands (host pointer array, ops/fused_block_bwd.py::
+    # _OPERANDS), labels, per-window and per-CTA partials, out, info, bp,
+    # m, c, heads, dh, n_ext, p_windows, ph, pw, pd, fold, ks, hs, qs,
+    # threads, scale, pe_scale, dropout, x is fp32, stream
+    "mivp_fused_block_bwd": [_P] * 9 + [_I] * 15 + [_F, _F] + _DROP
+    + [_I, _P],
     # xa, xb, w, bias, scale, shift, out, b, h, w, d, ca, cb, co, affine,
     # leaky, out is fp32, rows per warp, bn, stream
     "mivp_conv3x3": [_P] * 7 + [_I] * 12 + [_P],
@@ -163,8 +164,9 @@ INFO_KEYS = ("cluster", "ctas", "threads", "ctas_per_sm", "registers",
 
 
 def info_array():
-    """The int[7] a block or pair entry fills when asked only to size its
-    launch (``csrc/fused_block_common.cuh::launch_clustered``)."""
+    """The int[7] a block, pair or block-backward entry fills when asked
+    only to size its launch (``csrc/fused_block_common.cuh::
+    launch_clustered``)."""
     return (ctypes.c_int * len(INFO_KEYS))()
 
 

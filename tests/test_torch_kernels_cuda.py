@@ -11,7 +11,8 @@ states: kernel and plain version both use bf16 operands and fp32 sums,
 and a sum in another order flips at most a few bf16 roundings.  The
 backward kernel's gradients are held to ``GRAD_TOL`` of each gradient's
 largest magnitude: it rounds P, dS and the row gradients to bf16 where
-the plain version (autograd of ``block_reference``) keeps fp32.  The
+the plain version (autograd of ``block_reference``) keeps fp32; it sums
+in a fixed order, so two runs give the same bits.  The
 block pair kernel (B5) is also held bit for bit to B1, the pair's row
 gather, B1 and the inverse gather: it runs B1's device code twice and
 rounds block 1's output to the array dtype where the two launches store
@@ -427,6 +428,145 @@ def test_block_backward_kernel_takes_fp32(dev, c, heads, m, fold_mode,
         err = (g - r).abs().max().item()
         scale = r.abs().max().item()
         assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)
+
+
+GRAD_NAMES = ["x", "bias", "ext_k", "ext_v", *fb.PARAM_KEYS]
+# The gradients B4 sums per window in one order whatever the cluster
+# size; the others (dWproj, dWmlp and the vectors) are sums of per-CTA
+# partials over each CTA's rows, so another cluster size rounds them
+# differently (fp32, relative ~1e-6).
+PER_WINDOW_GRADS = ("x", "bias", "ext_k", "ext_v", "wq", "wk", "wv")
+
+
+def _flat_grads(dx, grads):
+    return dict(zip(GRAD_NAMES, (dx, *grads)))
+
+
+def _assert_grads_close(got, ref):
+    for name in GRAD_NAMES:
+        g, r = got[name], ref[name]
+        if r is None:
+            assert g is None, name
+            continue
+        g, r = g.float(), r.float()
+        assert torch.isfinite(g).all(), name
+        err = (g - r).abs().max().item()
+        scale = r.abs().max().item()
+        assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)
+
+
+# B4 at the flagship training calls (batch 2): 64x64x4 (M 256, N 320),
+# enc2 (16 heads) and dec0 (head dim 48), both pad-folded (M 128, N 193).
+B4_FLAGSHIP = [(48, 4, (64, 64, 4)), (192, 16, (16, 16, 2)),
+               (192, 4, (16, 16, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", B4_FLAGSHIP)
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_block_backward_flagship_geometries(dev, c, heads, dims, shift,
+                                            dtype, dropout):
+    """B4 on the flagship's training calls against the autograd of the
+    plain block, each gradient within GRAD_TOL of its largest
+    magnitude; 8-window calls run on 64 CTAs or more."""
+    x, ops, labels = _flagship_block(dev, c, heads, dims, shift, 2, dtype)
+    drop = DROP if dropout else fb.NO_DROPOUT
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        11)).to(dev, dtype)
+    ref = _flat_grads(*fbb.block_backward_reference(x, dout, ops, labels,
+                                                    drop))
+    dx, grads = fbb.block_backward(x, dout, ops, labels, drop)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype
+    _assert_grads_close(_flat_grads(dx, grads), ref)
+    info = fbb.launch_info(x, ops, labels, drop)
+    assert info["ctas"] >= 64 and info["smem"] <= 227 * 1024, info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", FLAGSHIP_BLOCKS[:5])
+def test_block_backward_launch_plan(dev, c, heads, dims):
+    """launch_info reports the plan backward_plan computes from the
+    shapes, and the kernel's shared-memory layout is the one
+    backward_smem mirrors."""
+    x, ops, labels = _flagship_block(dev, c, heads, dims, (4, 4, 2), 2,
+                                     torch.bfloat16)
+    b, pw, m, _ = x.shape
+    plan = fbb.backward_plan(
+        b * pw, m, m + ops.n_ext, c, heads, ops.kernel["pe_tab"].shape[1],
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    info = fbb.launch_info(x, ops, labels, DROP)
+    assert (info["cluster"], info["ctas"], info["threads"], info["smem"]) \
+        == (plan.ks, b * pw * plan.ks, plan.threads, plan.smem), info
+    assert info["ctas_per_sm"] >= 1, info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", B4_FLAGSHIP)
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("threads", [256, 512])
+def test_block_backward_each_cluster_size(dev, c, heads, dims, shift,
+                                          threads):
+    """B4 at every cluster size that fits, forced, at one thread count
+    (the two counts are two compiled instances): each within GRAD_TOL of
+    the plain version; the gradients summed per window bit for bit the
+    same at every size, the per-CTA sums within fp32 rounding of each
+    other."""
+    x, ops, labels = _flagship_block(dev, c, heads, dims, shift, 2,
+                                     torch.bfloat16)
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        12)).to(dev, torch.bfloat16)
+    ref = _flat_grads(*fbb.block_backward_reference(x, dout, ops, labels,
+                                                    DROP))
+    b, pw, m, _ = x.shape
+    base, sizes = None, []
+    for ks in (1, 2, 4, 8):
+        try:
+            fbb.backward_plan(b * pw, m, m + ops.n_ext, c, heads,
+                              ops.kernel["pe_tab"].shape[1], cluster=ks)
+        except ValueError:
+            continue
+        sizes.append(ks)
+        info = fbb.launch_info(x, ops, labels, DROP, cluster=ks,
+                               threads=threads)
+        assert (info["cluster"], info["threads"]) == (ks, threads), info
+        got = _flat_grads(*fbb.block_backward(x, dout, ops, labels, DROP,
+                                              cluster=ks, threads=threads))
+        torch.cuda.synchronize()
+        _assert_grads_close(got, ref)
+        if base is None:
+            base = got
+            continue
+        for name in GRAD_NAMES:
+            if base[name] is None:
+                continue
+            if name in PER_WINDOW_GRADS:
+                assert torch.equal(got[name], base[name]), (ks, name)
+            else:
+                err = (got[name] - base[name]).abs().max().item()
+                assert err <= 1e-5 * base[name].abs().max().item(), \
+                    (ks, name, err)
+    assert len(sizes) >= 2, sizes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", B4_FLAGSHIP)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_backward_is_deterministic(dev, c, heads, dims, dtype):
+    """Two runs on the same inputs give the same bits in every output:
+    no atomics, every sum in a fixed order."""
+    x, ops, labels = _flagship_block(dev, c, heads, dims, (4, 4, 2), 2,
+                                     dtype)
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        13)).to(dev, dtype)
+    first = _flat_grads(*fbb.block_backward(x, dout, ops, labels, DROP))
+    second = _flat_grads(*fbb.block_backward(x, dout, ops, labels, DROP))
+    torch.cuda.synchronize()
+    for name in GRAD_NAMES:
+        if first[name] is not None:
+            assert torch.equal(first[name], second[name]), name
 
 
 def _attn_case(dev, b, p, m, n, c, heads, masked, seed=5):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the port's kernels between checkouts: the fused Swin block (B1),
-the window attention kernels (B6/B7/B8) or the decoder conv (B2/B3).
+the window attention kernels (B6/B7/B8), the block backward (B4) or the
+decoder conv (B2/B3).
 
 Run on a machine with one CUDA card, from the repository root::
 
@@ -8,6 +9,9 @@ Run on a machine with one CUDA card, from the repository root::
     python3 tools/torch_ab_b1.py --kernel b2 [--sweep] PARENT_DIR . . PARENT_DIR
     python3 tools/torch_ab_b1.py --kernel b6 [--quick] PARENT_DIR . . PARENT_DIR
     python3 tools/torch_ab_b1.py --probe . [PROBE_INDEX ...]
+    python3 tools/torch_ab_b1.py --kernel b4 [--quick] [--sweep] \
+        PARENT_DIR . . PARENT_DIR
+    python3 tools/torch_ab_b1.py --kernel b4 --probe . [PROBE_INDEX ...]
 
 Each argument is the root of a checkout holding the PyTorch port; each
 runs in its own process, in the order given (alternate them: A B B A).
@@ -33,6 +37,21 @@ CUDA events on the same seeded inputs.
 * ``--kernel b6``: B6 (C <= 128) or B8 (C 192) and B7 on pre-projected
   q/k/v at the same 12 geometries through the unfused block (27 windows),
   outputs compared bit for bit with the first run's as for B1.
+* ``--kernel b4``: B4 (the block backward) at the 12 calls of one
+  training step (the 6 flagship geometries, no-shift and shift, batch 2,
+  dropout 0.1/0.1, 64 prompt tokens): ms per call and the sum per step,
+  each gradient's error against ``block_backward_reference`` (relative
+  to its largest magnitude; the bound is 2^-5), whether each run's
+  outputs are bit-identical to its own second run and to run 0's, and
+  each launch's shape (``fused_block_bwd.launch_info``; for a checkout
+  without it, the one-CTA-per-window shape from its ``BSmem`` layout).
+  ``ptxas -v`` of ``fused_block_bwd.cu`` unless ``--quick``.  Times are
+  CUDA events around 10 calls (host work included) and, per kernel the
+  call launches, device time from ``torch.profiler`` over 5 calls.
+  ``--sweep`` also times every cluster size and thread count that fits
+  (``block_backward(..., cluster, threads)``, device ms).  ``--kernel b4
+  --probe ROOT [I ...]`` times B4 built with the parts of ``B4_PROBES``
+  compiled out (``MIVP_B4_SKIP``).
 * ``--kernel b2``: B2 at the 3 flagship decoder convs and B3 at 48->48 on
   64x64x4 with and without its BN + LeakyReLU prologue (27 windows), each
   held to its plain version (the kernels of two checkouts sum in other
@@ -209,6 +228,148 @@ print(json.dumps({"build_s": 0.0, "ms": times,
                   "info": {k: "" for k in times}}))
 '''
 
+CHILD_B4 = r'''
+import json, sys, time
+sys.path.insert(0, ".")
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
+    SwinTransformerBlock
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import kernels
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
+    fused_block_bwd as fbb
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops.fused_block \
+    import Dropout
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
+    init_weights
+torch.backends.cuda.matmul.allow_tf32 = False
+GEOMETRIES = (("enc0", 48, 4, (64, 64, 4)), ("enc1", 96, 8, (32, 32, 2)),
+              ("enc2", 192, 16, (16, 16, 2)), ("dec0", 192, 4, (16, 16, 2)),
+              ("dec1", 96, 4, (32, 32, 2)), ("dec2", 48, 4, (64, 64, 4)))
+NAMES = ("x", "bias", "ext_k", "ext_v", "ln1_scale", "ln1_bias", "wq", "wk",
+         "wv", "wproj", "bproj", "ln2_scale", "ln2_bias", "wmlp", "bmlp")
+
+
+def parent_info(x_win, ops):
+    # The one-CTA-per-window B4 (checkouts without launch_info): its
+    # BSmem layout at MP = M rounded up to 32 threads.
+    a16 = lambda v: (v + 15) // 16 * 16  # noqa: E731
+    b, pw, m, c = x_win.shape
+    n, dh = m + ops.n_ext, c // ops.num_heads
+    mp, dhk, npad = (m + 31) // 32 * 32, a16(dh), a16(n)
+    nk = max(npad, mp)
+    qs, ds = dhk + 8, dhk + 4
+    k = a16(mp * qs * 2)
+    v = a16(k + nk * qs * 2)
+    do = a16(v + nk * qs * 2)
+    dq = a16(do + mp * qs * 2)
+    dk = a16(dq + mp * qs * 2)
+    dv = a16(dk + nk * ds * 4)
+    lab = a16(dv + nk * ds * 4)
+    scr = a16(lab + npad * 4)
+    total = a16(scr + (mp // 32) * 2 * 16 * 72 * 2)
+    return {"cluster": 1, "ctas": b * pw, "threads": mp, "smem": total}
+
+
+def device_ms(run, calls=5):
+    """Device time per call of each kernel ``run`` launches
+    (torch.profiler): the host's share of the event time is not in it."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    kernel_us = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and \
+                "bwd" in evt.name:
+            key = "reduce" if "reduce" in evt.name else "main"
+            kernel_us[key] = kernel_us.get(key, 0.0) + \
+                evt.time_range.elapsed_us()
+    return {k: v / (1e3 * calls) for k, v in kernel_us.items()}
+
+
+probe_lib = sys.argv[2] if len(sys.argv) > 2 and sys.argv[2] != "-" else None
+sweep = len(sys.argv) > 3 and sys.argv[3] == "1"
+if probe_lib:
+    import ctypes
+    probe = ctypes.CDLL(probe_lib)
+    for name in ("mivp_fused_block_bwd",):
+        fn = getattr(probe, name)
+        fn.argtypes = kernels.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    probe.mivp_error_string.argtypes = [ctypes.c_int]
+    probe.mivp_error_string.restype = ctypes.c_char_p
+    kernels._lib = probe
+t0 = time.perf_counter()
+kernels.library()
+build_s = time.perf_counter() - t0
+g = torch.Generator().manual_seed(0)
+outs, times, info, errs, same, device, swept = {}, {}, {}, {}, {}, {}, {}
+for i, (name, c, heads, dims) in enumerate(GEOMETRIES):
+    for j, shift in enumerate(((0, 0, 0), (4, 4, 2))):
+        blk = SwinTransformerBlock(c, (8, 8, 4), 64, heads, 1, 64,
+                                   shift_size=shift, pad_mode="aligned",
+                                   dtype=torch.bfloat16, attn_drop=0.1,
+                                   proj_drop=0.1)
+        blk = init_weights(blk, g).cuda()
+        x = torch.randn((2, *dims, c), generator=g).to("cuda", torch.bfloat16)
+        tok = (0.5 * torch.randn((64, c), generator=g)).cuda()
+        drop = Dropout((1000 + 2 * (2 * i + j), 1001 + 2 * (2 * i + j)),
+                       0.1, 0.1)
+        with torch.no_grad():
+            x_win, ops, labels, _ = blk.windows(x, tok)
+        dout = torch.randn(x_win.shape, generator=g).to("cuda", torch.bfloat16)
+        tag = f"{name} {'shift' if any(shift) else 'noshift'}"
+        run = lambda: fbb.block_backward(x_win, dout, ops, labels, drop)  # noqa
+        got = run()
+        again = run()
+        torch.cuda.synchronize()
+        flat = [t for t in (got[0], *got[1]) if t is not None]
+        flat2 = [t for t in (again[0], *again[1]) if t is not None]
+        same[tag] = all(torch.equal(a, b) for a, b in zip(flat, flat2))
+        outs[tag] = np.concatenate([t.float().flatten().cpu().numpy()
+                                    for t in flat])
+        if not probe_lib:
+            ref = fbb.block_backward_reference(x_win, dout, ops, labels, drop)
+            errs[tag] = {}
+            for gname, gt, rt in zip(NAMES, (got[0], *got[1]),
+                                     (ref[0], *ref[1])):
+                if rt is None:
+                    continue
+                gt, rt = gt.float(), rt.float()
+                errs[tag][gname] = ((gt - rt).abs().max().item()
+                                    / max(rt.abs().max().item(), 1e-6))
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        times[tag] = start.elapsed_time(end) / 10
+        device[tag] = device_ms(run)
+        # Every cluster size and thread count that fits, forced.
+        for ks in (1, 2, 4, 8) if sweep else ():
+            for t in (256, 512):
+                try:
+                    fbb.launch_info(x_win, ops, labels, drop, ks, t)
+                except (ValueError, RuntimeError):
+                    continue
+                swept.setdefault(tag, {})[f"{ks}x{t}"] = sum(device_ms(
+                    lambda: fbb.block_backward(x_win, dout, ops, labels,
+                                               drop, ks, t)).values())
+        info[tag] = fbb.launch_info(x_win, ops, labels, drop) \
+            if hasattr(fbb, "launch_info") else parent_info(x_win, ops)
+np.savez(sys.argv[1], **outs)
+print(json.dumps({"build_s": build_s, "ms": times, "info": info,
+                  "errs": errs, "repeat_identical": same,
+                  "device_ms": device, "sweep": swept}))
+'''
+
+
 CHILD_B2 = r'''
 import json, sys, time
 sys.path.insert(0, ".")
@@ -376,6 +537,116 @@ PROBES = (("as built", {}),
             for ks in (1, 2, 4, 8)))
 
 
+# B4 design probes (fused_block_bwd.cu, MIVP_B4_SKIP): parts compiled
+# out.  The bits name the same parts in the one-CTA form and the cluster
+# form: 1 the bias gradient's cross-window sum, 2 the weight-gradient
+# products, 4 the row-reducing attention products (dV, dK), 8 the
+# recompute (phases A and B); the cluster form only: 16 the reduction
+# kernel, 32 LN1, 64 the row phase, 128 the query-major pass, 256 phase F.
+B4_PROBES = (("as built", {}),
+             ("no dbias sum", {"MIVP_B4_SKIP": 1}),
+             ("no weight-gradient products", {"MIVP_B4_SKIP": 2}),
+             ("no dV/dK products", {"MIVP_B4_SKIP": 4}),
+             ("no recompute", {"MIVP_B4_SKIP": 8}),
+             ("no reduction kernel", {"MIVP_B4_SKIP": 16}),
+             ("no LN1", {"MIVP_B4_SKIP": 32}),
+             ("no row phase", {"MIVP_B4_SKIP": 64}),
+             ("no query-major pass (dQ, dS)", {"MIVP_B4_SKIP": 128}),
+             ("no phase F (dY, LN1 backward)", {"MIVP_B4_SKIP": 256}))
+
+
+def main_probe_b4(root: Path, only=None) -> int:
+    """Time B4 at the 12 training calls with each probe of B4_PROBES
+    compiled in (outputs are garbage and not compared)."""
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-Xcompiler", "-fPIC"]
+    csrc = root / PKG / "csrc"
+    with tempfile.TemporaryDirectory() as tmp:
+        chosen = [(i, B4_PROBES[i]) for i in (only or range(len(B4_PROBES)))]
+        procs = [subprocess.Popen(
+            [NVCC, *arch, "-c", str(csrc / unit), "-o", f"{tmp}/{unit}.o"],
+            stderr=subprocess.PIPE, text=True)
+            for unit in ("fused_block.cu", "fused_block_f32.cu")]
+        units = [u for u in ("fused_block_bwd.cu", "fused_block_bwd_512.cu")
+                 if (csrc / u).exists()]
+        for i, (_, defs) in chosen:
+            flags = [f"-D{k}={v}" for k, v in defs.items()]
+            for unit in units:
+                procs.append(subprocess.Popen(
+                    [NVCC, *arch, *flags, "-c", str(csrc / unit), "-o",
+                     f"{tmp}/p{i}_{unit}.o"], stderr=subprocess.PIPE,
+                    text=True))
+        for proc in procs:
+            if proc.wait():
+                print(proc.stderr.read(), file=sys.stderr)
+                return 1
+        for i, (name, _) in chosen:
+            lib = f"{tmp}/p{i}.so"
+            subprocess.run([NVCC, *arch[:2], "-shared", "-o", lib,
+                            *(f"{tmp}/p{i}_{u}.o" for u in units),
+                            f"{tmp}/fused_block.cu.o",
+                            f"{tmp}/fused_block_f32.cu.o"], check=True)
+            out = subprocess.run([sys.executable, "-c", CHILD_B4,
+                                  f"{tmp}/p{i}.npz", lib], cwd=root,
+                                 capture_output=True, text=True)
+            if out.returncode:
+                print(out.stderr, file=sys.stderr)
+                return 1
+            res = json.loads(out.stdout.strip().splitlines()[-1])
+            dev = {k: sum(v.values()) for k, v in res["device_ms"].items()}
+            print(f"probe {name}: B4 sum {sum(res['ms'].values()):.4f} ms "
+                  f"per training step (device {sum(dev.values()):.4f})")
+            for k, v in res["ms"].items():
+                print(f"  {k}: {v:.4f} ms, device {res['device_ms'][k]}")
+    return 0
+
+
+def main_b4(roots, sweep: bool) -> int:
+    """B4 in each checkout: ms per call and per step, each gradient's
+    error against the plain version, bit identity between runs; with
+    ``sweep``, device ms at every cluster size and thread count."""
+    import numpy as np
+    first = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, root in enumerate(roots):
+            dump = f"{tmp}/run{i}.npz"
+            out = subprocess.run([sys.executable, "-c", CHILD_B4, dump, "-",
+                                  str(int(sweep))],
+                                 cwd=root, capture_output=True, text=True)
+            if out.returncode:
+                print(out.stderr, file=sys.stderr)
+                return 1
+            res = json.loads(out.stdout.strip().splitlines()[-1])
+            outs = dict(np.load(dump))
+            if first is None:
+                first = outs
+            differ = sum(int((outs[k] != first[k]).sum()) for k in first)
+            total = sum(v.size for v in first.values())
+            worst = max(max(e.values()) for e in res["errs"].values())
+            dev = {k: sum(v.values()) for k, v in res["device_ms"].items()}
+            print(f"run {i}: {root}: build {res['build_s']:.1f} s, B4 sum "
+                  f"{sum(res['ms'].values()):.4f} ms per training step "
+                  f"(device {sum(dev.values()):.4f}); "
+                  f"largest gradient error {worst:.4g} of its max (bound "
+                  f"{2.0 ** -5:.4g}); {differ} of {total} output elements "
+                  "differ from run 0")
+            for k, v in res["ms"].items():
+                e = res["errs"][k]
+                print(f"  {k}: {v:.4f} ms, device {res['device_ms'][k]}; "
+                      f"repeat bit-identical {res['repeat_identical'][k]}; "
+                      f"{res['info'][k]}")
+                print("    errors " + ", ".join(
+                    f"{n} {x:.3g}" for n, x in e.items()))
+                if k in res.get("sweep", {}):
+                    print("    device ms by CTAs per window x threads: "
+                          + ", ".join(f"{c} {v:.4f}" for c, v in
+                                      res["sweep"][k].items()))
+                if max(e.values()) > 2.0 ** -5:
+                    print(f"  {k}: a gradient error above 2^-5")
+                    return 1
+    return 0
+
+
 def main_probe(root: Path, only=None) -> int:
     """Time B1 at the 12 serving geometries with each probe of PROBES
     compiled in (outputs are garbage and not compared): where the time
@@ -416,6 +687,12 @@ def main_probe(root: Path, only=None) -> int:
     return 0
 
 
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def main(argv) -> int:
     import numpy as np
     kernel, sweep, quick = "b1", False, False
@@ -427,19 +704,19 @@ def main(argv) -> int:
         elif argv[0] == "--quick":
             quick, argv = True, argv[1:]
         elif argv[0] == "--probe":
-            return main_probe(Path(argv[1]).resolve(),
-                              [int(a) for a in argv[2:]])
+            print(f"card: {card_line()}")
+            probe = main_probe_b4 if kernel == "b4" else main_probe
+            return probe(Path(argv[1]).resolve(), [int(a) for a in argv[2:]])
         else:
             break
     roots = [Path(a).resolve() for a in argv]
-    if not roots or kernel not in ("b1", "b2", "b6"):
+    if not roots or kernel not in ("b1", "b2", "b4", "b6"):
         print(__doc__, file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(f"card: {card}")
-    names = ("conv3x3_pair.cu",) if kernel == "b2" else (
+    print(f"card: {card_line()}")
+    b4_units = ("fused_block_bwd.cu", "fused_block_bwd_512.cu")
+    names = ("conv3x3_pair.cu",) if kernel == "b2" else \
+        b4_units if kernel == "b4" else (
         "window_attention.cu",) if kernel == "b6" else (
         "fused_block.cu", "fused_block_f32.cu", "window_attention.cu",
         "fused_pair.cu", "fused_pair_drop.cu", "fused_pair_f32.cu",
@@ -449,6 +726,8 @@ def main(argv) -> int:
         ptxas(root, names)
     if kernel == "b2":
         return main_b2(roots, sweep)
+    if kernel == "b4":
+        return main_b4(roots, sweep)
     first = None
     with tempfile.TemporaryDirectory() as tmp:
         for i, root in enumerate(roots):
