@@ -18,11 +18,13 @@ the port's paths:
 * unfused serving (``SwinUnetR.set_fused_block(False)``, the
   ``MIVP_NO_FUSED_BLOCK=1`` path): the window-attention kernels B6
   (projections in the kernel), B7 and B8 against their plain versions at
-  every geometry of that path, shifted and unshifted, timed beside one
-  ``scaled_dot_product_attention`` call where it computes the same
-  function; the same flagship model through the unfused blocks (kernels
-  vs plain, and vs the fused path), and the same volume served through
-  it;
+  every geometry of that path, shifted and unshifted, called as the
+  unfused blocks call them (the bias built from its factor tables, B6's
+  prompt rows projected once per call), each with its launch shape and
+  timed beside one ``scaled_dot_product_attention`` call where it
+  computes the same function; the same flagship model through the
+  unfused blocks (kernels vs plain, and vs the fused path; every B6/B8
+  launch in the factor form), and the same volume served through it;
 * training: B1 with counter-hash dropout and B4 (the block backward)
   against their plain versions at the six flagship block geometries at
   batch 2, then ``train.SegmentationTrainer.train()`` on a seeded
@@ -202,16 +204,22 @@ def block_bwd_work(x_win, ops, labels):
     return 3 * fwd_flops, nbytes
 
 
-def attention_work(bp, m, n, c, heads, labels, proj: bool):
-    """(flops, bytes) of one B6 (``proj``) or B7/B8 call: the two
-    attention products per head, plus B6's q/k/v projections; bf16 y (B6)
-    or q/k/v in, the bf16 weights (B6), the fp32 bias, int32 labels, the
-    bf16 output."""
-    flops = 4 * bp * m * n * c + (2 * bp * (m + 2 * n) * c * c if proj
+def attention_work(bp, m, n, c, heads, labels, proj: bool, factors=None):
+    """(flops, bytes) of one B6 (``proj``) or B7/B8 call as the unfused
+    block makes it: the two attention products per head, plus B6's q/k/v
+    projections (the prompt rows' K/V once per call: they are the same in
+    every window); bf16 y (B6: each window's content rows, the prompt rows
+    once) or q/k/v in, the bf16 weights (B6), the bias (its factor tables,
+    fp32 and int32, where ``factors`` are given, else the fp32 [H, M, N]
+    array), int32 labels, the bf16 output."""
+    e = n - m
+    flops = 4 * bp * m * n * c + (2 * (bp * 3 * m + 2 * e) * c * c if proj
                                   else 0)
-    ins = bp * n * c * 2 + 3 * c * c * 2 if proj else \
+    ins = (bp * m + e) * c * 2 + 3 * c * c * 2 if proj else \
         bp * (m + 2 * n) * c * 2
-    nbytes = (ins + heads * m * n * 4 + bp * m * c * 2
+    bias = heads * m * n * 4 if factors is None else \
+        factors.tab.numel() * 4 + factors.coord.numel() * 4
+    nbytes = (ins + bias + bp * m * c * 2
               + (0 if labels is None else labels.numel() * 4))
     return flops, nbytes
 
@@ -406,11 +414,14 @@ def phase_conv_one_input(g, failures):
 def phase_attention(gen_seed: int = SEED + 7):
     """B6, B7 and B8 at the 12 block calls of an unfused flagship forward
     (27 windows), each held to its plain version.  B6 and B8 run as the
-    unfused blocks call them; B7 runs at B6's geometries on q/k/v that the
-    plain linear layers projected.  Unshifted B7/B8 calls are also timed
-    as one ``scaled_dot_product_attention`` call (the same function with
-    an additive bias; the shifted calls' multiplicative mask has no such
-    call, nor does B6's in-kernel projection)."""
+    unfused blocks call them (the bias as its factor tables; B6 on the
+    content rows and the prompt rows that every window shares, given apart,
+    their K/V projected once per call); B7 runs at B6's geometries on q/k/v
+    that the plain linear layers projected.  Each call prints its launch
+    shape.  Unshifted B7/B8 calls are also timed as one
+    ``scaled_dot_product_attention`` call (the same function with an
+    additive bias; the shifted calls' multiplicative mask has no such call,
+    nor does B6's in-kernel projection)."""
     import torch
     import torch.nn.functional as F
     from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
@@ -425,7 +436,7 @@ def phase_attention(gen_seed: int = SEED + 7):
            for k in ("B6", "B7", "B8")}
     g = torch.Generator().manual_seed(gen_seed)
 
-    def run(key, tag, kernel, plain, work, library=None):
+    def run(key, tag, kernel, plain, work, shape, library=None):
         r = res[key]
         ref = plain()
         out = kernel()
@@ -437,6 +448,7 @@ def phase_attention(gen_seed: int = SEED + 7):
         r["bound"].add(*work)
         one = Bound()
         one.add(*work)
+        print(f"    launch: {shape}")
         line = (f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
                 f"{one.ms:.4f} ms ({one.by})")
         if library is not None:
@@ -458,7 +470,8 @@ def phase_attention(gen_seed: int = SEED + 7):
             at = blk.attn
             scale = (c // heads) ** -0.5
             with torch.inference_mode():
-                x_win, bias, labels, _ = blk.windows(x, tok)
+                x_win, ops, labels, _ = blk.windows(x, tok)
+                bias, tables = ops.bias, ops.factors
                 y = blk.attn_input(x_win, tok)
                 b, pw, n = y.shape[:3]
                 m = x_win.shape[2]
@@ -476,33 +489,44 @@ def phase_attention(gen_seed: int = SEED + 7):
                     bias16 = bias.to(torch.bfloat16)[None]
                     lib = lambda: F.scaled_dot_product_attention(  # noqa
                         qs, ks, vs, attn_mask=bias16, scale=scale)
+                attend_shape = wa.launch_info(bp, m, n, c, heads, False,
+                                              factors=tables)
                 if c <= 128:
                     ws = tuple(lin.weight.t() for lin in
                                (at.to_q, at.to_k, at.to_v))
                     wqkv = at.kernel_weight()
+                    yc = y[:, :, :m].contiguous()
+                    yp = y[0, 0, m:].contiguous()
                     run("B6", tag,
-                        lambda: wa.fused_window_attention_packed_qkv(
-                            y, *ws, m, bias, labels, scale, heads,
-                            wqkv=wqkv),
+                        lambda: wa.fused_window_attention_packed_qkv_prompts(
+                            yc, yp, *ws, bias, labels, scale, heads,
+                            wqkv=wqkv, factors=tables),
                         lambda: wa.fused_window_attention_packed_qkv_reference(
                             y, *ws, m, bias, labels, scale, heads),
-                        attention_work(bp, m, n, c, heads, labels, True))
+                        attention_work(bp, m, n, c, heads, labels, True,
+                                       tables),
+                        wa.launch_info(bp, m, n, c, heads, True,
+                                       factors=tables, hoisted=True))
                     run("B7", tag,
                         lambda: wa.fused_window_attention_packed(
-                            q, k, v, bias, labels, scale, heads),
+                            q, k, v, bias, labels, scale, heads,
+                            factors=tables),
                         lambda: wa.fused_window_attention_packed_reference(
                             q, k, v, bias, labels, scale, heads),
-                        attention_work(bp, m, n, c, heads, labels, False),
-                        lib)
+                        attention_work(bp, m, n, c, heads, labels, False,
+                                       tables),
+                        attend_shape, lib)
                 else:
                     hs = lambda t: t.view(b, pw, t.shape[2], heads, -1)  # noqa
                     run("B8", tag,
                         lambda: wa.fused_window_attention(
-                            hs(q), hs(k), hs(v), bias, labels, scale),
+                            hs(q), hs(k), hs(v), bias, labels, scale,
+                            factors=tables),
                         lambda: wa.fused_window_attention_reference(
                             hs(q), hs(k), hs(v), bias, labels, scale),
-                        attention_work(bp, m, n, c, heads, labels, False),
-                        lib)
+                        attention_work(bp, m, n, c, heads, labels, False,
+                                       tables),
+                        attend_shape, lib)
     if failures:
         raise RuntimeError("phase B6-B8 failed: " + "; ".join(failures))
     for key, r in res.items():
@@ -740,10 +764,22 @@ def expect(per_step: dict, times: int = 1) -> dict:
 def reset_counters():
     for fn in counters().values():
         fn.launches = 0
+        if hasattr(fn, "factor_launches"):
+            fn.factor_launches = 0
 
 
 def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
+
+
+def check_factor_form(launches: dict, failures: list) -> None:
+    """Every B6/B7/B8 launch since the counters were reset built the bias
+    from its factors (the unfused blocks pass them)."""
+    for key, fn in counters().items():
+        if hasattr(fn, "factor_launches") and \
+                fn.factor_launches != launches[key]:
+            failures.append(f"{key}: {fn.factor_launches} of "
+                            f"{launches[key]} launches in the factor form")
 
 
 def flagship_model():
@@ -829,12 +865,13 @@ def phase_model(model, per_forward: dict, mode: str = "fused",
         y = model(x)
         torch.cuda.synchronize()
         got = read_counters()
+        failures = []
+        check_factor_form(got, failures)
         fwd_ms = cuda_ms(lambda: model(x), 5)
         y_fused = None if mode == "fused" else set_mode(model, "fused")(x)
         set_mode(model, mode)
     print(f"  launches per forward: {got}; forward {fwd_ms:.4f} ms "
           "(CUDA events)")
-    failures = []
     if got != expect(per_forward):
         failures.append(f"expected launches {expect(per_forward)}, got {got}")
     if tuple(y.shape) != (BATCH, 128, 128, 8, 2) or \
@@ -905,6 +942,8 @@ def phase_serve(model, card: str, per_volume: dict, mode: str = "fused",
         done = serve_volumes(conf, None, pairs, runner=runner)
         dt = time.perf_counter() - t0
         launches = read_counters()
+        failures = []
+        check_factor_form(launches, failures)
         if done != (SERVE_REPEATS, 0):
             raise RuntimeError(f"phase serve failed: served {done}")
         plain = load_nifti(str(plain_dst))[0]
@@ -926,7 +965,6 @@ def phase_serve(model, card: str, per_volume: dict, mode: str = "fused",
     print(f"  label agreement vs plain path: {agree:.6f} "
           f"(min {SERVE_MIN_LABEL_AGREEMENT}); foreground share "
           f"{float((plain > 0).mean()):.4f}")
-    failures = []
     want = expect(per_volume, SERVE_REPEATS)
     if launches != want:
         failures.append(f"launches {launches}, expected {want}")

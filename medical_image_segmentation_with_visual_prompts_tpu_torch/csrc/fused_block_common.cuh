@@ -4,9 +4,9 @@
 // (window_attention.cu): bf16 packing, the m16n8k16 tensor-core product
 // and the warp GEMMs built on it, the shared-memory row padding, the
 // counter-based dropout hash (the murmur3 finalizer of ops/prng.py, bit
-// for bit), one head's attention of a 16-row tile (label-equality mask,
-// online fp32 softmax; the bias read from device memory or built from its
-// factors), and one whole Swin block on one window, split over a thread
+// for bit), the attention bias built from its factors, one head's
+// attention of a 16-row tile (label-equality mask, online fp32 softmax;
+// the one softmax body of every kernel here), and one whole Swin block on one window, split over a thread
 // block cluster (swin_block_window: B1's body, run once by B1 and twice
 // by B5), with the host code that sizes and launches the cluster.
 
@@ -229,24 +229,6 @@ struct AttnDrop {
   int m, gap;
 };
 
-// The additive attention bias of one head as [m, n] fp32 rows in device
-// memory (B6/B7/B8): bias[i, j] = rows[i * n + j].
-struct GlobalBias {
-  const float* rows;
-  int n;
-  typedef const float* Row;
-  __device__ __forceinline__ Row row(int i) const {
-    return rows + (size_t)i * n;
-  }
-  __device__ __forceinline__ int col(int) const { return 0; }
-  // bias[i, j] and bias[i, j + 1] (j even) where they are keys (< n).
-  __device__ __forceinline__ void pair(Row r, int, int j, float& b0,
-                                       float& b1) const {
-    b0 = j < n ? __ldg(r + j) : 0.f;
-    b1 = j + 1 < n ? __ldg(r + j + 1) : 0.f;
-  }
-};
-
 // Design probes (tools/torch_ab_b1.py --probe): a nonzero MIVP_B1_SKIP
 // compiles parts of the block body out (1: attention, 2: q|k|v, 4: the
 // row phase's products, 8: LN1, 16: the bias build, 64: P.V) and a
@@ -258,6 +240,11 @@ struct GlobalBias {
 #endif
 #ifndef MIVP_B1_KS
 #define MIVP_B1_KS 0
+#endif
+// window_attention.cu's probes (MIVP_B6_SKIP); 16 compiles out P.V in
+// attend_tile.
+#ifndef MIVP_B6_SKIP
+#define MIVP_B6_SKIP 0
 #endif
 
 constexpr float kThird = 1.0f / 3.0f;
@@ -295,6 +282,7 @@ struct FactoredBias {
     return {(ci & 255) * ph, oc + ((ci >> 8) & 255) * pw,
             od + ((ci >> 16) & 255) * pd, fold ? tab[of + i] : 0.f};
   }
+  __device__ __forceinline__ Row row(int i, int) const { return row(i); }
   __device__ __forceinline__ int col(int j) const {
     return j < m ? coord[j] : 0;
   }
@@ -311,7 +299,9 @@ struct FactoredBias {
     return (fold && j == m) ? r.f : tab[oe + j - m];
   }
   // bias[i, j] and bias[i, j + 1] for j even, cj = col(j); values past
-  // the keys are garbage (reads stay inside the CTA's tables).
+  // the keys are garbage (reads stay inside the CTA's tables).  Every
+  // kind of key takes this code (KIND: attend_tile's, unused).
+  template <int KIND = 0>
   __device__ __forceinline__ void pair(const Row& r, int cj, int j,
                                        float& b0, float& b1) const {
     if (MIVP_B1_SKIP & 16) {
@@ -330,114 +320,159 @@ struct FactoredBias {
 };
 
 // Attention of one head for the 16 query rows t0..t0+15 of a warp, on
-// tensor cores.  Each lane quad holds rows a = t0 + g and b = t0 + g + 8:
+// tensor cores: the one softmax body of the block kernels (B1, B5, B4's
+// recompute, through attend_rows) and the window-attention kernels
+// (B6/B7/B8).  Each lane quad holds rows a = t0 + g and b = t0 + g + 8:
 //
 //   s = (q.k * scale + bias[i, j]) * (lab_i == lab_j || lab_j < 0)
-//   o = softmax(s) v        fp32, max-subtracted, online over 64-key
-//                           chunks; P fed to P.V as bf16
+//   o = softmax(s) v        fp32, max-subtracted, online over KC-key
+//                           steps; P fed to P.V as bf16
 //
-// Shared memory: Q rows (stride qs) and K rows [npad][qs] of DHK bf16
-// (the head dim zero-padded to the k-step), V^T [DHK][vs]; key rows n..npad
-// of K and V^T are zero.  bias: a GlobalBias or a FactoredBias of the
-// head; slab: the window's key labels (read only when `masked`).  On
-// return o[dt] holds the normalised output of row a (o[dt][0..1]) and row b
-// (o[dt][2..3]) at head columns dt * 8 + 2 * (lane % 4) + {0, 1}, and,
-// where `ml` is given (the block backward's recompute), ml[0] and ml[1]
-// the softmax max and (undropped) sum of rows a and b.
-template <int DHK, bool DROP, class Bias>
-__device__ __forceinline__ void attend_rows(
-    float (&o)[DHK / 8][4], const bf16* sq, const bf16* sk, int qs,
-    const bf16* svt, int vs, const int* slab, bool masked,
-    const Bias& bias, int t0, int m, int n, int npad, float scale,
-    const AttnDrop& dr, int lane, float (*ml)[2] = nullptr) {
+// qa: the tile's Q as A fragments (qa[ks]: rows a and b at columns 16 ks
+// + 2 cq + {0, 1} and + 8).  Shared memory: K rows [npad][qs] of DHK
+// bf16 (the head dim zero-padded to the k-step), V^T [DHK][vs]; key rows
+// n..npad of K and V^T are zero.  bias: the head's bias (FactoredBias, or
+// window_attention.cu's WindowBias / GlobalBias): row(i, lane), col(j)
+// and pair<KIND>(row, col(j), j, b0, b1) for j even; slab: the window's
+// key labels (read only when `masked`).
+//
+// FULL (n = npad, a multiple of KC): every key tile holds keys, so the
+// bounds checks go, and each step runs code compiled for its kind of keys
+// (pair<1> below bias.split(), pair<2> from it) and for the mask or none:
+// one block of straight-line code per step, which the compiler schedules
+// across key tiles.  Otherwise one body takes every step.  l * corr is
+// rounded on its own (__fmul_rn): the straight-line code would let the
+// compiler fuse it with the step's first add, and the two forms give the
+// same bits.  DROP: attention dropout after the softmax statistics (dr).
+//
+// On return o[dt] holds the normalised output of row a (o[dt][0..1]) and
+// row b (o[dt][2..3]) at head columns dt * 8 + 2 cq + {0, 1}, and, where
+// `ml` is given (the block backward's recompute), ml[0] and ml[1] the
+// softmax max and (undropped) sum of rows a and b.
+// A flag known at compile time (std::true_type, std::false_type) or at
+// run time (bool), as a bool in device code.
+__device__ __forceinline__ constexpr bool flag_of(std::true_type) {
+  return true;
+}
+__device__ __forceinline__ constexpr bool flag_of(std::false_type) {
+  return false;
+}
+__device__ __forceinline__ bool flag_of(bool b) { return b; }
+
+template <int DHK, int KC, bool FULL, bool DROP, class Bias>
+__device__ __forceinline__ void attend_tile(
+    float (&o)[DHK / 8][4], const uint32_t (&qa)[DHK / 16][4],
+    const bf16* sk, int qs, const bf16* svt, int vs, const int* slab,
+    bool masked, const Bias& bias, int t0, int m, int n, int npad,
+    float scale, const AttnDrop& dr, int lane, float (*ml)[2] = nullptr) {
   constexpr int KSTEPS = DHK / 16;   // k-steps of QK^T
   constexpr int DTILES = DHK / 8;    // n-tiles of P.V
   const int g = lane / 4, cq = lane % 4;
-  uint32_t qa[KSTEPS][4];
+  int lab[2];
+  typename Bias::Row brow[2];
+  float mrow[2], lrow[2];
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const bf16* q0 = sq + (t0 + g) * qs + ks * 16 + 2 * cq;
-    qa[ks][0] = lds32(q0);
-    qa[ks][1] = lds32(q0 + 8 * qs);
-    qa[ks][2] = lds32(q0 + 8);
-    qa[ks][3] = lds32(q0 + 8 * qs + 8);
+  for (int r = 0; r < 2; ++r) {
+    const int i = t0 + g + 8 * r;
+    const bool valid = i < m;
+    lab[r] = (masked && valid) ? slab[i] : 0;
+    brow[r] = bias.row(valid ? i : 0, lane);
+    mrow[r] = -INFINITY;
+    lrow[r] = 0.f;
   }
-  const int ra = t0 + g, rb = t0 + g + 8;
-  const bool va = ra < m, vb = rb < m;
-  const int lab_a = (masked && va) ? slab[ra] : 0;
-  const int lab_b = (masked && vb) ? slab[rb] : 0;
-  const typename Bias::Row bias_a = bias.row(va ? ra : 0);
-  const typename Bias::Row bias_b = bias.row(vb ? rb : 0);
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 #pragma unroll
   for (int dt = 0; dt < DTILES; ++dt)
     o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
 #pragma unroll 1
-  for (int j0 = 0; j0 < npad; j0 += kKeyChunk) {
-    const int ntiles = min(kKeyChunk, npad - j0) / 8;  // even
-    float s[kKeyChunk / 8][4];
-    float mx_a = -INFINITY, mx_b = -INFINITY;
+  for (int j0 = 0; j0 < npad; j0 += KC) {
+    const int ntiles = FULL ? KC / 8 : min(KC, npad - j0) / 8;  // even
+    float s[KC / 8][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+    // The step's scores and row maxima, for KIND (the bias's kind of
+    // keys) known at compile time and `msk` a compile-time constant
+    // (FULL) or the run-time flag.
+    auto scores = [&](auto kind, auto msk) {
+      constexpr int KIND = decltype(kind)::value;
+      const bool mask_on = flag_of(msk);
 #pragma unroll
-    for (int nt = 0; nt < kKeyChunk / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = -INFINITY;
-      if (nt < ntiles) {
-        float sc[4] = {0.f, 0.f, 0.f, 0.f};
-        const bf16* k0 = sk + (j0 + nt * 8 + g) * qs + 2 * cq;
+      for (int nt = 0; nt < KC / 8; ++nt) {
+        if (!FULL) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = -INFINITY;
+        if (FULL || nt < ntiles) {
+          float sc[4] = {0.f, 0.f, 0.f, 0.f};
+          const bf16* k0 = sk + (j0 + nt * 8 + g) * qs + 2 * cq;
 #pragma unroll
-        for (int ks = 0; ks < KSTEPS; ++ks)
-          mma16816(sc, qa[ks], lds32(k0 + ks * 16), lds32(k0 + ks * 16 + 8));
-        const int jp = j0 + nt * 8 + 2 * cq;   // keys jp, jp + 1
-        const int cj = bias.col(jp);
-        float bv[4];
-        bias.pair(bias_a, cj, jp, bv[0], bv[1]);
-        bias.pair(bias_b, cj, jp, bv[2], bv[3]);
+          for (int ks = 0; ks < KSTEPS; ++ks)
+            mma16816(sc, qa[ks], lds32(k0 + ks * 16), lds32(k0 + ks * 16 + 8));
+          const int jp = j0 + nt * 8 + 2 * cq;   // keys jp, jp + 1
+          const int cj = KIND == 2 ? 0 : bias.col(jp);
+          float bv[4];
+          bias.template pair<KIND>(brow[0], cj, jp, bv[0], bv[1]);
+          bias.template pair<KIND>(brow[1], cj, jp, bv[2], bv[3]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = jp + (e & 1);
-          if (j < n) {
-            const bool top = e < 2;
-            float v = sc[e] * scale + bv[e];
-            if (masked) {
-              const int lj = slab[j];
-              if (!(lj == (top ? lab_a : lab_b) || lj < 0)) v = 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const int j = jp + (e & 1);
+            if (FULL || j < n) {
+              float v = sc[e] * scale + bv[e];
+              if (mask_on) {
+                const int lj = slab[j];
+                if (!(lj == lab[e / 2] || lj < 0)) v = 0.f;
+              }
+              s[nt][e] = v;
             }
-            s[nt][e] = v;
           }
+          mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
         }
-        mx_a = fmaxf(mx_a, fmaxf(s[nt][0], s[nt][1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[nt][2], s[nt][3]));
+      }
+    };
+    typedef std::integral_constant<int, 0> AnyKeys;
+    if constexpr (!FULL) {
+      scores(AnyKeys{}, masked);
+    } else {
+      typedef std::integral_constant<int, 1> LowKeys;
+      typedef std::integral_constant<int, 2> HighKeys;
+      const bool low = j0 + KC <= bias.split();
+      const bool high = j0 >= bias.split();
+      if (masked) {
+        if (low) scores(LowKeys{}, std::true_type{});
+        else if (high) scores(HighKeys{}, std::true_type{});
+        else scores(AnyKeys{}, std::true_type{});
+      } else {
+        if (low) scores(LowKeys{}, std::false_type{});
+        else if (high) scores(HighKeys{}, std::false_type{});
+        else scores(AnyKeys{}, std::false_type{});
       }
     }
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-    const float new_a = fmaxf(m_a, mx_a), new_b = fmaxf(m_b, mx_b);
-    const float corr_a = __expf(m_a - new_a), corr_b = __expf(m_b - new_b);
-    m_a = new_a;
-    m_b = new_b;
-    l_a *= corr_a;
-    l_b *= corr_b;
+    float nw[2], corr[2];
 #pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      o[dt][0] *= corr_a;
-      o[dt][1] *= corr_a;
-      o[dt][2] *= corr_b;
-      o[dt][3] *= corr_b;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      nw[r] = fmaxf(mrow[r], mx[r]);
+      corr[r] = __expf(mrow[r] - nw[r]);
+      mrow[r] = nw[r];
+      lrow[r] = __fmul_rn(lrow[r], corr[r]);
     }
 #pragma unroll
-    for (int kk = 0; kk < kKeyChunk / 16; ++kk) {
-      if (2 * kk < ntiles) {
+    for (int dt = 0; dt < DTILES; ++dt) {
+      o[dt][0] *= corr[0];
+      o[dt][1] *= corr[0];
+      o[dt][2] *= corr[1];
+      o[dt][3] *= corr[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      if (FULL || 2 * kk < ntiles) {
         float p[2][4];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          p[u][0] = __expf(s[2 * kk + u][0] - new_a);
-          p[u][1] = __expf(s[2 * kk + u][1] - new_a);
-          p[u][2] = __expf(s[2 * kk + u][2] - new_b);
-          p[u][3] = __expf(s[2 * kk + u][3] - new_b);
-          l_a += p[u][0] + p[u][1];
-          l_b += p[u][2] + p[u][3];
+          p[u][0] = __expf(s[2 * kk + u][0] - nw[0]);
+          p[u][1] = __expf(s[2 * kk + u][1] - nw[0]);
+          p[u][2] = __expf(s[2 * kk + u][2] - nw[1]);
+          p[u][3] = __expf(s[2 * kk + u][3] - nw[1]);
+          lrow[0] += p[u][0] + p[u][1];
+          lrow[1] += p[u][2] + p[u][3];
         }
         if (DROP && dr.thr) {
           // Attention dropout after the softmax statistics, before the
@@ -459,41 +494,54 @@ __device__ __forceinline__ void attend_rows(
 #pragma unroll
         for (int dt = 0; dt < DTILES; ++dt) {
           const bf16* v0 = svt + (dt * 8 + g) * vs + jk;
-          if (!(MIVP_B1_SKIP & 64))
+          if (!(MIVP_B1_SKIP & 64) && !(MIVP_B6_SKIP & 16))
             mma16816(o[dt], pa, lds32(v0), lds32(v0 + 8));
         }
       }
     }
   }
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
-  if (ml != nullptr) {
-    ml[0][0] = m_a;
-    ml[0][1] = l_a;
-    ml[1][0] = m_b;
-    ml[1][1] = l_b;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
   }
+  if (ml != nullptr) {
+    ml[0][0] = mrow[0];
+    ml[0][1] = lrow[0];
+    ml[1][0] = mrow[1];
+    ml[1][1] = lrow[1];
+  }
+  const float inv[2] = {1.f / lrow[0], 1.f / lrow[1]};
 #pragma unroll
   for (int dt = 0; dt < DTILES; ++dt) {
-    o[dt][0] *= inv_a;
-    o[dt][1] *= inv_a;
-    o[dt][2] *= inv_b;
-    o[dt][3] *= inv_b;
+    o[dt][0] *= inv[0];
+    o[dt][1] *= inv[0];
+    o[dt][2] *= inv[1];
+    o[dt][3] *= inv[1];
   }
 }
 
-// attend_rows with the bias as [m, n] rows in device memory (B6/B7/B8).
-template <int DHK, bool DROP>
-__device__ __forceinline__ void attend_tile(
+// attend_tile for the block kernels: Q rows from shared memory (stride
+// qs, like K), kKeyChunk keys per step, one body for every step.
+template <int DHK, bool DROP, class Bias>
+__device__ __forceinline__ void attend_rows(
     float (&o)[DHK / 8][4], const bf16* sq, const bf16* sk, int qs,
     const bf16* svt, int vs, const int* slab, bool masked,
-    const float* bias, int t0, int m, int n, int npad, float scale,
-    const AttnDrop& dr, int lane) {
-  attend_rows<DHK, DROP>(o, sq, sk, qs, svt, vs, slab, masked,
-                         GlobalBias{bias, n}, t0, m, n, npad, scale, dr, lane);
+    const Bias& bias, int t0, int m, int n, int npad, float scale,
+    const AttnDrop& dr, int lane, float (*ml)[2] = nullptr) {
+  const int g = lane / 4, cq = lane % 4;
+  uint32_t qa[DHK / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < DHK / 16; ++ks) {
+    const bf16* q0 = sq + (t0 + g) * qs + ks * 16 + 2 * cq;
+    qa[ks][0] = lds32(q0);
+    qa[ks][1] = lds32(q0 + 8 * qs);
+    qa[ks][2] = lds32(q0 + 8);
+    qa[ks][3] = lds32(q0 + 8 * qs + 8);
+  }
+  attend_tile<DHK, kKeyChunk, false, DROP>(o, qa, sk, qs, svt, vs, slab,
+                                           masked, bias, t0, m, n, npad,
+                                           scale, dr, lane, ml);
 }
 
 // Operands of one fused-block call: B1's arguments, and each half of B5's.

@@ -60,7 +60,7 @@ rounds them in its kernels on the TPU and not on its XLA path.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,7 @@ from ..ops.fused_block import (FOLD_COUNT, FOLD_KEY, FOLD_NONE, NO_DROPOUT,
                                kernel_matmul_dtype, labels_tensor,
                                layer_norm, make_operands)
 from ..ops.fused_pair import fused_swin_pair, pair_reference
+from ..ops.window_attention import BiasTables
 from ..ops.windows import (PairPlan, compute_paddings, content_indices,
                            fold_geometry, gather_indices, get_attn_labels,
                            pair_plan, unpad_paddings)
@@ -90,6 +91,16 @@ def _pad5(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
 def _crop5(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
     return x[:, pads[0]: x.shape[1] - pads[1], pads[2]: x.shape[2] - pads[3],
              pads[4]: x.shape[3] - pads[5]]
+
+
+class UnfusedOperands(NamedTuple):
+    """What the unfused body takes besides ``x`` and the labels: the
+    ``[H, M, N]`` bias and its :class:`BiasTables`, from which the
+    attention kernel builds it (None for a window the factor form does
+    not take: the kernel reads the array)."""
+
+    bias: torch.Tensor
+    factors: Optional[BiasTables]
 
 
 class SwinTransformerBlock(nn.Module):
@@ -199,9 +210,10 @@ class SwinTransformerBlock(nn.Module):
 
     def attn_input(self, x_win: torch.Tensor,
                    tokens: Optional[torch.Tensor]) -> torch.Tensor:
-        """The unfused body's LN1 output ``[B, P, M + I, C]``: the content
-        rows, then the prompt tokens broadcast to every window (fp32
-        statistics, x's dtype)."""
+        """LN1 of the content rows, then of the prompt tokens broadcast to
+        every window: ``[B, P, M + I, C]`` (fp32 statistics, x's dtype),
+        the ``y`` that B6's JAX signature takes (the unfused body gives the
+        attention the two parts apart)."""
         b, pw, _, c = x_win.shape
         kv = x_win if tokens is None else torch.cat(
             [x_win, tokens.to(x_win.dtype).expand(b, pw, -1, c)], dim=2)
@@ -211,17 +223,27 @@ class SwinTransformerBlock(nn.Module):
         return layer_norm(x.float(), norm.weight, norm.bias).to(x.dtype)
 
     def unfused_body(self, x_win: torch.Tensor, tokens: Optional[torch.Tensor],
-                     bias: torch.Tensor, labels: Optional[torch.Tensor]
+                     ops: UnfusedOperands, labels: Optional[torch.Tensor]
                      ) -> torch.Tensor:
         """The unfused block on windows ``[B, P, M, C]``: LN1 over content
         and prompt rows, attention of the content queries, residual, LN2,
-        MLP, residual (JAX ``swin_block.py:459-471``)."""
+        MLP, residual (JAX ``swin_block.py:459-471``).  The attention
+        kernels take the bias as its factors; LN1 of the prompt tokens is
+        computed once and goes to the attention apart from the content
+        rows (every window shares it)."""
         if self.training and (self.attn_drop or self.proj_drop):
             raise NotImplementedError(
                 "SwinTransformerBlock: the unfused block path serves; it has "
                 "no dropout (train with the fused block)")
-        y = self.attn_input(x_win, tokens)
-        x1 = x_win + self.attn(y, y, y, bias, labels, q_rows=x_win.shape[2])
+        if tokens is None:
+            y = self.attn_input(x_win, None)
+            a = self.attn(y, y, y, ops.bias, labels, factors=ops.factors)
+        else:
+            a = self.attn.forward_prompts(
+                self._norm(x_win, self.attn_norm),
+                self._norm(tokens.to(x_win.dtype), self.attn_norm),
+                ops.bias, labels, factors=ops.factors)
+        x1 = x_win + a
         return x1 + linear(self._norm(x1, self.mlp_norm), self.mlp)
 
     def operands(self, x: torch.Tensor,
@@ -230,7 +252,8 @@ class SwinTransformerBlock(nn.Module):
         -- ``x`` padded where the geometry pads materially, the window of
         the partition (the content window ``wc`` when pad-folded), the
         cached operands and labels (``ops``: the fused block's
-        :class:`BlockOperands`, or the unfused body's ``[H, M, N]`` bias),
+        :class:`BlockOperands`, or the unfused body's
+        :class:`UnfusedOperands`),
         and the un-pad crop or None."""
         dims = tuple(x.shape[1:4])
         ws = self.window_size
@@ -282,7 +305,8 @@ class SwinTransformerBlock(nn.Module):
 
     def _build_padded(self, padded, shift, ref_pads, tokens, device):
         """Operands of a materially padded (or unpadded) geometry: the
-        fused block's, or (unfused) the bias and the labels."""
+        fused block's, or (unfused) the bias with its factor tables, and
+        the labels."""
         ws = self.window_size
         n_tok = 0 if tokens is None else tokens.shape[0]
         n_full = int(np.prod(ws))
@@ -297,7 +321,14 @@ class SwinTransformerBlock(nn.Module):
                     [labels, np.full((labels.shape[0], n_tok), -1,
                                      np.int32)], axis=-1)
         if not self.fused_block:
-            return (bias.to(device).float().contiguous(),
+            bias = bias.to(device).float().contiguous()
+            tables = None
+            if BiasTables.takes(ws):
+                tables = BiasTables.from_factors(BiasFactors(
+                    tuple(t.detach().to(device) for t in axes),
+                    torch.arange(n_full, device=device), self.pe.scale),
+                    bias.detach())
+            return (UnfusedOperands(bias, tables),
                     labels_tensor(labels, device))
         return self._make(bias, labels, FOLD_NONE, tokens, device, axes,
                           np.arange(n_full))

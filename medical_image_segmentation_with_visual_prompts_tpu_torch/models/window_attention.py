@@ -18,7 +18,11 @@ dispatches as the JAX module does:
 * ``dim > 128``: the projections here, heads split, then B8
   (``fused_window_attention``);
 
-then ``proj``.  The projections outside a kernel and ``proj`` are plain
+then ``proj``.  :meth:`forward_prompts` takes the unfused block's call
+apart: the content rows and the prompt rows that every window shares,
+which B6 takes as two tensors
+(``fused_window_attention_packed_qkv_prompts``).  The projections
+outside a kernel and ``proj`` are plain
 linear layers, as XLA runs them in the JAX package.  With
 ``use_kernels`` False (``SwinUnetR.set_kernels``) the plain versions run
 instead of the kernel wrappers; on CPU tensors the wrappers run them too.
@@ -76,11 +80,14 @@ class WindowAttention(nn.Module):
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 pos_bias: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
-                q_rows: Optional[int] = None) -> torch.Tensor:
+                q_rows: Optional[int] = None,
+                factors: Optional[wa.BiasTables] = None) -> torch.Tensor:
         """q: ``[B, P, M, C]``; k/v: ``[B, P, N, C]``; pos_bias
         ``[H, M', N]``; labels ``[P, N]`` int32 or None.  When q, k and v
         are the same tensor, ``q_rows`` restricts the queries to its first
-        rows (content-query attention).  Returns ``[B, P, M', C]``."""
+        rows (content-query attention).  ``factors``: the
+        :class:`~..ops.window_attention.BiasTables` of ``pos_bias``, which
+        the kernels read in its place.  Returns ``[B, P, M', C]``."""
         b, p = q.shape[:2]
         m = q_rows if (q_rows is not None and q is k) else q.shape[2]
         h = self.num_heads
@@ -93,7 +100,8 @@ class WindowAttention(nn.Module):
             if kern:
                 out = wa.fused_window_attention_packed_qkv(
                     k, *ws, m, pos_bias, labels, scale, h, dt,
-                    wqkv=self.kernel_weight() if k.is_cuda else None)
+                    wqkv=self.kernel_weight() if k.is_cuda else None,
+                    factors=factors)
             else:
                 out = wa.fused_window_attention_packed_qkv_reference(
                     k, *ws, m, pos_bias, labels, scale, h, dt)
@@ -101,14 +109,39 @@ class WindowAttention(nn.Module):
         qp = linear(q[:, :, :m], self.to_q).contiguous()
         kp = linear(k, self.to_k).contiguous()
         vp = linear(v, self.to_v).contiguous()
+        kw = {"factors": factors} if kern else {}
         if self.dim <= 128:
             fn = wa.fused_window_attention_packed if kern \
                 else wa.fused_window_attention_packed_reference
-            out = fn(qp, kp, vp, pos_bias, labels, scale, h, dt)
+            out = fn(qp, kp, vp, pos_bias, labels, scale, h, dt, **kw)
         else:
             fn = wa.fused_window_attention if kern \
                 else wa.fused_window_attention_reference
             split = lambda t: t.view(b, p, t.shape[2], h, -1)  # noqa: E731
             out = fn(split(qp), split(kp), split(vp), pos_bias, labels,
-                     scale, dt).reshape(b, p, m, self.dim)
+                     scale, dt, **kw).reshape(b, p, m, self.dim)
         return linear(out, self.proj)
+
+    def forward_prompts(self, y: torch.Tensor, y_prompt: torch.Tensor,
+                        pos_bias: torch.Tensor,
+                        labels: Optional[torch.Tensor] = None,
+                        factors: Optional[wa.BiasTables] = None
+                        ) -> torch.Tensor:
+        """Content-query attention of the rows ``y [B, P, M, C]`` over
+        them and the rows ``y_prompt [I, C]`` that follow them in every
+        window: :meth:`forward` of ``kv = [y | y_prompt]`` (per window)
+        with ``q_rows`` M.  B6 takes the two apart and projects the prompt
+        rows' K/V once per call.  Returns ``[B, P, M, C]``."""
+        b, p, m, c = y.shape
+        if self.use_kernels and self.dim <= 128:
+            h = self.num_heads
+            ws = (self.to_q.weight.t(), self.to_k.weight.t(),
+                  self.to_v.weight.t())
+            out = wa.fused_window_attention_packed_qkv_prompts(
+                y, y_prompt, *ws, pos_bias, labels, (c // h) ** -0.5, h,
+                kernel_matmul_dtype(self.matmul_dtype, y.device),
+                wqkv=self.kernel_weight() if y.is_cuda else None,
+                factors=factors)
+            return linear(out, self.proj)
+        kv = torch.cat([y, y_prompt.expand(b, p, -1, c)], dim=2)
+        return self(kv, kv, kv, pos_bias, labels, q_rows=m, factors=factors)

@@ -257,11 +257,16 @@ def bias_tables(ops: BlockOperands, bias: torch.Tensor):
     window coordinate packed as ``ih | iw << 8 | id << 16``, plus ``1 <<
     24`` where the next row is ``(ih, iw, id + 1)``, whose key shares ``R
     + Cw`` (``csrc/fused_block_common.cuh::FactoredBias``)."""
-    f = ops.factors
+    return factor_tables(ops.factors, bias, ops.fold_mode != FOLD_NONE)
+
+
+def factor_tables(f: BiasFactors, bias: torch.Tensor, fold: bool):
+    """:func:`bias_tables` of the content factors ``f`` of ``bias`` (with
+    a fold column at index ``M`` when ``fold``)."""
     h, m, _ = bias.shape
     parts = [t.float().reshape(h, -1) for t in f.axes]
     parts.append(bias[:, 0, m:])
-    if ops.fold_mode:
+    if fold:
         parts.append(bias[:, :, m])
     coords = f.coords()
     nxt = torch.cat([coords[1:], torch.full_like(coords[:1], -1)])

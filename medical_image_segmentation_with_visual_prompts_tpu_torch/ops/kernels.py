@@ -61,9 +61,10 @@ SIGNATURES = {
     "mivp_conv3x3": [_P] * 7 + [_I] * 12 + [_P],
     # b, h, w, d, co, rows per warp, bn, out: int[7]
     "mivp_conv3x3_info": [_I] * 7 + [_P],
-    # y, wqkv, q, k, v, bias, labels, out, bp, m, n, c, heads, p_windows,
-    # scale, activations are fp32, stream
-    "mivp_window_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    # y, y_prompt, wqkv, prompt_kv, q, k, v, bias, pe_tab, pe_coord,
+    # labels, out, info, bp, m, n, c, heads, p_windows, mode, ph, pw, pd,
+    # tabw, scale, pe_scale, activations are fp32, stream
+    "mivp_window_attention": [_P] * 13 + [_I] * 11 + [_F, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -164,8 +165,8 @@ INFO_KEYS = ("cluster", "ctas", "threads", "ctas_per_sm", "registers",
 
 
 def info_array():
-    """The int[7] a block, pair or block-backward entry fills when asked
-    only to size its launch (``csrc/fused_block_common.cuh::
+    """The int[7] a block, pair, block-backward or attention entry fills
+    when asked only to size its launch (``csrc/fused_block_common.cuh::
     launch_clustered``)."""
     return (ctypes.c_int * len(INFO_KEYS))()
 

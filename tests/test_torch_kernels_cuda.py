@@ -681,6 +681,125 @@ def test_window_attention_rejects_fp32_and_unsupported_head_dims(dev):
                                          kv.bfloat16(), bias, None, 1.0, 4)
 
 
+# (C, heads): every head dim the kernel takes, 8 to 64.
+FACTOR_SHAPES = [(16, 2), (48, 4), (32, 2), (96, 4), (64, 2), (96, 2),
+                 (128, 2)]
+
+
+def _factor_attn_case(dev, c, heads, m, n_tok, masked, dtype, seed=9):
+    """B6/B7/B8 operands whose bias has factors: the relative-position
+    bias of an 8x8x(m/64) window (m 128 or 256: depth 2 or 4, as the
+    factor form takes) with ``n_tok`` prompt columns, its
+    BiasTables, y with the prompt rows the same in every window (as the
+    unfused block's LN1 of the broadcast tokens), projected q/k/v."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    b, p, n = 2, 3, m + n_tok
+    bias, factors = _bias_case(dev, g, heads, m, fb.FOLD_NONE, n_tok)
+    tables = wa.BiasTables.from_factors(factors, bias)
+    labels = None
+    if masked:
+        labels = torch.cat([torch.randint(0, 4, (p, m), generator=g),
+                            torch.full((p, n_tok), -1)], 1)
+        labels = labels.to(dev, torch.int32).contiguous()
+    y = r(b, p, n, c)
+    y[:, :, m:] = r(n_tok, c)
+    ws = [(r(c, c) / c ** 0.5).to(dev) for _ in range(3)]
+    qkv = [r(b, p, rows, c).to(dev, dtype) for rows in (m, n, n)]
+    return y.to(dev, dtype), ws, qkv, bias, tables, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", FACTOR_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_attention_factor_form_equals_dense_form(dev, c, heads,
+                                                        masked, dtype):
+    """The bias built in shared memory from its factors gives the dense
+    form's output bit for bit, and so does B6 with the prompt rows apart
+    (their K/V projected once per call); both within TOL of the plain
+    versions; the factor launches are counted."""
+    m, n_tok = 128, 5
+    y, ws, (q, k, v), bias, tables, labels = _factor_attn_case(
+        dev, c, heads, m, n_tok, masked, dtype)
+    scale = (c // heads) ** -0.5
+    split = lambda t: t.view(*t.shape[:3], heads, -1)  # noqa: E731
+    before = (wa.fused_window_attention_packed_qkv.factor_launches,
+              wa.fused_window_attention.factor_launches)
+    with torch.inference_mode():
+        ref6 = wa.fused_window_attention_packed_qkv_reference(
+            y, *ws, m, bias, labels, scale, heads)
+        dense6 = wa.fused_window_attention_packed_qkv(
+            y, *ws, m, bias, labels, scale, heads)
+        got6 = wa.fused_window_attention_packed_qkv(
+            y, *ws, m, bias, labels, scale, heads, factors=tables)
+        hoisted6 = wa.fused_window_attention_packed_qkv_prompts(
+            y[:, :, :m].contiguous(), y[0, 0, m:].contiguous(), *ws, bias,
+            labels, scale, heads, factors=tables)
+        apart6 = wa.fused_window_attention_packed_qkv_prompts(
+            y[:, :, :m].contiguous(), y[0, 0, m:].contiguous(), *ws, bias,
+            labels, scale, heads)
+        ref7 = wa.fused_window_attention_packed_reference(
+            q, k, v, bias, labels, scale, heads)
+        dense7 = wa.fused_window_attention_packed(q, k, v, bias, labels,
+                                                  scale, heads)
+        got7 = wa.fused_window_attention_packed(q, k, v, bias, labels, scale,
+                                                heads, factors=tables)
+        got8 = wa.fused_window_attention(split(q), split(k), split(v), bias,
+                                         labels, scale, factors=tables)
+        torch.cuda.synchronize()
+    assert (wa.fused_window_attention_packed_qkv.factor_launches,
+            wa.fused_window_attention.factor_launches) == (before[0] + 2,
+                                                            before[1] + 1)
+    assert got6.dtype == got7.dtype == dtype
+    assert torch.equal(got6, dense6) and torch.equal(hoisted6, dense6)
+    assert torch.equal(apart6, dense6)
+    assert torch.equal(got7, dense7)
+    assert torch.equal(got8.reshape(got7.shape), got7)
+    _assert_close(got6, ref6)
+    _assert_close(got7, ref7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(48, 4), (96, 8), (96, 4), (192, 4),
+                                     (192, 16)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_flagship_repeats_and_plan(dev, c, heads, masked):
+    """At the flagship window (M 256, 64 prompt rows) as the unfused block
+    calls the kernel (B6 with the prompt rows apart, or B7/B8; the factor
+    form): within TOL of the plain version, bit-identical to a second run,
+    and launch_info agrees with attention_plan."""
+    m, n_tok = 256, 64
+    y, ws, (q, k, v), bias, tables, labels = _factor_attn_case(
+        dev, c, heads, m, n_tok, masked, torch.bfloat16, seed=10)
+    scale = (c // heads) ** -0.5
+    n, tabw, proj = m + n_tok, tables.tab.shape[1], c <= 128
+    with torch.inference_mode():
+        if proj:
+            yc, yp = y[:, :, :m].contiguous(), y[0, 0, m:].contiguous()
+            run = lambda: wa.fused_window_attention_packed_qkv_prompts(  # noqa
+                yc, yp, *ws, bias, labels, scale, heads, factors=tables)
+            ref = wa.fused_window_attention_packed_qkv_reference(
+                y, *ws, m, bias, labels, scale, heads)
+        else:
+            run = lambda: wa.fused_window_attention_packed(  # noqa: E731
+                q, k, v, bias, labels, scale, heads, factors=tables)
+            ref = wa.fused_window_attention_packed_reference(
+                q, k, v, bias, labels, scale, heads)
+        first = run()
+        again = run()
+        torch.cuda.synchronize()
+    _assert_close(first, ref)
+    assert torch.equal(again, first)
+    info = wa.launch_info(6, m, n, c, heads, proj, factors=tables,
+                          hoisted=True)
+    plan = wa.attention_plan(m, n, c, heads, proj, proj, tabw)
+    assert info["smem"] == plan.smem and info["cluster"] == 1
+    assert info["threads"] == plan.threads
+    assert info["ctas"] == 6 * heads
+    assert info["ctas_per_sm"] >= 1 and info["registers"] <= 128
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,ci,co", [
     ((2, 6, 5, 4), 16, 16), ((1, 8, 8, 2), 48, 48), ((3, 5, 7, 3), 32, 48),

@@ -7,7 +7,9 @@ Run on a machine with one CUDA card, from the repository root::
 
     python3 tools/torch_ab_b1.py [--quick] PARENT_DIR . . PARENT_DIR
     python3 tools/torch_ab_b1.py --kernel b2 [--sweep] PARENT_DIR . . PARENT_DIR
-    python3 tools/torch_ab_b1.py --kernel b6 [--quick] PARENT_DIR . . PARENT_DIR
+    python3 tools/torch_ab_b1.py --kernel b6 [--quick] [--sweep] \
+        PARENT_DIR . . PARENT_DIR
+    python3 tools/torch_ab_b1.py --kernel b6 --probe . [PROBE_INDEX ...]
     python3 tools/torch_ab_b1.py --probe . [PROBE_INDEX ...]
     python3 tools/torch_ab_b1.py --kernel b4 [--quick] [--sweep] \
         PARENT_DIR . . PARENT_DIR
@@ -34,9 +36,20 @@ CUDA events on the same seeded inputs.
   the time of the body with attention, q|k|v, the row phase's products,
   LN1, the bias build or P.V compiled out, and of each cluster size.
   Outputs are not compared.
-* ``--kernel b6``: B6 (C <= 128) or B8 (C 192) and B7 on pre-projected
-  q/k/v at the same 12 geometries through the unfused block (27 windows),
-  outputs compared bit for bit with the first run's as for B1.
+* ``--kernel b6``: B6 (C <= 128) or B8 (C 192) and B7 on pre-projected q/k/v
+  at the same 12 geometries through the unfused block (27 windows), called
+  as the checkout's unfused block calls them (with the bias's factor tables
+  and, for B6, the content rows and the prompt rows that every window shares
+  apart, where the checkout has ``window_attention.launch_info``; else with
+  the ``[H, M, N]`` bias). Outputs are compared bit for bit with the first
+  run's; each call prints its ms, its launch shape (``launch_info``, or the
+  one-CTA-per-(window, head) shape of its ``Smem`` layout) and, on the
+  unshifted B7/B8 calls, one ``scaled_dot_product_attention`` of the same
+  function.  Only ``window_attention.cu`` is built, alone, for each
+  checkout.  ``--sweep`` also times the same call with the ``[H, M, N]``
+  bias, and B6 on the whole windows (the prompt rows projected in every
+  window).  ``--kernel b6 --probe ROOT [I ...]`` times the calls with the
+  parts of ``B6_PROBES`` compiled out (``MIVP_B6_SKIP``).
 * ``--kernel b4``: B4 (the block backward) at the 12 calls of one
   training step (the 6 flagship geometries, no-shift and shift, batch 2,
   dropout 0.1/0.1, 64 prompt tokens): ms per call and the sum per step,
@@ -165,13 +178,15 @@ print(json.dumps({"build_s": build_s, "ms": times, "info": info}))
 '''
 
 CHILD_B6 = r'''
-import json, sys
+import ctypes, json, sys, time
 sys.path.insert(0, ".")
 import numpy as np, torch
+import torch.nn.functional as F
 from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
     SwinTransformerBlock
 from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
     .window_attention import linear
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import kernels
 from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
     window_attention as wa
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
@@ -179,8 +194,55 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
 GEOMETRIES = (("enc0", 48, 4, (64, 64, 4)), ("enc1", 96, 8, (32, 32, 2)),
               ("enc2", 192, 16, (16, 16, 2)), ("dec0", 192, 4, (16, 16, 2)),
               ("dec1", 96, 4, (32, 32, 2)), ("dec2", 48, 4, (64, 64, 4)))
+# Checkouts with launch_info take the bias as its factor tables and B6
+# the content rows and the shared prompt rows apart, as the unfused blocks
+# call them; older ones the [H, M, N] bias and the whole windows.
+NEW = hasattr(wa, "launch_info")
+
+
+def parent_info(bp, m, n, c, heads, proj):
+    # The one-CTA-per-(window, head) launch of checkouts without
+    # launch_info: 256 threads, its Smem layout, at most 2 CTAs per SM
+    # (launch bounds).
+    a16 = lambda v: (v + 15) // 16 * 16  # noqa: E731
+    dhk, npad, mp = a16(c // heads), a16(n), (m + 31) // 32 * 32
+    yrows = (n + 31) // 32 * 32 if proj else 0
+    q = a16(yrows * (c + 8) * 2)
+    k = a16(q + mp * (dhk + 8) * 2)
+    vt = a16(k + npad * (dhk + 8) * 2)
+    lab = a16(vt + dhk * (npad + 8) * 2)
+    smem = a16(lab + npad * 4)
+    return {"cluster": 1, "ctas": bp * heads, "threads": 256,
+            "ctas_per_sm": min(2, 228 * 1024 // (smem + 1024)),
+            "smem": smem}
+
+
+def event_ms(fn, iters=10):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+if sys.argv[2] != "-":   # a probe's library: the attention entry only
+    probe = ctypes.CDLL(sys.argv[2])
+    probe.mivp_window_attention.argtypes = \
+        kernels.SIGNATURES["mivp_window_attention"]
+    probe.mivp_window_attention.restype = ctypes.c_int
+    kernels._lib = probe
+sweep = sys.argv[3] == "1"
+t0 = time.perf_counter()
+kernels.library()
+build_s = time.perf_counter() - t0
 g = torch.Generator().manual_seed(0)
-outs, times = {}, {}
+outs, times, info, sdpa, swept = {}, {}, {}, {}, {}
 for name, c, heads, dims in GEOMETRIES:
     for shift in ((0, 0, 0), (4, 4, 2)):
         blk = SwinTransformerBlock(c, (8, 8, 4), 64, heads, 1, 64,
@@ -192,40 +254,77 @@ for name, c, heads, dims in GEOMETRIES:
         tok = (0.5 * torch.randn((64, c), generator=g)).cuda()
         at, scale = blk.attn, (c // heads) ** -0.5
         with torch.inference_mode():
-            x_win, bias, labels, _ = blk.windows(x, tok)
+            x_win, ops, labels, _ = blk.windows(x, tok)
+            bias = getattr(ops, "bias", ops)
+            tables = getattr(ops, "factors", None)
             y = blk.attn_input(x_win, tok)
             b, pw, m = x_win.shape[:3]
+            n, bp = y.shape[2], b * pw
             q = linear(y[:, :, :m], at.to_q).contiguous()
             k = linear(y, at.to_k).contiguous()
             v = linear(y, at.to_v).contiguous()
+            kw = {"factors": tables} if NEW else {}
             calls = {"B7": lambda: wa.fused_window_attention_packed(
-                q, k, v, bias, labels, scale, heads)}
+                q, k, v, bias, labels, scale, heads, **kw)}
             if c <= 128:
                 ws = tuple(lin.weight.t() for lin in (at.to_q, at.to_k,
                                                       at.to_v))
                 wqkv = at.kernel_weight()
-                calls["B6"] = lambda: wa.fused_window_attention_packed_qkv(
-                    y, *ws, m, bias, labels, scale, heads, wqkv=wqkv)
+                if NEW:   # the content rows and the prompt rows apart
+                    yc = y[:, :, :m].contiguous()
+                    yp = y[0, 0, m:].contiguous()
+                    calls["B6"] = lambda: \
+                        wa.fused_window_attention_packed_qkv_prompts(
+                            yc, yp, *ws, bias, labels, scale, heads,
+                            wqkv=wqkv, **kw)
+                else:
+                    calls["B6"] = lambda: wa.fused_window_attention_packed_qkv(
+                        y, *ws, m, bias, labels, scale, heads, wqkv=wqkv)
             else:
                 hs = lambda t: t.view(b, pw, t.shape[2], heads, -1)
                 calls["B8"] = lambda: wa.fused_window_attention(
-                    hs(q), hs(k), hs(v), bias, labels, scale)
+                    hs(q), hs(k), hs(v), bias, labels, scale, **kw)
             for key, fn in calls.items():
                 tag = f"{key} {name} {'shift' if any(shift) else 'noshift'}"
                 out = fn()
                 torch.cuda.synchronize()
                 outs[tag] = out.view(torch.int16).cpu().numpy()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(10):
-                    fn()
-                end.record()
-                torch.cuda.synchronize()
-                times[tag] = start.elapsed_time(end) / 10
+                times[tag] = event_ms(fn)
+                proj = key == "B6"
+                if NEW:
+                    info[tag] = wa.launch_info(
+                        bp, m, n, c, heads, proj, factors=tables,
+                        hoisted=proj)
+                else:
+                    info[tag] = parent_info(bp, m, n, c, heads, proj)
+                if labels is None and not proj:
+                    sp = lambda t: t.view(bp, t.shape[2], heads, -1) \
+                        .transpose(1, 2)  # noqa: E731
+                    qs, ks, vs = sp(q), sp(k), sp(v)
+                    b16 = bias.to(torch.bfloat16)[None]
+                    sdpa[tag] = event_ms(lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=b16, scale=scale))
+                if sweep and NEW:
+                    # The same call with the [H, M, N] bias (and B6 with
+                    # the prompt rows projected in every window).
+                    row = {"as called": times[tag]}
+                    if proj:
+                        row["dense bias"] = event_ms(lambda: wa
+                            .fused_window_attention_packed_qkv_prompts(
+                                yc, yp, *ws, bias, labels, scale, heads,
+                                wqkv=wqkv))
+                        row["prompt rows per window"] = event_ms(
+                            lambda: wa.fused_window_attention_packed_qkv(
+                                y, *ws, m, bias, labels, scale, heads,
+                                wqkv=wqkv, factors=tables))
+                    else:
+                        row["dense bias"] = event_ms(
+                            lambda: wa.fused_window_attention_packed(
+                                q, k, v, bias, labels, scale, heads))
+                    swept[tag] = row
 np.savez(sys.argv[1], **outs)
-print(json.dumps({"build_s": 0.0, "ms": times,
-                  "info": {k: "" for k in times}}))
+print(json.dumps({"build_s": build_s, "ms": times, "info": info,
+                  "sdpa_ms": sdpa, "sweep": swept}))
 '''
 
 CHILD_B4 = r'''
@@ -577,8 +676,9 @@ def main_probe_b4(root: Path, only=None) -> int:
                      f"{tmp}/p{i}_{unit}.o"], stderr=subprocess.PIPE,
                     text=True))
         for proc in procs:
-            if proc.wait():
-                print(proc.stderr.read(), file=sys.stderr)
+            _, err = proc.communicate()   # a full stderr pipe would block
+            if proc.returncode:
+                print(err, file=sys.stderr)
                 return 1
         for i, (name, _) in chosen:
             lib = f"{tmp}/p{i}.so"
@@ -647,6 +747,110 @@ def main_b4(roots, sweep: bool) -> int:
     return 0
 
 
+# B6/B7/B8 design probes (window_attention.cu, MIVP_B6_SKIP): parts
+# compiled out.
+B6_PROBES = (("as built", {}),
+             ("no bias", {"MIVP_B6_SKIP": 1}),
+             ("no staging of y or q/k/v", {"MIVP_B6_SKIP": 2}),
+             ("no projection", {"MIVP_B6_SKIP": 4}),
+             ("no attention", {"MIVP_B6_SKIP": 8}),
+             ("no P.V", {"MIVP_B6_SKIP": 16}),
+             ("registers for 2 CTAs per SM", {"MIVP_B6_MINB": 2}),
+             ("32-key softmax steps", {"MIVP_B6_CHUNK": 32}))
+
+
+def attention_libs(roots, tmp, defs=None):
+    """``window_attention.cu`` of each root (or of ``roots[0]`` once per
+    entry of ``defs``) built alone into a shared library, all at once:
+    the children load the attention entry from it, not the whole kernel
+    library.  Returns the libraries' paths."""
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-Xcompiler", "-fPIC", "-shared"]
+    jobs = [(root, {}) for root in roots] if defs is None else \
+        [(roots[0], d) for d in defs]
+    libs, procs = [], []
+    for i, (root, d) in enumerate(jobs):
+        lib = f"{tmp}/attn{i}.so"
+        libs.append(lib)
+        procs.append(subprocess.Popen(
+            [NVCC, *arch, *(f"-D{k}={v}" for k, v in d.items()), "-o", lib,
+             str(root / PKG / "csrc" / "window_attention.cu")],
+            stderr=subprocess.PIPE, text=True))
+    for proc in procs:
+        _, err = proc.communicate()   # reads stderr: a full pipe would block
+        if proc.returncode:
+            raise RuntimeError(err)
+    return libs
+
+
+def run_b6(root, lib, dump, sweep=False):
+    out = subprocess.run([sys.executable, "-c", CHILD_B6, dump, lib,
+                          str(int(sweep))], cwd=root, capture_output=True,
+                         text=True)
+    if out.returncode:
+        print(out.stderr, file=sys.stderr)
+        return None
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def print_b6(res) -> None:
+    per = {"B6": 0.0, "B7": 0.0, "B8": 0.0}
+    for k, v in res["ms"].items():
+        per[k.split()[0]] += v
+    print(f"  B6 {per['B6']:.4f} + B8 {per['B8']:.4f} = "
+          f"{per['B6'] + per['B8']:.4f} ms per 27-window unfused forward "
+          f"(B7 on B6's calls {per['B7']:.4f})")
+    for k, v in res["ms"].items():
+        line = f"  {k}: {v:.4f} ms; {res['info'][k]}"
+        if k in res["sdpa_ms"]:
+            line += f"; scaled_dot_product_attention {res['sdpa_ms'][k]:.4f}"
+        print(line)
+        for opt, t in res["sweep"].get(k, {}).items():
+            print(f"    {opt}: {t if isinstance(t, str) else f'{t:.4f}'}")
+
+
+def main_b6(roots, sweep: bool) -> int:
+    """B6/B7/B8 in each checkout at the 12 unfused calls: ms per call
+    beside scaled_dot_product_attention (unshifted B7/B8), the launch
+    shape, bit identity with run 0; with ``sweep``, the dense-bias form
+    and B6 on the whole windows."""
+    import numpy as np
+    first = None
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = attention_libs(list(dict.fromkeys(roots)), tmp)
+        lib_of = dict(zip(dict.fromkeys(roots), libs))
+        for i, root in enumerate(roots):
+            dump = f"{tmp}/run{i}.npz"
+            res = run_b6(root, lib_of[root], dump, sweep)
+            if res is None:
+                return 1
+            outs = dict(np.load(dump))
+            if first is None:
+                first = outs
+            differ = {k: int((outs[k] != first[k]).sum()) for k in first}
+            print(f"run {i}: {root}: {sum(differ.values())} of "
+                  f"{sum(v.size for v in first.values())} output elements "
+                  f"differ from run 0 "
+                  f"({ {k: d for k, d in differ.items() if d} or 'none'})")
+            print_b6(res)
+    return 0
+
+
+def main_probe_b6(root: Path, only=None) -> int:
+    """Time B6/B7/B8 at the 12 unfused calls with each probe of
+    B6_PROBES compiled in (outputs are garbage and not compared)."""
+    chosen = [(i, B6_PROBES[i]) for i in (only or range(len(B6_PROBES)))]
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = attention_libs([root], tmp, [d for _, (_, d) in chosen])
+        for lib, (i, (name, _)) in zip(libs, chosen):
+            res = run_b6(root, lib, f"{tmp}/p{i}.npz")
+            if res is None:
+                return 1
+            print(f"probe {name}:")
+            print_b6(res)
+    return 0
+
+
 def main_probe(root: Path, only=None) -> int:
     """Time B1 at the 12 serving geometries with each probe of PROBES
     compiled in (outputs are garbage and not compared): where the time
@@ -664,8 +868,9 @@ def main_probe(root: Path, only=None) -> int:
                      f"{tmp}/p{i}_{unit}.o"], stderr=subprocess.PIPE,
                     text=True))
         for proc in procs:
-            if proc.wait():
-                print(proc.stderr.read(), file=sys.stderr)
+            _, err = proc.communicate()   # a full stderr pipe would block
+            if proc.returncode:
+                print(err, file=sys.stderr)
                 return 1
         for i, (name, _) in chosen:
             lib = f"{tmp}/p{i}.so"
@@ -705,7 +910,8 @@ def main(argv) -> int:
             quick, argv = True, argv[1:]
         elif argv[0] == "--probe":
             print(f"card: {card_line()}")
-            probe = main_probe_b4 if kernel == "b4" else main_probe
+            probe = {"b4": main_probe_b4, "b6": main_probe_b6}.get(
+                kernel, main_probe)
             return probe(Path(argv[1]).resolve(), [int(a) for a in argv[2:]])
         else:
             break
@@ -728,12 +934,13 @@ def main(argv) -> int:
         return main_b2(roots, sweep)
     if kernel == "b4":
         return main_b4(roots, sweep)
+    if kernel == "b6":
+        return main_b6(roots, sweep)
     first = None
     with tempfile.TemporaryDirectory() as tmp:
         for i, root in enumerate(roots):
             dump = f"{tmp}/run{i}.npz"
-            child = CHILD_B6 if kernel == "b6" else CHILD_B1
-            out = subprocess.run([sys.executable, "-c", child, dump],
+            out = subprocess.run([sys.executable, "-c", CHILD_B1, dump],
                                  cwd=root, capture_output=True, text=True)
             if out.returncode:
                 print(out.stderr, file=sys.stderr)
