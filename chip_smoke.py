@@ -45,7 +45,19 @@ the port's paths:
   kernels and served as above (12 B1 + 3 B2 per forward, fp32
   activations in B1, B2 rounding its inputs to bf16 and writing fp32),
   then two training steps of the flagship training config with an fp32
-  trunk (12 B1 + 12 B4 per step).
+  trunk (12 B1 + 12 B4 per step);
+* the downstream workflow through the CLIs (phase ``cli``): the same
+  example config with 64+64 prompt tokens on a seeded synthetic set,
+  ``main.main`` fitting epochs 0-1 and saving ``0001.ckpt``, resuming from
+  it (the restored model and optimizer state bit for bit the file's;
+  its 16x16x2 stages' M 256 windows take B4's device-memory form),
+  testing from it per window (argmax against the plain path) and
+  Gaussian-stitched, and ``infer --ckpt`` of one 320x320x24 test volume
+  (labels against the Gaussian test's); 12 B1 + 12 B4 per fit step, 12
+  B1 + 3 B2 per validation step and per test or infer forward, 4 of a
+  fit step's B4 launches in the device-memory form; before it, that form
+  at those 4 calls per step, against its plain version and timed beside
+  it.
 
 B2 and B3 are timed beside one cuDNN ``conv3d`` on the same shapes
 without the prologue (bf16, channels-last), and each B2 launch reports
@@ -555,7 +567,7 @@ def phase_blocks_train(gen_seed: int = SEED + 5):
           "twice, its outputs bit-identical")
     failures, fwd_errs, bwd_errs = [], [], []
     fwd = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound()}
-    bwd = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound()}
+    bwd = {"ms": 0.0, "plain_ms": 0.0, "big_ms": 0.0, "bound": Bound()}
     names = ("x", "bias", "ext_k", "ext_v", *PARAM_KEYS)
     g = torch.Generator().manual_seed(gen_seed)
     for i, (name, c, heads, dims) in enumerate(BLOCK_GEOMETRIES):
@@ -608,8 +620,25 @@ def phase_blocks_train(gen_seed: int = SEED + 5):
             bwd["bound"].add(*block_bwd_work(x_win, ops, labels))
             bwd["ms"] += t_bk
             bwd["plain_ms"] += t_bp
+            # B4's device-memory form forced on the same call (the plan
+            # takes it only where the shared-memory form does not fit):
+            # against the plain version, timed beside the shared form.
+            dxb, big_g = block_backward(x_win, dout, ops, labels, drop,
+                                        big=True)
+            torch.cuda.synchronize()
+            print(f"    device-memory form: launch "
+                  f"{launch_info(x_win, ops, labels, drop, big=True)}")
+            for gname, got, want in zip(names, (dxb, *big_g),
+                                        (ref_dx, *ref_g)):
+                if want is not None:
+                    bwd_errs.append(check_close(f"  d{gname}", got, want,
+                                                failures, GRAD_TOL, 1e-6))
+            t_bb = cuda_ms(lambda: block_backward(x_win, dout, ops, labels,
+                                                  drop, big=True))
+            bwd["big_ms"] += t_bb
             print(f"    B1 kernel {t_k:.4f} ms, plain {t_p:.4f} ms; "
-                  f"B4 kernel {t_bk:.4f} ms, plain {t_bp:.4f} ms")
+                  f"B4 kernel {t_bk:.4f} ms (device-memory form {t_bb:.4f} "
+                  f"ms), plain {t_bp:.4f} ms")
     if failures:
         raise RuntimeError("phase blocks-train failed: " + "; ".join(failures))
     fwd["max_abs_err"] = max(fwd_errs)
@@ -764,8 +793,9 @@ def expect(per_step: dict, times: int = 1) -> dict:
 def reset_counters():
     for fn in counters().values():
         fn.launches = 0
-        if hasattr(fn, "factor_launches"):
-            fn.factor_launches = 0
+        for key in ("factor_launches", "big_launches"):
+            if hasattr(fn, key):
+                setattr(fn, key, 0)
 
 
 def read_counters() -> dict:
@@ -1204,6 +1234,398 @@ def phase_train(card: str, pair: bool = False, two_launch=None,
     return launches, list(tr.losses), k_ms
 
 
+CLI_TEST_SHAPE = (320, 320, 24)
+CLI_TEST_VOLUMES = 2
+CLI_MIN_AGREEMENT = 0.999
+
+
+def write_cli_set(root: Path) -> None:
+    """Seeded synthetic NIfTI for the CLI: 3 downstream volumes (a bright
+    organ labelled 5 inside a body labelled 3, which is not active) and
+    two 320x320x24 int16 test volumes with masks."""
+    import numpy as np
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import save_nifti
+    rng = np.random.default_rng(SEED + 10)
+    shapes = {"train": [(144 + 8 * k, 136 + 8 * (k % 2), 12 + k)
+                        for k in range(3)],
+              "test": [CLI_TEST_SHAPE] * CLI_TEST_VOLUMES}
+    for split, dims in shapes.items():
+        (root / f"{split}_img").mkdir()
+        (root / f"{split}_msk").mkdir()
+        for k, shape in enumerate(dims):
+            zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n) for n in shape),
+                                     indexing="ij")
+            c = rng.uniform(-0.3, 0.3, 3)
+            r = rng.uniform(0.25, 0.45)
+            organ = ((zz - c[0]) ** 2 + (yy - c[1]) ** 2
+                     + ((xx - c[2]) / 2) ** 2) < r * r
+            body = (zz ** 2 + yy ** 2) < 0.8
+            hu = rng.normal(-800.0, 60.0, shape)
+            hu[body] = rng.normal(40.0, 80.0, int(body.sum()))
+            hu[organ] = rng.normal(300.0, 80.0, int(organ.sum()))
+            mask = np.where(organ, 5, np.where(body, 3, 0))
+            name = f"case{k:02d}.nii.gz"
+            save_nifti(str(root / f"{split}_img" / name),
+                       np.clip(hu, -1024, 3071).astype(np.int16))
+            save_nifti(str(root / f"{split}_msk" / name),
+                       mask.astype(np.int16))
+
+
+def cli_config(root: Path, **over) -> str:
+    """A copy of ``configurations/example_configs.yml`` (found by the
+    port's config lookup) with the data directories of ``root``, one
+    epoch after epoch 0 (``max_epochs_downstream: 1``; the YAML wins over
+    the command line, so this is how the run is cut) and ``over``.
+    Written as JSON, which YAML reads."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import load_conf
+    conf = load_conf("example_configs.yml")
+    conf.update(image_dir_downstream=str(root / "train_img"),
+                mask_dir_downstream=str(root / "train_msk"),
+                image_dir_test=str(root / "test_img"),
+                mask_dir_test=str(root / "test_msk"),
+                max_epochs_downstream=1, **over)
+    path = root / f"cli_{len(list(root.glob('cli_*.yml')))}.yml"
+    path.write_text(json.dumps(conf))
+    return str(path)
+
+
+def cli_args(configs: str, mode: str, run: str, *more: str) -> list:
+    return ["--mode", mode, "--training-mode", "downstream", "--configs",
+            configs, "--use-encoder-prompting", "--use-decoder-prompting",
+            "--run-name", run, *more]
+
+
+def cli_run(mode: str, argv: list):
+    """``main.main`` on the card with the CLI's config for ``argv``;
+    returns the trainer, its launches and wall seconds."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import get_full_configs
+    hp = get_full_configs(cli_main.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    tr = cli_main.main(mode, hp)
+    torch.cuda.synchronize()
+    return tr, read_counters(), time.perf_counter() - t0
+
+
+def phase_b4_device_memory(gen_seed: int = SEED + 11):
+    """B4's device-memory form at the example config's four training
+    calls of M 256, N 320 at C 192 (the 16x16x2 stages under the reference
+    padding: enc2 with 16 heads, dec0 with 4; no shift and shift), fp32
+    trunk, batch 2, dropout: against the plain version, twice with the
+    same bits, timed beside it."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinTransformerBlock
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block import PARAM_KEYS, Dropout
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block_bwd import (block_backward, block_backward_reference,
+                                 launch_info)
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import init_weights
+    print("phase b4-device-memory: B4 at M 256 / C 192 (reference "
+          f"padding), fp32, batch {TRAIN_BATCH}, dropout {DROP_RATE}/"
+          f"{DROP_RATE}, vs the plain version")
+    failures, errs = [], []
+    res = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound()}
+    names = ("x", "bias", "ext_k", "ext_v", *PARAM_KEYS)
+    g = torch.Generator().manual_seed(gen_seed)
+    for name, heads in (("enc2", 16), ("dec0", 4)):
+        for k, shift in enumerate(((0, 0, 0), (4, 4, 2))):
+            blk = init_weights(SwinTransformerBlock(
+                192, (8, 8, 4), 64, heads, 1, 64, shift_size=shift,
+                pad_mode="reference", dtype=torch.float32,
+                attn_drop=DROP_RATE, proj_drop=DROP_RATE), g).cuda()
+            x = torch.randn((TRAIN_BATCH, 16, 16, 2, 192), generator=g).cuda()
+            tok = (0.5 * torch.randn((64, 192), generator=g)).cuda()
+            drop = Dropout((2000 + 2 * k, 2001 + 2 * k), DROP_RATE, DROP_RATE)
+            with torch.no_grad():
+                x_win, ops, labels, _ = blk.windows(x, tok)
+            dout = torch.randn(x_win.shape, generator=g).cuda()
+            tag = block_tag(name, 192, heads, (16, 16, 2), x_win, ops, labels)
+            info = launch_info(x_win, ops, labels, drop)
+            ref = block_backward_reference(x_win, dout, ops, labels, drop)
+            big = block_backward.big_launches
+            got = block_backward(x_win, dout, ops, labels, drop)
+            again = block_backward(x_win, dout, ops, labels, drop)
+            torch.cuda.synchronize()
+            print(f"  B4 {tag}; launch {info}")
+            if not info["big"] or block_backward.big_launches != big + 2:
+                failures.append(f"B4 {tag}: not the device-memory form "
+                                f"({info}, {block_backward.big_launches - big}"
+                                " of 2 launches)")
+            flat = lambda r: (r[0], *r[1])  # noqa: E731
+            for gname, a, b, want in zip(names, flat(got), flat(again),
+                                         flat(ref)):
+                if want is None:
+                    continue
+                if not torch.equal(a, b):
+                    failures.append(f"B4 {tag} d{gname}: two runs differ")
+                errs.append(check_close(f"  d{gname}", a, want, failures,
+                                        GRAD_TOL, 1e-6))
+            t_k = cuda_ms(lambda: block_backward(x_win, dout, ops, labels,
+                                                 drop))
+            t_p = cuda_ms(lambda: block_backward_reference(
+                x_win, dout, ops, labels, drop), 3)
+            res["bound"].add(*block_bwd_work(x_win, ops, labels))
+            res["ms"] += t_k
+            res["plain_ms"] += t_p
+            print(f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+    if failures:
+        raise RuntimeError("phase b4-device-memory failed: "
+                           + "; ".join(failures))
+    res["max_abs_err"] = max(errs)
+    return res
+
+
+def kernels_only(model) -> bool:
+    return all(m.use_kernels for m in model.modules()
+               if hasattr(m, "use_kernels"))
+
+
+def test_forwards(tr, blend: str) -> int:
+    """Model forwards of ``tr.test()`` over its test volumes: chunks of
+    10 windows (``none``) or the stitcher's batches (``gaussian``)."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.parallel \
+        import window_starts
+    roi = tuple(tr.hparams.roi_size)
+    n = window_starts(CLI_TEST_SHAPE, roi, None)[1].shape[0]
+    per = -(-n // 10) if blend == "none" else (1 if n <= 32 else -(-n // 16))
+    return CLI_TEST_VOLUMES * per, CLI_TEST_VOLUMES * n
+
+
+def phase_cli(card: str):
+    """The downstream workflow through the training CLI (``main.main``)
+    and the serving CLI at ``example_configs.yml``'s full width (hidden
+    48/96/192/384, roi 128x128x8, 64+64 prompt tokens, fp32 trunk,
+    ``pad_mode: reference``, dropout 0.1/0.1, ``use_checkpoint``): fit
+    epochs 0-1 saving ``0001.ckpt``, fit resumed from it (epoch 1), test
+    from it per window and Gaussian-stitched, and ``infer --ckpt`` of one
+    test volume."""
+    import numpy as np
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        config, infer
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import load_nifti
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block_bwd import block_backward
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.parallel \
+        import window_starts
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.train \
+        .common import adamw_leaves, load_adamw_leaves
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import initialization
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .checkpoint import load_checkpoint, save_checkpoint, tree_leaves
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .torch_import import to_flax_variables
+    print("phase cli: main --mode fit|test --training-mode downstream and "
+          "infer --ckpt, example_configs.yml (fp32 trunk, pad_mode "
+          "reference, 64+64 prompt tokens, dropout 0.1/0.1)")
+    failures, out = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_cli_set(root)
+        config.DEFAULT_ROOT_LOG_DIR = root / "logs"   # the runs' logs
+        cfg = cli_config(root)
+        ckpt_dir = root / "prompt_tokens"
+        ckpt = ckpt_dir / "0001.ckpt"
+
+        # 1. fit, epochs 0-1, saving after epoch 0.
+        fit, launches, wall = cli_run("fit", cli_args(
+            cfg, "fit", "cli-fit", "--save-ckpt-prompt-tokens",
+            "--save-ckpt-prompt-tokens-path", str(ckpt_dir)))
+        big = block_backward.big_launches
+        steps = len(fit.losses)
+        val_steps = 2 * len(fit.val_loader)
+        want = expect({"B1": 12, "B4": 12}, steps)
+        want["B1"] += 12 * val_steps
+        want["B2"] = 3 * val_steps
+        print(f"  fit: {steps} steps + {val_steps} validation steps in "
+              f"{wall:.3f} s, launches {launches} ({big} B4 in the "
+              f"device-memory form); saved "
+              f"{sorted(p.name for p in ckpt_dir.iterdir())}")
+        if launches != want or big != 4 * steps:
+            failures.append(f"fit launches {launches}, {big} B4 in the "
+                            f"device-memory form, expected {want} and "
+                            f"{4 * steps} (12 B1 + 12 B4, 4 of them in that "
+                            "form, per step, 12 B1 + 3 B2 per validation "
+                            "step)")
+        if not ckpt.exists() or steps < 2:
+            failures.append(f"fit: {steps} steps, checkpoint "
+                            f"{ckpt.exists()}")
+        out["fit_launches"] = launches
+
+        # 2. fit resumed from the file: first the restored state, then
+        # main.main on the same config.
+        resume_args = cli_args(cfg, "fit", "cli-resume",
+                               "--load-ckpt-prompt-tokens",
+                               "--load-ckpt-prompt-tokens-path", str(ckpt))
+        hp = config.get_full_configs(
+            cli_main.build_parser().parse_args(resume_args))
+        probe = initialization.select_trainer(hp, SwinUnetR, None, None,
+                                              _Quiet(), None)
+        t0 = time.perf_counter()
+        start = probe.prepare_fit()
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        saved = load_checkpoint(ckpt)
+        got = tree_leaves(to_flax_variables(probe.model))
+        ref = tree_leaves(saved["model_state_dict"])
+        same_model = len(got) == len(ref) and all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(got, ref))
+        got = adamw_leaves(probe.optimizer, probe.model)
+        ref = saved["optimizer_state_dict"]["__flat_leaves__"]
+        same_opt = len(got) == len(ref) and all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(got, ref))
+        print(f"  resume: start epoch {start}; model state bit-identical to "
+              f"the file {same_model} ({len(ref)} optimizer leaves, "
+              f"identical {same_opt}); trainer build + restore "
+              f"{load_ms:.3f} ms")
+        if start != 1 or not same_model or not same_opt:
+            failures.append(f"resume: start {start}, model {same_model}, "
+                            f"optimizer {same_opt}")
+        t0 = time.perf_counter()
+        path = save_checkpoint(root / "timed.ckpt", 1,
+                               to_flax_variables(probe.model),
+                               adamw_leaves(probe.optimizer, probe.model),
+                               {"epoch": 1})
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = load_checkpoint(path)
+        probe._restore_model(back)
+        load_adamw_leaves(probe.optimizer, probe.model,
+                          back["optimizer_state_dict"])
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"  checkpoint of {path.stat().st_size} bytes: save "
+              f"{save_ms:.3f} ms, load + restore {restore_ms:.3f} ms (host "
+              f"clock, model on the card) on {card}")
+        del probe
+        resumed, launches, wall = cli_run("fit", resume_args)
+        rbig = block_backward.big_launches
+        rsteps = len(resumed.losses)
+        rval = len(resumed.val_loader)
+        want = expect({"B1": 12, "B4": 12}, rsteps)
+        want["B1"] += 12 * rval
+        want["B2"] = 3 * rval
+        print(f"  resumed fit: {rsteps} steps + {rval} validation steps "
+              f"in {wall:.3f} s, launches {launches} ({rbig} B4 in the "
+              "device-memory form)")
+        if launches != want or rbig != 4 * rsteps or \
+                resumed.start_epoch != 1:
+            failures.append(f"resumed fit launches {launches}, {rbig} B4 in "
+                            f"the device-memory form, expected {want} and "
+                            f"{4 * rsteps}, start {resumed.start_epoch}")
+        losses = fit.losses + resumed.losses
+        if not all(np.isfinite(losses)):
+            failures.append(f"non-finite losses {losses}")
+        step_ms = float(np.median(fit.step_ms + resumed.step_ms))
+        print(f"  losses {[round(v, 5) for v in losses]}")
+        print(f"  fit step ms median {step_ms:.3f} over "
+              f"{len(losses)} steps (host clock around each step, ending in "
+              f"its loss read) on {card}")
+        out.update(resume_launches=launches, big_launches=big + rbig,
+                   step_ms=step_ms, save_ms=save_ms, load_ms=restore_ms)
+
+        # 3-4. test from the file, both protocols; the per-window one
+        # again through the plain versions.
+        test_launches = {}
+        preds = {}
+        for blend in ("none", "gaussian"):
+            bcfg = cli_config(root, test_blending=blend)
+            tr, launches, wall = cli_run("test", cli_args(
+                bcfg, "test", f"cli-test-{blend}",
+                "--load-ckpt-prompt-tokens", "--load-ckpt-prompt-tokens-path",
+                str(ckpt_dir)))
+            forwards, windows = test_forwards(tr, blend)
+            want = expect({"B1": 12, "B2": 3}, forwards)
+            log = (Path(tr.hparams.log_dir) / "log.txt").read_text()
+            lines = [ln.split("Message: ")[-1] for ln in log.splitlines()
+                     if "+/-" in ln]
+            print(f"  test {blend}: {windows} windows in {wall:.3f} s "
+                  f"({windows / wall:.3f} windows/s, whole main.main call "
+                  f"incl. checkpoint and volume loads) on {card}; "
+                  f"launches {launches}; {lines}")
+            print(f"    per volume {tr.metric_vals}")
+            if launches != want or not kernels_only(tr.model):
+                failures.append(f"test {blend}: launches {launches}, "
+                                f"expected {want}")
+            if len(lines) != 2:
+                failures.append(f"test {blend}: +/- lines {lines}")
+            out[f"test_{blend}_wps"] = windows / wall
+            test_launches = {k: test_launches.get(k, 0) + v
+                             for k, v in launches.items()}
+            # The labels of the test's protocol, again on the kernels.
+            volumes = tr._test_windows if blend == "none" else \
+                tr._test_gaussian
+            preds[blend] = {name: pred.cpu().numpy()
+                            for name, _, pred in volumes()}
+            if blend == "none":
+                tr.model.set_kernels(False)
+                reset_counters()
+                plain_preds = {name: pred.cpu().numpy()
+                               for name, _, pred in volumes()}
+                plain = read_counters()
+                agree = min(float((plain_preds[k] == v).mean())
+                            for k, v in preds["none"].items())
+                print(f"    per-window argmax vs the plain path on the same "
+                      f"windows: {agree:.6f} (min {CLI_MIN_AGREEMENT}); "
+                      f"plain launches {plain}")
+                if any(plain.values()) or not agree >= CLI_MIN_AGREEMENT:
+                    failures.append(f"test none vs plain: agreement {agree}"
+                                    f", plain launches {plain}")
+            del tr
+        out["test_launches"] = test_launches
+
+        # 5. infer --ckpt of the first test volume.
+        src = root / "test_img" / "case00.nii.gz"
+        dst = root / "case00_seg.nii.gz"
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        infer.main(["--configs", cfg, "--ckpt", str(ckpt), "--input",
+                    str(src), "--output", str(dst), "--coverage", "crop",
+                    "--use-encoder-prompting", "--use-decoder-prompting"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        labels = load_nifti(str(dst))[0]
+        crop = window_starts(labels.shape, tuple(resumed.hparams.roi_size),
+                             None)[0]
+        gauss = preds["gaussian"]["case00.nii"]
+        agree = float((labels[crop] == gauss).mean()) \
+            if labels[crop].shape == gauss.shape else 0.0
+        want = expect({"B1": 12, "B2": 3}, test_forwards(
+            resumed, "gaussian")[0] // CLI_TEST_VOLUMES)
+        print(f"  infer --ckpt: {wall:.3f} s, launches {launches}; labels "
+              f"vs the Gaussian test's argmax {agree:.6f} (min "
+              f"{CLI_MIN_AGREEMENT}); foreground share "
+              f"{float((labels > 0).mean()):.4f}")
+        if launches != want:
+            failures.append(f"infer launches {launches}, expected {want}")
+        if not agree >= CLI_MIN_AGREEMENT:
+            failures.append(f"infer vs test agreement {agree}")
+        out["infer_launches"] = launches
+    if failures:
+        raise RuntimeError("phase cli failed: " + "; ".join(failures))
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, **extra):
     bound = m["bound"]
     return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -1276,6 +1698,9 @@ def main() -> int:
     clock("model-fp32, serve-fp32 done")
     tf32_launches, _, _ = phase_train(card, fp32=True)
     clock("train-fp32 done")
+    b4_big = phase_b4_device_memory()
+    cli = phase_cli(card)
+    clock("b4-device-memory, cli done")
 
     print("serve-path times are per 27-window flagship forward, train-path "
           "times per training step of batch 2 (sums over the path's calls), "
@@ -1298,6 +1723,18 @@ def main() -> int:
     print(f"fp32 trunk (example_configs.yml, pad_mode reference): forward "
           f"{f32_fwd_ms:.4f} ms; served vol/s from disk {fvps:.4f}, in "
           f"memory {fvps_mem:.4f}")
+    print(f"B4 device-memory form (4 M 256 / C 192 fp32 calls per cli-fit "
+          f"step): {b4_big['ms']:.4f} ms (plain {b4_big['plain_ms']:.4f}, "
+          f"bound {b4_big['bound'].ms:.4f} ({b4_big['bound'].by}), "
+          f"max_abs_err {b4_big['max_abs_err']:.6g})")
+    print(f"B4 at the 12 flagship training calls (bf16, batch 2): "
+          f"shared-memory form {b4['ms']:.4f} ms, device-memory form forced "
+          f"{b4['big_ms']:.4f} ms")
+    print(f"cli (example_configs.yml through main --mode fit|test): fit step "
+          f"median {cli['step_ms']:.3f} ms; test windows/s per window "
+          f"{cli['test_none_wps']:.3f}, Gaussian "
+          f"{cli['test_gaussian_wps']:.3f}; checkpoint save "
+          f"{cli['save_ms']:.3f} ms, load {cli['load_ms']:.3f} ms")
     print(f"B2: {b2['ms']:.4f} ms per forward vs cuDNN conv3d without the "
           f"prologue {b2['cudnn_ms']:.4f}; B3 no prologue "
           f"{b3['no_prologue_ms']:.4f} vs cuDNN {b3['library_ms']:.4f} ms")
@@ -1309,7 +1746,11 @@ def main() -> int:
                 "serve_pair": pair_launches[key],
                 "train_pair": tpair_launches[key],
                 "serve_fp32": f32_launches[key],
-                "train_fp32": tf32_launches[key]}
+                "train_fp32": tf32_launches[key],
+                "cli-fit": cli["fit_launches"][key]
+                + cli["resume_launches"][key],
+                "cli-test": cli["test_launches"][key],
+                "cli-infer": cli["infer_launches"][key]}
 
     no_library = ("no single PyTorch call: the in-kernel projections (B6) "
                   "and the multiplicative mask (shifted calls)")
@@ -1339,7 +1780,16 @@ def main() -> int:
                      "ops/fused_block_bwd.py:158", train_launches["B4"],
                      paths("B4"), b4,
                      library_null_reason="no single PyTorch call computes "
-                     "a Swin block's backward"),
+                     "a Swin block's backward")
+        | {"device_memory_form": {
+            "calls": "the 4 M 256 / C 192 calls of a cli-fit step",
+            "launches": cli["big_launches"],
+            "ms": b4_big["ms"], "plain_ms": b4_big["plain_ms"],
+            "bound_ms": b4_big["bound"].ms, "bound_by": b4_big["bound"].by,
+            "max_abs_err": b4_big["max_abs_err"],
+            "train_ms_forced": b4["big_ms"],
+            "train_ms_forced_scope": "the train path's 12 calls (the "
+            "entry's ms) in this form"}},
         kernel_entry("fused_swin_pair", "fused_pair.cu",
                      "ops/fused_block.py:592", pair_launches["B5"],
                      paths("B5"), b5,

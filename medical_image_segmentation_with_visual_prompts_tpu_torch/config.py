@@ -11,18 +11,29 @@ and its own kernels.
 ``utils/configs.py::get_full_configs``: the YAML file is found as an
 absolute path, then with ``~`` expanded (or from the working directory),
 then under the repository's ``configurations/``, and its values win over
-the command line's.
+the command line's.  :func:`get_full_configs` is the rest of it, for the
+training CLI (``main.py``): checkpoint paths, the run name and the log
+directories.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from argparse import Namespace
+from datetime import datetime
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-DEFAULT_CONFIG_DIR = Path(__file__).resolve().parent.parent / "configurations"
+_REPO_ROOT = Path(__file__).resolve().parent.parent
+DEFAULT_CONFIG_DIR = _REPO_ROOT / "configurations"
+# Write roots of the training CLI; MIVP_CKPT_DIR / MIVP_LOG_DIR move them.
+DEFAULT_CKPT_DIR = Path(os.environ.get("MIVP_CKPT_DIR",
+                                       _REPO_ROOT / "checkpoints"))
+DEFAULT_ROOT_LOG_DIR = Path(os.environ.get("MIVP_LOG_DIR",
+                                           _REPO_ROOT / "logs"))
 
 TRAINING_MODES = (
     "self_supervised_learning_encoder",
@@ -134,19 +145,25 @@ def flagship_conf(**overrides) -> ModelConfig:
     return ModelConfig(**base)
 
 
-def config_path(configs) -> Path:
-    """The YAML file ``configs`` names, looked up as the JAX CLI does:
-    an existing absolute path, then the path with ``~`` expanded
-    (relative paths from the working directory), then the file under
-    :data:`DEFAULT_CONFIG_DIR`.  Raises ``FileNotFoundError``."""
-    pth = Path(configs)
+def _existing(path_str, default_dir: Path, error: str) -> Path:
+    """An existing absolute path, then the path with ``~`` expanded
+    (relative paths from the working directory), then the path under
+    ``default_dir``; else ``FileNotFoundError(error)``."""
+    pth = Path(path_str)
     if pth.is_absolute() and pth.exists():
         return pth
     if pth.expanduser().exists():
         return pth.expanduser()
-    if (DEFAULT_CONFIG_DIR / pth).exists():
-        return DEFAULT_CONFIG_DIR / pth
-    raise FileNotFoundError("The configuration file does not exist!")
+    if (default_dir / pth).exists():
+        return default_dir / pth
+    raise FileNotFoundError(error)
+
+
+def config_path(configs) -> Path:
+    """The YAML file ``configs`` names, looked up as the JAX CLI does
+    (:func:`_existing` under :data:`DEFAULT_CONFIG_DIR`)."""
+    return _existing(configs, DEFAULT_CONFIG_DIR,
+                     "The configuration file does not exist!")
 
 
 def load_conf(configs, /, **cli) -> dict:
@@ -157,3 +174,47 @@ def load_conf(configs, /, **cli) -> dict:
     with open(config_path(configs)) as f:
         more = yaml.safe_load(f) or {}
     return {**cli, **more}
+
+
+def resolve_save(path_str: str, default_dir: Path) -> Path:
+    """A save path (it need not exist): absolute, then ``~`` expanded, else
+    under ``default_dir``."""
+    pth = Path(path_str)
+    if pth.is_absolute():
+        return pth
+    if "~" in str(pth):
+        return pth.expanduser()
+    return default_dir / pth
+
+
+def get_full_configs(args: Namespace,
+                     now: Optional[datetime] = None) -> Namespace:
+    """The training CLI's config: ``args`` merged with the YAML file of
+    ``args.configs`` (:func:`load_conf`, the YAML wins), load checkpoint
+    paths resolved (they must exist), ``run_name =
+    {mode}_{backbone}_{MMDDHHMMSS}_{run_name}``, save paths defaulting to
+    ``<DEFAULT_CKPT_DIR>/<family>/<run_name>``, and ``log_dir`` /
+    ``summary_dir`` under :data:`DEFAULT_ROOT_LOG_DIR`."""
+    full = load_conf(args.configs, **vars(args))
+    for family, key in (("backbone", "backbone"),
+                        ("prompt_tokens", "prompt tokens")):
+        if getattr(args, f"load_ckpt_{family}", False) is True:
+            path = getattr(args, f"load_ckpt_{family}_path")
+            if path == "":
+                raise ValueError(f"The {key} checkpoint path is empty!")
+            full[f"load_ckpt_{family}_path"] = _existing(
+                path, DEFAULT_CKPT_DIR / family,
+                f"The checkpoint path {path!r} does not exist!")
+    timestamp = (now or datetime.now()).strftime("%m%d%H%M%S")
+    run_name = (f"{full['mode']}_{full['backbone']}_{timestamp}_"
+                f"{args.run_name}")
+    full["run_name"] = run_name
+    for family in ("backbone", "prompt_tokens"):
+        if getattr(args, f"save_ckpt_{family}", False) is True:
+            path = getattr(args, f"save_ckpt_{family}_path")
+            full[f"save_ckpt_{family}_path"] = \
+                resolve_save(path, DEFAULT_CKPT_DIR / family) if path != "" \
+                else DEFAULT_CKPT_DIR / family / run_name
+    full["log_dir"] = DEFAULT_ROOT_LOG_DIR / run_name
+    full["summary_dir"] = full["log_dir"] / "summary"
+    return Namespace(**full)

@@ -53,6 +53,13 @@
 //   operands from shared memory with ldmatrix.trans.
 // * The bias is built in shared memory from its factors (FactoredBias,
 //   as B1 does); the [H, M, N] array is never read.
+// * Windows too large for that layout at any cluster size (M 256 at C
+//   192: the 16x16x2 stages under the reference padding) take the
+//   device-memory form (`big`): LN1(x) of every row (y) and the gathered
+//   [dQ dK dV] rows (dqkv) live in a workspace in device memory (each
+//   CTA its own y, each window one dqkv written by plain stores and read
+//   after the cluster barrier); the rest of the layout and every sum's
+//   order are the same.
 // All products run on tensor cores (mma.sync m16n8k16, bf16 operands,
 // fp32 sums); the weights are read k-packed from device memory with the
 // next k-steps' fragments in flight (rows_gemm).
@@ -96,6 +103,8 @@ struct BwdArgs {
   float* part_w;          // [BP, PW] per-window partials (bwd_part_w)
   float* part_c;          // [BP * ks, PC] per-CTA partials (bwd_part_c)
   float* out;             // [PW + PC]: their sums
+  bf16* yg;               // big: [BP * ks, MP, C + 8] LN1(x) per CTA
+  bf16* dqkvg;            // big: [BP, MP, 3C + 8] [dQ dK dV] per window
   int m, c, heads, n_ext, p_windows;
   int ph, pw, pd, tabw;   // the bias factors (FactoredBias)
   bool fold;
@@ -103,6 +112,7 @@ struct BwdArgs {
   DropArgs drop;
   bool f32;               // x, dout and dx are fp32 (else bf16)
   int ks, hs, qs;         // CTAs per window = head groups x query splits
+  bool big;               // y and dqkv in device memory (yg, dqkvg)
 };
 
 // Per-window partial: dWq, dWk, dWv [3][C][C], dext [2][E][C], dbias
@@ -133,13 +143,14 @@ __host__ __device__ inline size_t bwd_part_c(int c) {
 // phase (x1 fp32, LN2(x1), dout, dproj), the attention backward (Q, K,
 // V, dQ) beside the rows' gathered [dQ dK dV] (dqkv), and d(LN1 out)
 // (dy, at x1).  Row-major; strides: head tiles DHK + 8, activations
-// C + 8 (bf16) or C + 4 (fp32), dqkv 3C + 8.
+// C + 8 (bf16) or C + 4 (fp32), dqkv 3C + 8.  In the device-memory form
+// (big) neither y nor dqkv is in shared memory.
 struct BwdSmem {
   int npad, mp, r16, ds, cs, xs, qks;
   size_t lab, tab, coord, st1, st2, qr, rc, da, ao, g, u, q, k, vt, v, dq,
       x1, l2, dO, dp, dqkv, y, total;
   __host__ __device__ BwdSmem(int m, int n, int c, int dhk, int hk, int rb,
-                              int tabw) {
+                              int tabw, bool big) {
     npad = pad16(n);
     mp = (m + 31) / 32 * 32;
     r16 = pad16(rb);
@@ -172,10 +183,10 @@ struct BwdSmem {
     const size_t end_e = align16(dq + (size_t)mp * ds * 2);
     const size_t end_dy = align16(x1 + (size_t)r16 * xs * 4);
     dqkv = end_e > end_dy ? end_e : end_dy;
-    const size_t end_q = align16(dqkv + (size_t)r16 * qks * 2);
+    const size_t end_q = big ? end_e : align16(dqkv + (size_t)r16 * qks * 2);
     y = end_a > end_r ? end_a : end_r;
     if (end_q > y) y = end_q;
-    total = align16(y + (size_t)mp * cs * 2);
+    total = big ? y : align16(y + (size_t)mp * cs * 2);
   }
 };
 
@@ -303,8 +314,10 @@ __device__ __forceinline__ void rows_gemm(const bf16* A, int lda, int nrows,
 // out[o][col0 + c] = sum_r A[r][o] B[r][c] (r < K, a multiple of 16) for
 // the output rows o of 16-row tiles part, part + parts, ... < Mo and the
 // columns c < n_valid of No (a multiple of 16): a row-reducing product,
-// both operands read transposed from shared memory (ldmatrix.trans), the
-// sum over r in one order.  Plain fp32 stores (each element once).
+// both operands read transposed from shared memory (ldmatrix.trans; A
+// element by element from device memory when AG), the sum over r in one
+// order.  Plain fp32 stores (each element once).
+template <bool AG>
 __device__ void tile_tn(const bf16* A, int lda, const bf16* B, int ldb, int K,
                         int Mo, int No, int n_valid, float* out, int ldo,
                         int col0, int part, int parts, int warp, int nwarps,
@@ -320,7 +333,15 @@ __device__ void tile_tn(const bf16* A, int lda, const bf16* B, int ldb, int K,
       acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
     for (int k0 = 0; k0 < K; k0 += 16) {
       uint32_t af[4];
-      ldsm_x4_t(af, frag_at(A, lda, k0, rt * 16, lane));
+      if (AG) {   // the registers ldmatrix.trans gives (frag_at's tiles)
+        const bf16* a0 = A + (size_t)(k0 + 2 * cq) * lda + rt * 16 + g;
+        af[0] = ld_pair(a0, lda);
+        af[1] = ld_pair(a0 + 8, lda);
+        af[2] = ld_pair(a0 + (size_t)8 * lda, lda);
+        af[3] = ld_pair(a0 + (size_t)8 * lda + 8, lda);
+      } else {
+        ldsm_x4_t(af, frag_at(A, lda, k0, rt * 16, lane));
+      }
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
         if (c0 + np * 16 < No) {
@@ -416,7 +437,7 @@ __global__ void __launch_bounds__(MAXT, 1)
   const int rank = CL ? (int)cluster_rank() : 0;
   const int hg = rank / QS, qi = rank % QS, h0 = hg * HK;
   const int RB = row_block(M, KS);
-  const BwdSmem L(M, N, C, DHK, HK, RB, a.tabw);
+  const BwdSmem L(M, N, C, DHK, HK, RB, a.tabw, a.big);
   const int MP = L.mp, NPAD = L.npad, DS = L.ds, CS = L.cs, XS = L.xs;
   const int R16 = L.r16, QKS = L.qks, VTS = NPAD + 8;
   int* slab = reinterpret_cast<int*>(smem + L.lab);
@@ -438,13 +459,16 @@ __global__ void __launch_bounds__(MAXT, 1)
   bf16* sl2 = reinterpret_cast<bf16*>(smem + L.l2);
   bf16* sdo = reinterpret_cast<bf16*>(smem + L.dO);
   bf16* sdp = reinterpret_cast<bf16*>(smem + L.dp);
-  bf16* sdqkv = reinterpret_cast<bf16*>(smem + L.dqkv);
-  bf16* sy = reinterpret_cast<bf16*>(smem + L.y);
+  const size_t win = blockIdx.x / KS;
+  // big: this CTA's y and the window's dqkv (rows by window row).
+  bf16* sdqkv = a.big ? a.dqkvg + win * (size_t)MP * QKS
+                      : reinterpret_cast<bf16*>(smem + L.dqkv);
+  bf16* sy = a.big ? a.yg + (size_t)blockIdx.x * MP * CS
+                   : reinterpret_cast<bf16*>(smem + L.y);
 
   const int i = threadIdx.x, T = blockDim.x;
   const int warp = i / 32, lane = i % 32, g = lane / 4, cq = lane % 4;
   const int nwarps = T / 32;
-  const size_t win = blockIdx.x / KS;
   const int dgap = a.drop.drop_cols - N;
   const bool f32 = a.f32, masked = a.labels != nullptr;
   const void* xw = act_at(a.x, win * M * C, f32);
@@ -699,10 +723,10 @@ __global__ void __launch_bounds__(MAXT, 1)
     pvec[c] = s_bp;
   }
   if (!(MIVP_B4_SKIP & 66)) {
-    tile_tn(sl2, CS, sdo, CS, R16, C, C, C, pc + (size_t)C * C, C, 0, 0, 1,
-            warp, nwarps, lane);
-    tile_tn(sao, CS, sdp, CS, R16, C, C, C, pc, C, 0, 0, 1, warp, nwarps,
-            lane);
+    tile_tn<false>(sl2, CS, sdo, CS, R16, C, C, C, pc + (size_t)C * C, C, 0,
+                   0, 1, warp, nwarps, lane);
+    tile_tn<false>(sao, CS, sdp, CS, R16, C, C, C, pc, C, 0, 0, 1, warp,
+                   nwarps, lane);
   }
   // d(attention output) = dproj Wproj (in, out) -> x1's space (bf16)
   bf16* sdA = reinterpret_cast<bf16*>(sx1);
@@ -1006,21 +1030,31 @@ __global__ void __launch_bounds__(MAXT, 1)
     // to the rows' owners.
     if (!(MIVP_B4_SKIP & 2)) {
       const int KM = pad16(M);   // y's rows past M are zero
-      tile_tn(sy, CS, sdq, DS, KM, C, DHK, DH, pw, C, h * DH, qi, QS, warp,
-              nwarps, lane);
-      tile_tn(sy, CS, sk, DS, KM, C, DHK, DH, pw + (size_t)C * C, C, h * DH,
-              qi, QS, warp, nwarps, lane);
-      tile_tn(sy, CS, sv, DS, KM, C, DHK, DH, pw + (size_t)2 * C * C, C,
-              h * DH, qi, QS, warp, nwarps, lane);
+      const bf16* bs[3] = {sdq, sk, sv};
+      for (int w3 = 0; w3 < 3; ++w3) {
+        float* dst = pw + (size_t)w3 * C * C;
+        if (a.big)
+          tile_tn<true>(sy, CS, bs[w3], DS, KM, C, DHK, DH, dst, C, h * DH,
+                        qi, QS, warp, nwarps, lane);
+        else
+          tile_tn<false>(sy, CS, bs[w3], DS, KM, C, DHK, DH, dst, C, h * DH,
+                         qi, QS, warp, nwarps, lane);
+      }
     }
     const int half = DH / 2;
     for (int t = i; t < (q_hi - q_lo) * 3 * half; t += T) {
       const int r = q_lo + t / (3 * half), rest = t % (3 * half);
       const int which = rest / half, d = 2 * (rest - which * half);
       const bf16* src = (which == 0 ? sdq : which == 1 ? sk : sv) + r * DS + d;
-      const int owner = CL ? r / RB : 0;
-      put32(sdqkv + (r - owner * RB) * QKS + which * C + h * DH + d, owner,
-            *reinterpret_cast<const uint32_t*>(src), CL);
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(src);
+      if (a.big) {
+        *reinterpret_cast<uint32_t*>(sdqkv + (size_t)r * QKS + which * C +
+                                     h * DH + d) = v;
+      } else {
+        const int owner = CL ? r / RB : 0;
+        put32(sdqkv + (r - owner * RB) * QKS + which * C + h * DH + d, owner,
+              v, CL);
+      }
     }
   }
   sync_window(CL);   // every row's dQ, dK, dV of every head has landed
@@ -1028,7 +1062,8 @@ __global__ void __launch_bounds__(MAXT, 1)
   // ---- F: dY = [dQ dK dV] [Wq Wk Wv]^T -> x1's space, LN1 backward ----
   float* sdy = sx1;
   const int frows = MIVP_B4_SKIP & 256 ? 0 : nrows;   // probe: no phase F
-  rows_gemm(sdqkv, QKS, frows, a.wqkv_io, 3 * C, C, 3 * C, warp,
+  rows_gemm(a.big ? sdqkv + (size_t)rbase * QKS : sdqkv, QKS, frows,
+            a.wqkv_io, 3 * C, C, 3 * C, warp,
                   nwarps, lane, [&](int lr, int col, float v0, float v1) {
     sdy[lr * XS + col] = v0;
     sdy[lr * XS + col + 1] = v1;
@@ -1095,7 +1130,7 @@ cudaError_t launch_bwd(const BwdArgs& a, int bp, cudaStream_t stream,
                        int* info) {
   auto* kernel = fused_block_bwd_kernel<DH, MAXT>;
   const BwdSmem L(a.m, a.m + a.n_ext, a.c, pad16(DH), a.heads / a.hs,
-                  row_block(a.m, a.ks), a.tabw);
+                  row_block(a.m, a.ks), a.tabw, a.big);
   if (L.total > kMaxSmem) return cudaErrorInvalidValue;
   // Sets the kernel's dynamic shared-memory limit (first call per shape).
   if (resident_ctas(kernel, MAXT, L.total) < 1)
@@ -1151,11 +1186,14 @@ extern "C" cudaError_t mivp_fused_block_bwd_512(const void* args, int dh,
 // ops: host array of 15 device pointers (ops/fused_block_bwd.py::
 // _OPERANDS order); ks, hs, qs, threads: the launch plan
 // (backward_plan); part_w, part_c: the workspace; out: [PW + PC] fp32,
-// the summed gradients; info: null to launch, else int[7] receiving the
-// launch's shape (launch_clustered) and nothing runs.
+// the summed gradients; y_ws, dqkv_ws: the device-memory form's
+// workspace ([BP * ks, MP, C + 8] and [BP, MP, 3C + 8] bf16, MP = M
+// rounded up to 32) when big, else null; info: null to launch, else
+// int[7] receiving the launch's shape (launch_clustered) and nothing runs.
 extern "C" cudaError_t mivp_fused_block_bwd(
     const void* x, const void* dout, void* dx, const void* const* ops,
-    const void* labels, void* part_w, void* part_c, void* out, int* info,
+    const void* labels, void* part_w, void* part_c, void* out, void* y_ws,
+    void* dqkv_ws, int* info, int big,
     int bp, int m, int c, int heads, int dh, int n_ext, int p_windows,
     int ph, int pw, int pd, int fold, int ks, int hs, int qs, int threads,
     float scale,
@@ -1167,7 +1205,8 @@ extern "C" cudaError_t mivp_fused_block_bwd(
       ph < 1 || pw < 1 || pd < 1 || ph > 255 || pw > 255 || pd > 255 ||
       (fold != 0 && n_ext < 1) || !(ks == 1 || ks == 2 || ks == 4 || ks == 8) ||
       hs < 1 || qs < 1 || hs * qs != ks || heads % hs != 0 ||
-      (ks > 1 && m < 16 * ks) || (threads != 256 && threads != 512))
+      (ks > 1 && m < 16 * ks) || (threads != 256 && threads != 512) ||
+      (big && info == nullptr && (y_ws == nullptr || dqkv_ws == nullptr)))
     return cudaErrorInvalidValue;
   BwdArgs a = {};
   a.x = x;
@@ -1193,6 +1232,9 @@ extern "C" cudaError_t mivp_fused_block_bwd(
   a.part_w = static_cast<float*>(part_w);
   a.part_c = static_cast<float*>(part_c);
   a.out = static_cast<float*>(out);
+  a.big = big != 0;
+  a.yg = static_cast<bf16*>(y_ws);
+  a.dqkvg = static_cast<bf16*>(dqkv_ws);
   a.m = m;
   a.c = c;
   a.heads = heads;

@@ -1,7 +1,8 @@
-"""Dataset scanning, splitting and batched loading for downstream fitting.
+"""Dataset scanning, splitting and batched loading for downstream fitting
+and testing.
 
 Counterpart of the JAX package's ``data/datasets.py``
-(``get_fit_loader_downstream``): sorted image/mask pairing, optional
+(``get_fit_loader_downstream``, ``get_test_loader_downstream``): sorted image/mask pairing, optional
 subsampling WITH replacement (``random.choices``), a shuffled split by
 ``split_ratio`` (two volumes split 1/1), per-item transforms seeded from
 ``(seed, epoch, idx)``, and a loader that shuffles item order per epoch
@@ -177,3 +178,16 @@ def get_fit_loader_downstream(conf):
                           samples_per_item=conf.num_samples_downstream)
 
     return make(train_data), make(val_data)
+
+
+def get_test_loader_downstream(conf):
+    """Whole test volume pairs, one per batch, in sorted order."""
+    data = _scan_pairs(conf.image_dir_test, conf.mask_dir_test,
+                       conf.image_dict_key, conf.mask_dict_key)
+
+    def tf(item, item_rng):
+        return T.transform_downstream_test(item, conf)
+
+    return DataLoader(Dataset(data, tf, seed=getattr(conf, "seed", None)),
+                      batch_size=1, shuffle=False,
+                      num_workers=conf.num_workers, drop_last=False)

@@ -14,7 +14,8 @@ processes.
 The training side (:func:`transform_downstream_fit`: optional random
 orientation and resize, random spatial crops, symmetric pad) draws from
 an explicit ``np.random.Generator`` in the JAX package's order, so one
-seed gives the JAX loader's crops.
+seed gives the JAX loader's crops; :func:`transform_downstream_test`
+gives the test loader whole volumes.
 """
 
 from __future__ import annotations
@@ -159,3 +160,9 @@ def transform_downstream_fit(item: Dict, conf,
                     "mask": spatial_pad(msk_c, conf.seg_input_size),
                     "name": item["name"]})
     return out
+
+
+def transform_downstream_test(item: Dict, conf) -> Dict:
+    """The whole RAS volume pair, intensities windowed, no crop."""
+    return {"image": scale_intensity_range(load_image(item["image"])),
+            "mask": load_image(item["mask"]), "name": item["name"]}

@@ -1,7 +1,8 @@
 """Volume inference CLI: segment NIfTI volumes with the PyTorch port.
 
-Counterpart of the JAX package's ``infer.py``: loads a reference-schema
-checkpoint (``.pt``, as ``mivp-export-checkpoint`` writes it), runs
+Counterpart of the JAX package's ``infer.py``: loads a checkpoint (a
+reference-schema ``.pt``, as ``mivp-export-checkpoint`` writes it, or a
+msgpack checkpoint that either package's trainer writes), runs
 Gaussian-stitched sliding-window inference on the device and writes the
 label volume back as NIfTI.  Worker processes decode the next volumes
 and encode the previous ones, and a writer thread downloads each label
@@ -36,7 +37,9 @@ from .data import load_served, write_labels
 from .models import SwinUnetR
 from .parallel import BucketedInference, window_starts
 from .utils import load_reference_checkpoint
+from .utils.checkpoint import load_checkpoint, restore_like
 from .utils.device import resolve_device
+from .utils.torch_import import load_flax_variables, to_flax_variables
 
 # Worker processes for the host IO of serving (NIfTI decode and encode).
 # In threads this work slowed the main thread's GIL-releasing torch calls
@@ -255,11 +258,24 @@ def build_model(conf: dict, state_dict=None, device="cuda") -> SwinUnetR:
     return model.to(device).eval()
 
 
+def load_model(conf: dict, ckpt, device="cuda") -> SwinUnetR:
+    """:func:`build_model` with the weights of ``ckpt``: a ``.pt`` (by its
+    suffix) in the reference schema, else a msgpack checkpoint whose
+    ``model_state_dict`` holds the full model state."""
+    if Path(ckpt).suffix == ".pt":
+        return build_model(conf, load_reference_checkpoint(ckpt), device)
+    model = build_model(conf, device=device)
+    load_flax_variables(model, restore_like(
+        to_flax_variables(model), load_checkpoint(ckpt)["model_state_dict"]))
+    return model
+
+
 def main(argv=None):
     parser = ArgumentParser()
     parser.add_argument("--configs", default="example_configs.yml")
     parser.add_argument("--ckpt", required=True,
-                        help="reference-schema .pt (mivp-export-checkpoint)")
+                        help="reference-schema .pt (mivp-export-checkpoint) "
+                             "or a trainer's msgpack checkpoint")
     parser.add_argument("--input", required=True, nargs="+",
                         help="NIfTI file(s) or director(ies)")
     parser.add_argument("--output", required=True,
@@ -281,8 +297,7 @@ def main(argv=None):
                              "card unless --device cpu)")
     args = parser.parse_args(argv)
     conf = load_conf(args.configs, **vars(args))
-    model = build_model(conf, load_reference_checkpoint(args.ckpt),
-                        args.device)
+    model = load_model(conf, args.ckpt, args.device)
     pairs = resolve_io(args.input, args.output)
     n_done, n_failed = serve_volumes(
         conf, model, pairs, chunk=args.chunk, stride=args.stride_factor,

@@ -16,7 +16,12 @@ counterpart of the JAX ``jax.vjp(_operand_args)``).
   fp32 partials in one workspace, summed in window order by a second
   kernel, so two runs on the same inputs give the same bits.
   ``block_backward.launches`` counts its calls (one per call, whatever
-  it launches); :func:`launch_info` gives the launch's shape.
+  it launches) and ``block_backward.big_launches`` those of them in the
+  device-memory form; :func:`launch_info` gives the launch's shape.  A
+  window too large for the shared-memory layout at every cluster size
+  (M 256 at C 192) takes the kernel's device-memory form
+  (``BackwardPlan.big``: LN1 of the rows and the gathered [dQ dK dV]
+  rows in the workspace).
 * :func:`block_backward_reference` is the autograd of
   ``fused_block.block_reference`` (the plain version; CPU tests and the
   comparison on the card).
@@ -78,10 +83,10 @@ def row_block(m: int, ks: int) -> int:
 
 
 def backward_smem(m: int, n: int, c: int, heads: int, tabw: int,
-                  ks: int) -> int:
+                  ks: int, big: bool = False) -> int:
     """Shared bytes per CTA of B4 at cluster size ``ks``: the
     ``BwdSmem`` layout of ``csrc/fused_block_bwd.cu``, region for
-    region."""
+    region (``big``: its device-memory form, without y and dqkv)."""
     dhk = _pad16(c // heads)
     hk = heads // math.gcd(ks, heads)
     npad, mp, r16 = _pad16(n), -(-m // 32) * 32, _pad16(row_block(m, ks))
@@ -100,8 +105,8 @@ def backward_smem(m: int, n: int, c: int, heads: int, tabw: int,
     end_e = _pad16(_pad16(_pad16(k + npad * ds * 2) + npad * ds * 2)
                    + mp * ds * 2)
     dqkv = max(end_e, _pad16(u + r16 * xs * 4))
-    y = max(end_a, end_r, _pad16(dqkv + r16 * qks * 2))
-    return _pad16(y + mp * cs * 2)
+    y = max(end_a, end_r, end_e if big else _pad16(dqkv + r16 * qks * 2))
+    return y if big else _pad16(y + mp * cs * 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +115,8 @@ class BackwardPlan:
     ``hs`` head groups of ``heads // hs`` heads times ``qs`` CTAs per
     group (query rows and key tiles split between them), ``threads`` per
     CTA, ``smem`` shared bytes per CTA and ``ctas_per_sm`` that fit by
-    threads, registers and shared memory."""
+    threads, registers and shared memory; ``big``: the device-memory form
+    (y and dqkv in the workspace)."""
 
     ks: int
     hs: int
@@ -118,6 +124,7 @@ class BackwardPlan:
     threads: int
     smem: int
     ctas_per_sm: int
+    big: bool = False
 
 
 def _ctas_per_sm(threads: int, smem: int) -> int:
@@ -129,7 +136,8 @@ def _ctas_per_sm(threads: int, smem: int) -> int:
 @functools.lru_cache(maxsize=256)
 def backward_plan(bp: int, m: int, n: int, c: int, heads: int, tabw: int,
                   sms: int = 132, cluster: Optional[int] = None,
-                  threads: Optional[int] = None) -> BackwardPlan:
+                  threads: Optional[int] = None,
+                  big: Optional[bool] = None) -> BackwardPlan:
     """The cluster size of a B4 launch over ``bp`` windows, from the
     shapes alone: of the sizes 1, 2, 4, 8 (16 rows or more per CTA) whose
     CTA fits in shared memory, the fewest CTAs per window that reach the
@@ -139,19 +147,25 @@ def backward_plan(bp: int, m: int, n: int, c: int, heads: int, tabw: int,
     steps -- than the SMs it adds bring).  Head groups: ``gcd(ks,
     heads)``; the rest of the cluster splits each group's rows.  Threads
     per CTA: 512 where a CTA walks more than 256 (head, query row) pairs,
-    else 256.  ``cluster`` and ``threads`` force a choice."""
+    else 256.  ``cluster``, ``threads`` and ``big`` force a choice.  Where
+    no cluster size fits, the same choice among the device-memory
+    form's."""
     plans = []
-    for ks in (1, 2, 4, 8):
-        if ks > 1 and m < 16 * ks:
+    for form in (False, True) if big is None else (big,):
+        for ks in (1, 2, 4, 8):
+            if ks > 1 and m < 16 * ks:
+                break
+            smem = backward_smem(m, n, c, heads, tabw, ks, form)
+            if smem > SMEM_PER_CTA:
+                continue
+            hs = math.gcd(ks, heads)
+            qs = ks // hs
+            rows = (heads // hs) * -(-m // qs)
+            t = threads or (512 if rows > 256 else 256)
+            plans.append(BackwardPlan(ks, hs, qs, t, smem,
+                                      _ctas_per_sm(t, smem), form))
+        if plans:
             break
-        smem = backward_smem(m, n, c, heads, tabw, ks)
-        if smem > SMEM_PER_CTA:
-            continue
-        hs = math.gcd(ks, heads)
-        qs = ks // hs
-        rows = (heads // hs) * -(-m // qs)
-        t = threads or (512 if rows > 256 else 256)
-        plans.append(BackwardPlan(ks, hs, qs, t, smem, _ctas_per_sm(t, smem)))
     if cluster is not None:
         for plan in plans:
             if plan.ks == cluster:
@@ -175,12 +189,12 @@ def _sm_count(device) -> int:
 
 
 def _plan(x_win: torch.Tensor, ops: BlockOperands, cluster: Optional[int],
-          threads: Optional[int]) -> BackwardPlan:
+          threads: Optional[int], big: Optional[bool]) -> BackwardPlan:
     b, pw, m, c = x_win.shape
     tabw = ops.kernel["pe_tab"].shape[1]
     sms = _sm_count(x_win.device)
     return backward_plan(b * pw, m, m + ops.n_ext, c, ops.num_heads, tabw,
-                         sms, cluster, threads)
+                         sms, cluster, threads, big)
 
 
 def _bias_stride(n: int) -> int:
@@ -196,6 +210,21 @@ def _part_sizes(m: int, c: int, heads: int, e: int):
     return -(-n_w // 4) * 4, 2 * c * c + 6 * c
 
 
+def _big_bytes(bp: int, m: int, c: int, ks: int) -> int:
+    """Bytes of the device-memory form's bf16 workspace: y per CTA
+    ``[MP, C + 8]`` and dqkv per window ``[MP, 3C + 8]`` (MP: M rounded up
+    to 32)."""
+    mp = -(-m // 32) * 32
+    return 2 * bp * mp * (ks * (c + 8) + 3 * c + 8)
+
+
+def _big_workspace(ws, bp, m, c, n_w, n_c, ks):
+    """Pointers to y and dqkv, after the fp32 partials in ``ws``."""
+    mp = -(-m // 32) * 32
+    y = ws.data_ptr() + 4 * (bp * n_w + bp * ks * n_c)
+    return y, y + 2 * bp * ks * mp * (c + 8)
+
+
 def _launch(x_win, dout, dx, ops, labels, dropout, plan, ws, out,
             info=None) -> int:
     """Call ``csrc/fused_block_bwd.cu``: launch (B4 and its reduction),
@@ -208,11 +237,14 @@ def _launch(x_win, dout, dx, ops, labels, dropout, plan, ws, out,
         *(k[key].data_ptr() for key in _OPERANDS))
     n_w, n_c = _part_sizes(m, c, ops.num_heads, ops.n_ext)
     bp = b * pw
+    big = (None, None) if ws is None or not plan.big else _big_workspace(
+        ws, bp, m, c, n_w, n_c, plan.ks)
     return kernels.library().mivp_fused_block_bwd(
         x_win.data_ptr(), kernels.ptr(dout), kernels.ptr(dx), operands,
         kernels.ptr(labels), kernels.ptr(ws),
         None if ws is None else ws.data_ptr() + 4 * bp * n_w,
-        kernels.ptr(out), None if info is None else ctypes.addressof(info),
+        kernels.ptr(out), *big,
+        None if info is None else ctypes.addressof(info), int(plan.big),
         bp, m, c, ops.num_heads, c // ops.num_heads, ops.n_ext, pw,
         *ops.factors.dims, int(ops.fold_mode != FOLD_NONE), plan.ks, plan.hs,
         plan.qs, plan.threads, ops.scale, ops.factors.scale,
@@ -224,26 +256,29 @@ def launch_info(x_win: torch.Tensor, ops: BlockOperands,
                 labels: Optional[torch.Tensor] = None,
                 dropout: Dropout = NO_DROPOUT,
                 cluster: Optional[int] = None,
-                threads: Optional[int] = None) -> dict:
+                threads: Optional[int] = None,
+                big: Optional[bool] = None) -> dict:
     """Shape of B4's launch for these arguments (CUDA only; nothing
     runs): cluster size (CTAs per window), CTAs, threads per CTA, CTAs
-    per SM, registers, spill bytes per thread, shared bytes per CTA."""
+    per SM, registers, spill bytes per thread, shared bytes per CTA, and
+    ``big`` (the device-memory form)."""
     from . import kernels
     check_kernel_args(x_win, ops, labels, "block_backward")
-    plan = _plan(x_win, ops, cluster, threads)
+    plan = _plan(x_win, ops, cluster, threads, big)
     info = kernels.info_array()
     kernels.check(_launch(x_win, None, None, ops, labels, dropout, plan, None,
                           None, info), "block_backward")
-    return kernels.info_dict(info)
+    return kernels.info_dict(info) | {"big": plan.big}
 
 
 def block_backward(x_win: torch.Tensor, dout: torch.Tensor,
                    ops: BlockOperands, labels: Optional[torch.Tensor],
                    dropout: Dropout, cluster: Optional[int] = None,
-                   threads: Optional[int] = None):
+                   threads: Optional[int] = None,
+                   big: Optional[bool] = None):
     """Block backward on the card (``csrc/fused_block_bwd.cu``).
-    ``cluster`` and ``threads`` force the cluster size and the threads
-    per CTA (``backward_plan``)."""
+    ``cluster``, ``threads`` and ``big`` force the cluster size, the
+    threads per CTA and the form (``backward_plan``)."""
     _check_args(x_win, ops, labels)
     check_kernel_args(x_win, ops, labels, "block_backward")
     if dout.shape != x_win.shape or dout.dtype != x_win.dtype or \
@@ -256,15 +291,17 @@ def block_backward(x_win: torch.Tensor, dout: torch.Tensor,
     from . import kernels
     b, pw, m, c = x_win.shape
     bp, h, e = b * pw, ops.num_heads, ops.n_ext
-    plan = _plan(x_win, ops, cluster, threads)
+    plan = _plan(x_win, ops, cluster, threads, big)
     n_w, n_c = _part_sizes(m, c, h, e)
     f32 = dict(device=x_win.device, dtype=torch.float32)
-    ws = torch.empty(bp * n_w + bp * plan.ks * n_c, **f32)
+    ws = torch.empty(bp * n_w + bp * plan.ks * n_c + (
+        -(-_big_bytes(bp, m, c, plan.ks) // 4) if plan.big else 0), **f32)
     out = torch.empty(n_w + n_c, **f32)
     dx = torch.empty_like(x_win)
     kernels.check(_launch(x_win, dout, dx, ops, labels, dropout, plan, ws,
                           out), "block_backward")
     block_backward.launches += 1
+    block_backward.big_launches += plan.big
     cc = c * c
     w = {key: out[i * cc:(i + 1) * cc].view(c, c)
          for i, key in enumerate(("wq", "wk", "wv"))}
@@ -283,3 +320,4 @@ def block_backward(x_win: torch.Tensor, dout: torch.Tensor,
 
 
 block_backward.launches = 0
+block_backward.big_launches = 0

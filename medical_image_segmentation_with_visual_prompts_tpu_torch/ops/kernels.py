@@ -51,10 +51,11 @@ SIGNATURES = {
     "mivp_fused_swin_pair": [_P] * 8 + [_I] * 11 + [_F, _F] + _SEEDS * 2
     + [_I, _I, _P],
     # x, dout, dx, operands (host pointer array, ops/fused_block_bwd.py::
-    # _OPERANDS), labels, per-window and per-CTA partials, out, info, bp,
-    # m, c, heads, dh, n_ext, p_windows, ph, pw, pd, fold, ks, hs, qs,
-    # threads, scale, pe_scale, dropout, x is fp32, stream
-    "mivp_fused_block_bwd": [_P] * 9 + [_I] * 15 + [_F, _F] + _DROP
+    # _OPERANDS), labels, per-window and per-CTA partials, out, the
+    # device-memory form's y and dqkv, info, big, bp, m, c, heads, dh,
+    # n_ext, p_windows, ph, pw, pd, fold, ks, hs, qs, threads, scale,
+    # pe_scale, dropout, x is fp32, stream
+    "mivp_fused_block_bwd": [_P] * 11 + [_I] * 16 + [_F, _F] + _DROP
     + [_I, _P],
     # xa, xb, w, bias, scale, shift, out, b, h, w, d, ca, cb, co, affine,
     # leaky, out is fp32, rows per warp, bn, stream

@@ -147,6 +147,47 @@ def test_backward_smem_shrinks_with_the_cluster():
         assert all(s % 16 == 0 for s in sizes)
 
 
+@pytest.mark.parametrize("heads,ks,threads", [(16, 8, 512), (4, 8, 256)])
+def test_reference_padding_windows_take_the_device_memory_form(heads, ks,
+                                                               threads):
+    """M 256, N 320 at C 192 (the example config's 16x16x2 stages under
+    the reference padding): no cluster size fits the shared-memory layout,
+    so the plan is the device-memory form, whose layout holds neither y
+    (M x (C + 8) bf16) nor the gathered dqkv rows; the flagship's calls
+    keep the shared-memory form."""
+    m, n, c, tabw = 256, 320, 192, 64 + 64 + 16 + 64 + 128
+    assert all(fbb.backward_smem(m, n, c, heads, tabw, k) > fbb.SMEM_PER_CTA
+               for k in (1, 2, 4, 8))
+    plan = fbb.backward_plan(8, m, n, c, heads, tabw)
+    assert (plan.big, plan.ks, plan.threads) == (True, ks, threads)
+    shared = fbb.backward_smem(m, n, c, heads, tabw, ks)
+    assert plan.smem == fbb.backward_smem(m, n, c, heads, tabw, ks, True)
+    assert shared - plan.smem >= m * (c + 8) * 2
+    assert plan.smem <= fbb.SMEM_PER_CTA and plan.smem % 16 == 0
+    for _, m2, n2, c2, h2, tabw2, _, _ in FLAGSHIP:
+        assert not fbb.backward_plan(8, m2, n2, c2, h2, tabw2).big
+    mp = 256
+    assert fbb._big_bytes(8, m, c, ks) == 2 * 8 * mp * (ks * (c + 8)
+                                                        + 3 * c + 8)
+
+
+@pytest.mark.parametrize("name,m,n,c,heads,tabw,bp,want", FLAGSHIP)
+def test_backward_plan_forced_form(name, m, n, c, heads, tabw, bp, want):
+    """``big`` forces the form: at the flagship's calls the device-memory
+    form keeps the cluster size and threads of the shared-memory one, in
+    less shared memory; the shared-memory form forced where it fits at no
+    cluster size is refused."""
+    shared = fbb.backward_plan(bp, m, n, c, heads, tabw, big=False)
+    big = fbb.backward_plan(bp, m, n, c, heads, tabw, big=True)
+    assert shared == fbb.backward_plan(bp, m, n, c, heads, tabw)
+    assert (big.big, big.ks, big.hs, big.qs, big.threads) == \
+        (True, *want), big
+    assert big.smem == fbb.backward_smem(m, n, c, heads, tabw, big.ks, True)
+    assert big.smem < shared.smem
+    with pytest.raises(ValueError, match="no cluster size fits"):
+        fbb.backward_plan(8, 256, 320, 192, 4, 337, big=False)
+
+
 @pytest.mark.parametrize("m,c,heads,e", [(256, 48, 4, 64), (128, 192, 16, 65),
                                          (100, 96, 8, 0), (33, 16, 1, 3)])
 def test_partials_keep_8_byte_stores_aligned(m, c, heads, e):

@@ -1,0 +1,375 @@
+"""PyTorch port: checkpoints of the JAX package's msgpack family.
+
+* The standard-library codec (``utils/checkpoint.py``) against flax: the
+  same bytes as ``flax.serialization.msgpack_serialize`` for the same
+  tree, and each side restores the other's bytes with every leaf equal
+  and of the same dtype (fixed trees and a hypothesis property over
+  nested dicts of arrays and scalars); what it does not know, it refuses.
+* Checkpoint files cross: a port-written file restores with the JAX
+  ``load_checkpoint``/``restore_like`` and a JAX-written one with the
+  port's, leaf for leaf, exactly.
+* The name map (``utils/torch_import.py``) against the JAX
+  ``export_state_dict``/``import_state_dict`` rules: the same rules table
+  in every training mode, and ``to_flax_variables``/``load_flax_variables``
+  exact on the tiny config and on the example config's widths at depth 1.
+* The optimizer leaves (``train/common.py``) against ``tx.init`` of the
+  JAX trainer's optax state: the same structure, order and dtypes, exact
+  values both ways.
+* Fault C4: a backbone checkpoint written by the JAX ``save_checkpoint``
+  merges into the port's trainer; the merged tensors equal the JAX
+  exporter's view of the file bit for bit, the others keep their values.
+"""
+
+from argparse import Namespace
+
+import jax
+import numpy as np
+import optax
+import pytest
+import torch
+from flax import serialization, traverse_util
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from hypothesis.extra import numpy as hnp
+
+from medical_image_segmentation_with_visual_prompts_tpu.models import \
+    partition as jax_partition
+from medical_image_segmentation_with_visual_prompts_tpu.train.common import \
+    adamw as jax_adamw
+from medical_image_segmentation_with_visual_prompts_tpu.utils import \
+    checkpoint as jax_ckpt
+from medical_image_segmentation_with_visual_prompts_tpu.utils import \
+    torch_import as jax_import
+from medical_image_segmentation_with_visual_prompts_tpu.utils.summary import \
+    model_summary as jax_model_summary
+from medical_image_segmentation_with_visual_prompts_tpu.utils.torch_export \
+    import export_state_dict
+from medical_image_segmentation_with_visual_prompts_tpu_torch.config import \
+    ModelConfig
+from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
+    SwinUnetR
+from medical_image_segmentation_with_visual_prompts_tpu_torch.train import \
+    SegmentationTrainer
+from medical_image_segmentation_with_visual_prompts_tpu_torch.train.common \
+    import adamw_leaves, load_adamw_leaves
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
+    checkpoint as ckpt
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
+    torch_import
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils.summary \
+    import model_summary
+from test_torch_swin_unetr import jax_model, tiny_conf
+
+
+class _Null:
+    def info(self, *a, **k):
+        pass
+
+    def add_scalar(self, *a, **k):
+        pass
+
+
+def assert_trees_equal(a, b, path="") -> None:
+    """Same structure, every leaf equal (NaN-aware) with the same type
+    and dtype."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), path
+        for k in a:
+            assert_trees_equal(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, list):
+        assert isinstance(b, list) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_trees_equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, (np.ndarray, np.generic)):
+        assert type(a) is type(b) and a.dtype == b.dtype, (path, a, b)
+        assert np.shape(a) == np.shape(b), path
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind in "fc"), path
+    else:
+        assert type(a) is type(b) and (a == b or a != a and b != b), \
+            (path, a, b)
+
+
+def _crossed(tree) -> None:
+    """Port bytes == flax bytes; each side restores the other's."""
+    ours = ckpt.msgpack_serialize(tree)
+    theirs = serialization.msgpack_serialize(tree)
+    assert ours == theirs
+    assert_trees_equal(serialization.msgpack_restore(ours),
+                       ckpt.msgpack_restore(theirs))
+    assert_trees_equal(ckpt.msgpack_restore(ours), tree)
+
+
+def test_codec_matches_flax_on_every_type_it_takes():
+    ints = [0, 1, 127, 128, 255, 256, 65535, 65536, 2 ** 32 - 1, 2 ** 32,
+            2 ** 63 - 1, 2 ** 64 - 1, -1, -32, -33, -128, -129, -32768,
+            -32769, -2 ** 31, -2 ** 31 - 1, -2 ** 63]
+    tree = {
+        "ints": ints, "floats": [0.0, -1.5, 1e300, float("inf")],
+        "flags": [True, False], "none": None, "empty": {}, "list": [],
+        "strings": ["", "a" * 31, "b" * 32, "é" * 200, "c" * 70000],
+        "bytes": [b"", b"\x00" * 300, b"\x01" * 70000],
+        "arrays": {dt: np.arange(6).astype(dt).reshape(2, 3)
+                   for dt in ("float32", "float64", "float16", "int8",
+                              "int32", "int64", "uint8", "uint64", "bool",
+                              "complex64")},
+        "shapes": [np.zeros((0,), np.float32), np.array(5, np.int32),
+                   np.ones((1, 1, 1, 1, 2), np.float32),
+                   np.zeros((3,) * 5, np.float32)],
+        "scalars": [np.float32(2.5), np.int64(-7), np.bool_(True),
+                    np.uint16(9)],
+        "b": {"z": 1, "a": {"y": np.float32(1), "x": [np.ones(3)]}},
+    }
+    _crossed(tree)
+    # Sizes that take each fixed and 8/16/32-bit header of maps and ext.
+    _crossed({f"k{i:03d}": i for i in range(20)})
+    _crossed([np.zeros((n,), np.uint8) for n in (1, 2, 4, 8, 16, 300)])
+
+
+_keys = st.text(alphabet="abcxyz_0123456789", min_size=1, max_size=6)
+_arrays = hnp.arrays(
+    dtype=st.sampled_from([np.float32, np.float64, np.int32, np.int64,
+                           np.uint8, np.bool_, np.float16]),
+    shape=hnp.array_shapes(min_dims=0, max_dims=4, min_side=0, max_side=5))
+_scalars = st.one_of(
+    st.integers(-2 ** 63, 2 ** 64 - 1), st.floats(allow_nan=False),
+    st.booleans(), st.none(), st.text(max_size=40), st.binary(max_size=40),
+    _arrays.map(lambda a: a[()] if a.ndim == 0 else a))
+_trees = st.recursive(
+    _scalars, lambda inner: st.one_of(
+        st.lists(inner, max_size=4),
+        st.dictionaries(_keys, inner, max_size=5)), max_leaves=20)
+
+
+@settings(max_examples=150, deadline=None)
+@given(st.dictionaries(_keys, _trees, max_size=5))
+def test_codec_round_trips_against_flax_property(tree):
+    _crossed(tree)
+
+
+@pytest.mark.parametrize("case", ["tuple", "int_key", "object_array",
+                                  "too_big", "ext_2", "bfloat16",
+                                  "chunked", "trailing"])
+def test_codec_refuses_what_it_does_not_know(case):
+    import msgpack
+    flax_bytes = {
+        "ext_2": serialization.msgpack_serialize({"c": 1 + 2j}),
+        "bfloat16": serialization.msgpack_serialize(
+            {"a": np.asarray(jax.numpy.ones((2,), jax.numpy.bfloat16))}),
+        "chunked": msgpack.packb({"__msgpack_chunked_array__": True}),
+        "trailing": msgpack.packb(1) + b"\x01",
+    }
+    if case in flax_bytes:
+        with pytest.raises(ValueError):
+            ckpt.msgpack_restore(flax_bytes[case])
+        return
+    bad = {"tuple": {"t": (1, 2)}, "int_key": {1: 2},
+           "object_array": {"o": np.array([object()])},
+           "too_big": {"a": np.broadcast_to(np.zeros(1, np.uint8),
+                                            (2 ** 30 + 1,))}}
+    with pytest.raises((TypeError, ValueError)):
+        ckpt.msgpack_serialize(bad[case])
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    conf = tiny_conf()
+    jm, jconf, variables = jax_model(conf, seed=2)
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    model = SwinUnetR(ModelConfig.from_mapping(conf))
+    model.load_state_dict(export_state_dict(variables, jconf))
+    return conf, jm, jconf, variables, model
+
+
+def test_checkpoint_files_cross_both_ways(tmp_path, tiny):
+    conf, _, _, variables, model = tiny
+    opt = [np.asarray(3, np.int32), np.asarray(1e-3, np.float32),
+           np.arange(5, dtype=np.float32)]
+    ours = ckpt.save_checkpoint(tmp_path / "port", 4,
+                                torch_import.to_flax_variables(model), opt,
+                                {"epoch": 4})
+    theirs = jax_ckpt.save_checkpoint(tmp_path / "jax", 4, variables, opt,
+                                      {"epoch": 4})
+    assert ours.name == theirs.name == "0004.ckpt"
+    assert ours.read_bytes() == theirs.read_bytes()
+    for loader in (ckpt.load_checkpoint, jax_ckpt.load_checkpoint):
+        for path in (ours.parent, theirs):      # a directory: its last file
+            got = loader(path)
+            assert got["current_epoch"] == 4
+            assert_trees_equal(got["model_state_dict"], variables)
+            assert_trees_equal(got["optimizer_state_dict"],
+                               {"__flat_leaves__": opt})
+            assert_trees_equal(got["scheduler_state_dict"],
+                               {"epoch": np.asarray(4)})
+    loaded = ckpt.load_checkpoint(theirs)
+    assert_trees_equal(ckpt.restore_like(variables,
+                                         loaded["model_state_dict"]),
+                       jax_ckpt.restore_like(variables,
+                                             loaded["model_state_dict"]))
+    assert_trees_equal(ckpt.merge_state(variables, {"params": {}}),
+                       jax_ckpt.merge_state(variables, {"params": {}}))
+    with pytest.raises(ValueError, match="leaves"):
+        ckpt.restore_like(variables, {"params": {}})
+    with pytest.raises(FileNotFoundError):
+        ckpt.load_checkpoint(tmp_path)          # no *.ckpt directly in it
+
+
+@pytest.mark.parametrize("mode", ["downstream", "supervised_learning_all",
+                                  "self_supervised_learning_encoder"])
+@pytest.mark.parametrize("layout", [("none", "swin"), ("full", "unetr"),
+                                    ("simple", "swin")])
+def test_rules_table_is_the_jax_one(mode, layout):
+    conf = ModelConfig.from_mapping(tiny_conf(
+        training_mode=mode, unetr_res_block=layout[0],
+        unetr_up_block=layout[1]))
+    ours = torch_import.build_key_rules(conf)
+    theirs = jax_import.build_key_rules(conf)
+    assert list(ours) == list(theirs)
+    for key, rule in theirs.items():
+        if rule is None:
+            assert ours[key] is None, key
+        else:
+            tf = rule[2] if isinstance(rule[2], tuple) else rule[2].__name__
+            otf = ours[key][2] if isinstance(ours[key][2], tuple) \
+                else ours[key][2].__name__
+            assert ours[key][:2] == rule[:2] and otf == tf, key
+
+
+def _example_depth1():
+    conf = tiny_conf(depth_unet=1, hidden_channels=[48, 96],
+                     num_heads_encoder=4, num_heads_decoder=4,
+                     attn_window_size=[8, 8, 4], pos_bias_embed_dim=64,
+                     tokens_per_prompt_encoder=64,
+                     tokens_per_prompt_decoder=64, pad_mode="reference",
+                     roi_size=[16, 16, 8], compute_dtype="float32")
+    return conf
+
+
+@pytest.mark.parametrize("which", ["tiny", "example_depth1"])
+def test_name_map_is_the_exporter_exactly(which, tiny):
+    if which == "tiny":
+        conf, _, jconf, variables, _ = tiny
+    else:
+        conf = _example_depth1()
+        _, jconf, variables = jax_model(conf, seed=4)
+        variables = jax.tree_util.tree_map(np.asarray, variables)
+    sd = export_state_dict(variables, jconf)
+    model = SwinUnetR(ModelConfig.from_mapping(conf))
+    torch_import.load_flax_variables(model, variables)
+    own = model.state_dict()
+    assert set(own) == set(sd)
+    for k, v in sd.items():
+        if not k.endswith("num_batches_tracked"):
+            assert own[k].dtype == torch.float32
+            assert np.array_equal(own[k].numpy(), v), k
+    back = torch_import.to_flax_variables(model)
+    assert_trees_equal(back, variables)
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(variables)
+    # And the JAX importer takes the port's view back exactly.
+    imported, report = jax_import.import_state_dict(
+        {k: v.numpy() for k, v in own.items()}, variables, jconf)
+    assert not report["unmatched_torch_keys"] and not report["unfilled_ours"]
+    assert_trees_equal(jax.tree_util.tree_map(np.asarray, imported),
+                       variables)
+    with pytest.raises(KeyError):
+        torch_import.load_flax_variables(model, {"params": {}})
+
+
+def test_model_summary_matches_jax(tiny):
+    _, _, _, variables, model = tiny
+    assert model_summary(model) == jax_model_summary(variables["params"])
+
+
+def _jax_opt_state(conf, jconf, variables):
+    """The JAX trainer's optax state (``train/segmentation.py:80-82,161``)
+    over the trainable subtree, and that subtree."""
+    labels = jax_partition.trainable_labels(jconf)
+    trainable, _ = jax_partition.split_params(variables["params"], labels)
+    tx = optax.inject_hyperparams(jax_adamw)(
+        lr=float(conf["lr_downstream"]),
+        weight_decay=float(conf["weight_decay_downstream"]))
+    return tx, trainable, tx.init(trainable)
+
+
+def test_optimizer_leaves_are_the_optax_state(tiny):
+    conf, _, jconf, variables, _ = tiny
+    conf = {**conf, "weight_decay_downstream": 0.1}
+    tx, trainable, state = _jax_opt_state(conf, jconf, variables)
+    tr = SegmentationTrainer(Namespace(**conf), SwinUnetR, None, None,
+                             _Null(), _Null(), device="cpu")
+    torch_import.load_flax_variables(tr.model, variables)
+    tr.configure_optimizers()
+    want = jax.tree_util.tree_leaves(state)
+    got = adamw_leaves(tr.optimizer, tr.model)     # before any step
+    assert [(g.shape, g.dtype) for g in got] == \
+        [(np.shape(w), np.asarray(w).dtype) for w in want]
+    assert_trees_equal(got, [np.asarray(w) for w in want])
+    # Moments with the parameters' own values: the order is the tree's.
+    for p in (q for g in tr.optimizer.param_groups for q in g["params"]):
+        tr.optimizer.state[p] = {"step": torch.tensor(3.0),
+                                 "exp_avg": p.detach().clone(),
+                                 "exp_avg_sq": p.detach() * p.detach()}
+    restored = jax_ckpt.restore_like(
+        state, {"__flat_leaves__": adamw_leaves(tr.optimizer, tr.model)})
+    adam = restored.inner_state[0]
+    assert int(restored.count) == int(adam.count) == 3
+    assert float(restored.hyperparams["weight_decay"]) == np.float32(0.1)
+    sq = jax.tree_util.tree_map(lambda a: np.asarray(a) * np.asarray(a),
+                                trainable)
+    assert_trees_equal(jax.tree_util.tree_map(np.asarray, adam.mu),
+                       jax.tree_util.tree_map(np.asarray, trainable))
+    assert_trees_equal(jax.tree_util.tree_map(np.asarray, adam.nu), sq)
+    # The JAX state after one update, into a fresh port optimizer.
+    grads = jax.tree_util.tree_map(lambda a: np.full_like(a, 0.5), trainable)
+    _, new_state = tx.update(grads, state, trainable)
+    leaves = jax.tree_util.tree_leaves(new_state)
+    fresh = SegmentationTrainer(Namespace(**conf), SwinUnetR, None, None,
+                                _Null(), _Null(), device="cpu")
+    torch_import.load_flax_variables(fresh.model, variables)
+    fresh.configure_optimizers()
+    load_adamw_leaves(fresh.optimizer, fresh.model, {"__flat_leaves__": [
+        np.asarray(x) for x in leaves]})
+    assert_trees_equal(adamw_leaves(fresh.optimizer, fresh.model),
+                       [np.asarray(x) for x in leaves])
+    for p in fresh.optimizer.state:
+        assert float(fresh.optimizer.state[p]["step"]) == 1.0
+
+
+def test_trainer_merges_a_jax_backbone_checkpoint(tmp_path, tiny):
+    """Fault C4: the phase-2 backbone checkpoint of the JAX package (its
+    msgpack family, no prompt tokens) merges into the downstream trainer
+    as the JAX trainer merges it (``merge_state``); the ``.pt`` read is
+    ``test_torch_train.py::test_trainer_merges_a_backbone_checkpoint``."""
+    conf, _, jconf, dvars, _ = tiny
+    bconf = tiny_conf(training_mode="supervised_learning_all",
+                      use_encoder_prompting=False,
+                      use_decoder_prompting=False)
+    _, _, bvars = jax_model(bconf, seed=6)
+    path = jax_ckpt.save_checkpoint(tmp_path / "backbone", 10, bvars, None,
+                                    {"epoch": 10})
+    fresh = SegmentationTrainer(Namespace(**conf), SwinUnetR, None, None,
+                                _Null(), _Null(), device="cpu")
+    merged = SegmentationTrainer(
+        Namespace(**conf, load_ckpt_backbone=True,
+                  load_ckpt_backbone_path=str(path)),
+        SwinUnetR, None, None, _Null(), _Null(), device="cpu")
+    # The JAX exporter's view of the JAX merge of the file into a
+    # downstream model: the tensors whose flax leaf the file holds.
+    loaded = jax_ckpt.load_checkpoint(path)["model_state_dict"]
+    want = export_state_dict(jax_ckpt.merge_state(dvars, loaded), jconf)
+    in_file = {f"{c}/{'/'.join(k)}" for c in loaded for k in
+               traverse_util.flatten_dict(loaded[c])}
+    rules = jax_import.build_key_rules(jconf)
+    common = [k for k, r in rules.items() if r and f"{r[0]}/{r[1]}" in in_file]
+    assert any(k.startswith("encoder_blocks") for k in common)
+    assert any(k.startswith("decoder_blocks") for k in common)
+    assert any(k.endswith("running_var") for k in common)
+    before, after = fresh.model.state_dict(), merged.model.state_dict()
+    for k in common:
+        assert np.array_equal(after[k].numpy(), want[k]), k
+    kept = [k for k in after if k not in common]
+    assert any(k.startswith("prompt_tokens") for k in kept)
+    assert any(k.startswith("extra_heads.downstream") for k in kept)
+    assert any(k.endswith("pe.weights_token") for k in kept)
+    for k in kept:
+        assert torch.equal(after[k], before[k]), k

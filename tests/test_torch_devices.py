@@ -2,11 +2,13 @@
 for the CPU, and raise -- never fall back -- when there is no card."""
 
 from argparse import Namespace
+from datetime import datetime
 
 import pytest
 import torch
 
-from medical_image_segmentation_with_visual_prompts_tpu_torch import infer
+from medical_image_segmentation_with_visual_prompts_tpu_torch import (
+    config, infer, main)
 from medical_image_segmentation_with_visual_prompts_tpu_torch.config import \
     ModelConfig
 from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
@@ -15,8 +17,8 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.parallel import \
     BucketedInference
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train import \
     SegmentationTrainer
-from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
-    resolve_device
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import (
+    initialization, resolve_device)
 from test_torch_swin_unetr import tiny_conf
 
 NO_CUDA = "no CUDA device"
@@ -66,13 +68,37 @@ def test_bucketed_inference_needs_cuda_or_an_explicit_cpu(no_cuda):
     assert BucketedInference(fn, (8, 8, 4), device="cpu").device.type == "cpu"
 
 
-def test_trainer_needs_cuda_or_an_explicit_cpu(no_cuda):
+def test_trainer_needs_cuda_or_an_explicit_cpu(no_cuda, tmp_path,
+                                               monkeypatch):
     hp = Namespace(**tiny_conf())
     with pytest.raises(RuntimeError, match=NO_CUDA):
         SegmentationTrainer(hp, SwinUnetR, None, None)
     tr = SegmentationTrainer(hp, SwinUnetR, None, None, device="cpu")
     assert next(tr.model.parameters()).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="prompt checkpoints"):
-        SegmentationTrainer(Namespace(**tiny_conf(
-            save_ckpt_prompt_tokens=True)), SwinUnetR, None, None,
-            device="cpu")
+    # The save path is the one get_full_configs resolves.
+    monkeypatch.setattr(config, "DEFAULT_CKPT_DIR", tmp_path)
+    saving = SegmentationTrainer(config.get_full_configs(
+        main.build_parser().parse_args([
+            "--training-mode", "downstream", "--configs", "tiny_cpu.yml",
+            "--save-ckpt-prompt-tokens", "--run-name", "r"]),
+        now=datetime(2026, 1, 2, 3, 4, 5)), SwinUnetR, None, None,
+        device="cpu")
+    assert saving.save_ckpt_path == \
+        tmp_path / "prompt_tokens" / "fit_swin_unetr_0102030405_r"
+    assert not saving.save_ckpt_path.exists()       # written when saving
+
+
+def test_main_needs_cuda_or_an_explicit_cpu(no_cuda, tmp_path, monkeypatch):
+    monkeypatch.setattr(config, "DEFAULT_ROOT_LOG_DIR", tmp_path)
+    args = ["--mode", "test", "--training-mode", "downstream", "--configs",
+            "tiny_cpu.yml"]
+    with pytest.raises(RuntimeError, match=NO_CUDA):
+        main.cli(args)
+    hp = config.get_full_configs(main.build_parser().parse_args(args))
+    with pytest.raises(RuntimeError, match=NO_CUDA):
+        main.main("fit", hp)
+    assert not list(tmp_path.iterdir())      # no log directory either
+    tr = initialization.select_trainer(
+        hp, initialization.select_backbone(hp), None, None, None, None,
+        "cpu")
+    assert next(tr.model.parameters()).device.type == "cpu"

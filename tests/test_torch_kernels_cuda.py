@@ -486,6 +486,46 @@ def test_block_backward_flagship_geometries(dev, c, heads, dims, shift,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [16, 4])
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_backward_device_memory_form(dev, heads, shift, dtype):
+    """The example config's training calls at 16x16x2 under the reference
+    padding (M 256, N 320 at C 192) fit no shared-memory layout: B4 takes
+    its device-memory form (y and dqkv in the workspace), within GRAD_TOL
+    of the plain version with dropout, and two runs give the same bits."""
+    g = torch.Generator().manual_seed(16)
+    blk = SwinTransformerBlock(192, (8, 8, 4), 64, heads, 1, 64,
+                               shift_size=shift, pad_mode="reference",
+                               dtype=torch.bfloat16)
+    blk = init_weights(blk, g).to(dev)
+    x = torch.randn((2, 16, 16, 2, 192), generator=g).to(dev, dtype)
+    tok = (0.5 * torch.randn((64, 192), generator=g)).to(dev)
+    with torch.no_grad():
+        x_win, ops, labels, _ = blk.windows(x, tok)
+    b, pw, m, _ = x_win.shape
+    assert (m, m + ops.n_ext) == (256, 320)
+    plan = fbb.backward_plan(b * pw, m, m + ops.n_ext, 192, heads,
+                             ops.kernel["pe_tab"].shape[1])
+    assert plan.big, plan
+    info = fbb.launch_info(x_win, ops, labels, DROP)
+    assert (info["cluster"], info["smem"], info["big"]) == \
+        (plan.ks, plan.smem, True), info
+    dout = torch.randn(x_win.shape, generator=g).to(dev, dtype)
+    ref = _flat_grads(*fbb.block_backward_reference(x_win, dout, ops,
+                                                    labels, DROP))
+    big = fbb.block_backward.big_launches
+    got = _flat_grads(*fbb.block_backward(x_win, dout, ops, labels, DROP))
+    again = _flat_grads(*fbb.block_backward(x_win, dout, ops, labels, DROP))
+    torch.cuda.synchronize()
+    assert fbb.block_backward.big_launches == big + 2
+    _assert_grads_close(got, ref)
+    for name in GRAD_NAMES:
+        if got[name] is not None:
+            assert torch.equal(got[name], again[name]), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c,heads,dims", FLAGSHIP_BLOCKS[:5])
 def test_block_backward_launch_plan(dev, c, heads, dims):
     """launch_info reports the plan backward_plan computes from the
@@ -498,9 +538,30 @@ def test_block_backward_launch_plan(dev, c, heads, dims):
         b * pw, m, m + ops.n_ext, c, heads, ops.kernel["pe_tab"].shape[1],
         torch.cuda.get_device_properties(dev).multi_processor_count)
     info = fbb.launch_info(x, ops, labels, DROP)
-    assert (info["cluster"], info["ctas"], info["threads"], info["smem"]) \
-        == (plan.ks, b * pw * plan.ks, plan.threads, plan.smem), info
+    assert (info["cluster"], info["ctas"], info["threads"], info["smem"],
+            info["big"]) == (plan.ks, b * pw * plan.ks, plan.threads,
+                             plan.smem, False), info
     assert info["ctas_per_sm"] >= 1, info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", FLAGSHIP_BLOCKS[:5])
+def test_block_backward_forced_device_memory_form(dev, c, heads, dims):
+    """The device-memory form forced where the shared-memory one fits:
+    within GRAD_TOL of the plain version, and counted as that form."""
+    x, ops, labels = _flagship_block(dev, c, heads, dims, (4, 4, 2), 2,
+                                     torch.bfloat16)
+    assert fbb.launch_info(x, ops, labels, DROP, big=True)["big"]
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        17)).to(dev, x.dtype)
+    ref = _flat_grads(*fbb.block_backward_reference(x, dout, ops, labels,
+                                                    DROP))
+    big = fbb.block_backward.big_launches
+    got = _flat_grads(*fbb.block_backward(x, dout, ops, labels, DROP,
+                                          big=True))
+    torch.cuda.synchronize()
+    assert fbb.block_backward.big_launches == big + 1
+    _assert_grads_close(got, ref)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""PyTorch port: imports neither JAX nor the JAX package, and its chip
-check refuses to run on a machine without a CUDA card."""
+"""PyTorch port: imports neither JAX, flax, msgpack, optax nor the JAX
+package, and its chip check refuses to run on a machine without a CUDA
+card."""
 
 import ast
 import subprocess
@@ -18,6 +19,8 @@ def test_every_port_module_imports_without_jax():
         sys.modules["jax"] = None      # any `import jax` now raises
         sys.modules["flax"] = None
         sys.modules["{JAX_PKG}"] = None
+        sys.modules["msgpack"] = None
+        sys.modules["optax"] = None
         import {PKG} as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                        pkg.__name__ + ".")]
@@ -30,10 +33,21 @@ def test_every_port_module_imports_without_jax():
                     "ops.augment", "losses.dice",
                     "utils.metrics", "utils.schedules", "utils.device",
                     "models.partition", "data.datasets", "train.common",
-                    "train.segmentation"):
+                    "train.segmentation", "main", "utils.checkpoint",
+                    "utils.torch_import", "utils.loggers", "utils.tb_events",
+                    "utils.initialization", "utils.summary"):
             assert "{PKG}." + mod in names, mod
+        import pathlib, tempfile
+        import numpy as np
+        from {PKG}.utils import checkpoint
+        path = checkpoint.save_checkpoint(
+            pathlib.Path(tempfile.mkdtemp()) / "a.ckpt", 1,
+            {{"params": {{"w": np.ones(2, np.float32)}}}},
+            [np.asarray(0, np.int32)], {{"epoch": 1}})
+        assert checkpoint.load_checkpoint(path)["current_epoch"] == 1
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "flax")
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
+                                      "optax")
                and sys.modules[m] is not None]
         assert not bad, bad
         print(len(names))
