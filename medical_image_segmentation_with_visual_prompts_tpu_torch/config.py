@@ -5,7 +5,10 @@ the same field names and defaults, so a YAML config or a JAX
 ``ModelConfig`` maps onto it field by field.  The TPU-only inference
 switches of the JAX config (``fold_head_depth``, ``fold_head_hw``) and
 ``attn_impl`` are accepted and ignored: the port runs plain torch convs
-and its own kernels.
+and its own kernels.  The decoder layout (``unetr_res_block``,
+``unetr_up_block``) and the UNETR blocks' ``basic_block_res`` /
+``res_block`` switches are checked here; the JAX config takes any value
+and builds a ``none``-like skip path from an unknown one.
 
 :func:`load_conf` is the config lookup and merge of the JAX package's
 ``utils/configs.py::get_full_configs``: the YAML file is found as an
@@ -92,6 +95,15 @@ class ModelConfig:
         if self.training_mode not in TRAINING_MODES:
             raise ValueError(
                 f"Training mode {self.training_mode} not available!")
+        for name, allowed in (("unetr_res_block", ("none", "simple", "full")),
+                              ("unetr_up_block", ("swin", "unetr"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{getattr(self, name)!r}")
+        for name in ("basic_block_res", "res_block"):
+            if not isinstance(getattr(self, name), bool):
+                raise ValueError(f"{name} must be true or false, got "
+                                 f"{getattr(self, name)!r}")
 
     @property
     def dtype(self) -> torch.dtype:

@@ -10,11 +10,16 @@ crop, while the device runs the current volume.  The upload is the raw
 (typically int16 HU) volume, windowed on the device; the argmax is taken
 on the device too.
 
+``--watch`` polls one input directory and serves each new volume as it
+arrives, with the model, the runner and the IO workers kept warm across
+polls (:func:`watch_directory`).
+
 Usage:
   python -m medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
     --configs example_configs.yml --ckpt model.pt \
     --use-encoder-prompting --use-decoder-prompting \
     --input case.nii.gz --output case_seg.nii.gz
+  ... --input incoming/ --output labels/ --watch --watch-interval 5
 """
 
 from __future__ import annotations
@@ -118,14 +123,16 @@ def resolve_io(inputs: List[str], output: str) -> List[Tuple[Path, Path]]:
 
 def make_runner(conf: dict, model: SwinUnetR, chunk: Optional[int] = None,
                 stride=None, device_windowing: bool = True,
-                coverage: str = "pad") -> BucketedInference:
+                coverage: str = "pad", mode: str = "gaussian"
+                ) -> BucketedInference:
     """Serving runner around ``model`` (already on its device; put in
     eval mode here).
 
     ``device_windowing``: volumes are uploaded raw and windowed on the
     device (pad value -1000 HU, air); otherwise they arrive windowed on
     the host (pad value 0).  ``coverage="pad"`` segments every voxel;
-    ``"crop"`` reproduces the reference's center-crop grid.
+    ``"crop"`` reproduces the reference's center-crop grid.  ``mode``:
+    the stitcher's (``BucketedInference``); serving stitches.
     """
     model.eval()
     device = next(model.parameters()).device
@@ -138,7 +145,7 @@ def make_runner(conf: dict, model: SwinUnetR, chunk: Optional[int] = None,
         model.conf.output_channels_downstream, stride=stride,
         preprocess=device_scale_intensity() if device_windowing else None,
         coverage=coverage, pad_value=-1000.0 if device_windowing else 0.0,
-        device=device)
+        device=device, mode=mode)
 
 
 def io_pool() -> ProcessPoolExecutor:
@@ -246,6 +253,55 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
     return n_done, n_failed
 
 
+def watch_directory(conf: dict, model: SwinUnetR, src: Path, out: Path,
+                    chunk: Optional[int] = None, interval: float = 5.0,
+                    min_age: float = 1.0, max_polls: Optional[int] = None,
+                    stride=None, device_windowing: bool = True,
+                    coverage: str = "pad") -> Tuple[int, int]:
+    """Watch mode: poll ``src`` for new NIfTI volumes and segment them as
+    they arrive, with one runner (and the IO worker processes) kept warm
+    across polls.
+
+    A volume is taken once its mtime is at least ``min_age`` seconds old
+    (a half-written upload is left alone) and is never retried: a failure
+    is counted once.  A volume whose ``*_seg`` output exists is taken as
+    served (an idempotent restart).  ``max_polls`` bounds the loop (tests);
+    ``None`` runs until interrupted.  Returns the cumulative ``(n_done,
+    n_failed)``.
+    """
+    out.mkdir(parents=True, exist_ok=True)
+    runner = make_runner(conf, model, chunk, stride=stride,
+                         device_windowing=device_windowing,
+                         coverage=coverage)
+    seen = set()
+    n_done = n_failed = polls = 0
+    print(f"watching {src} -> {out} (every {interval:.1f}s)")
+    while max_polls is None or polls < max_polls:
+        if polls:
+            time.sleep(interval)
+        polls += 1
+        now = time.time()
+        fresh = []
+        for p in sorted(src.iterdir()):
+            if not p.name.endswith((".nii", ".nii.gz")) or p in seen:
+                continue
+            try:
+                if now - p.stat().st_mtime < min_age:
+                    continue                 # possibly still uploading
+            except FileNotFoundError:
+                continue                     # vanished between scans
+            (_, dst), = resolve_io([str(p)], str(out))
+            seen.add(p)
+            if dst.exists():
+                continue                     # served by an earlier run
+            fresh.append((p, dst))
+        if fresh:
+            d, f = serve_volumes(conf, model, fresh, runner=runner)
+            n_done += d
+            n_failed += f
+    return n_done, n_failed
+
+
 def build_model(conf: dict, state_dict=None, device="cuda") -> SwinUnetR:
     """The downstream model of ``conf``, loaded (strictly) from a
     reference-schema state dict, on ``device`` (the card unless
@@ -292,12 +348,26 @@ def main(argv=None):
     parser.add_argument("--host-windowing", action="store_true",
                         help="window intensities on the host and upload "
                              "float32, instead of the raw int16 upload")
+    parser.add_argument("--watch", action="store_true",
+                        help="poll the --input directory and segment new "
+                             "volumes as they arrive (model stays warm)")
+    parser.add_argument("--watch-interval", type=float, default=5.0)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda; fails without a "
                              "card unless --device cpu)")
     args = parser.parse_args(argv)
+    if args.watch and (len(args.input) != 1
+                       or not Path(args.input[0]).is_dir()):
+        raise SystemExit("--watch requires a single --input directory")
     conf = load_conf(args.configs, **vars(args))
     model = load_model(conf, args.ckpt, args.device)
+    if args.watch:
+        watch_directory(conf, model, Path(args.input[0]), Path(args.output),
+                        chunk=args.chunk, interval=args.watch_interval,
+                        stride=args.stride_factor,
+                        device_windowing=not args.host_windowing,
+                        coverage=args.coverage)
+        return
     pairs = resolve_io(args.input, args.output)
     n_done, n_failed = serve_volumes(
         conf, model, pairs, chunk=args.chunk, stride=args.stride_factor,

@@ -4,10 +4,11 @@ Counterpart of the JAX package's ``models/partition.py``, over the port's
 parameter names (the reference's torch keys).  Labels:
 
 * ``encoder_body`` / ``decoder_body``: input layer, Swin block bodies,
-  merges / bottleneck, up-block bodies;
+  merges / bottleneck, skip blocks, up-block and output-layer bodies;
 * ``encoder_bias_content`` / ``decoder_bias_content``: the RelativePE
   content embeddings and weights;
-* ``encoder_prompt`` / ``decoder_prompt``: the prompt tokens and the
+* ``encoder_prompt`` / ``decoder_prompt``: the prompt tokens (the
+  output layer's ``prompt_tokens.out`` are decoder ones) and the
   RelativePE token bias (``enc_token``, ``weights_token``);
 * ``head_downstream``: the downstream segmentation head.
 
@@ -23,7 +24,8 @@ from typing import List, Set, Tuple
 from torch import nn
 
 _ENCODER_PREFIXES = ("input_layer", "encoder_blocks")
-_DECODER_PREFIXES = ("bottleneck", "decoder_blocks")
+_DECODER_PREFIXES = ("bottleneck", "residual_blocks", "decoder_blocks",
+                     "output_layer")
 _PE_TOKEN = ("enc_token", "weights_token")
 
 
@@ -31,7 +33,7 @@ def label_of(name: str) -> str:
     """Partition label of one parameter name."""
     if name.startswith("prompt_tokens.enc"):
         return "encoder_prompt"
-    if name.startswith("prompt_tokens.dec"):
+    if name.startswith(("prompt_tokens.dec", "prompt_tokens.out")):
         return "decoder_prompt"
     if name.startswith("extra_heads.downstream"):
         return "head_downstream"

@@ -1,19 +1,33 @@
 """SwinUnetR, downstream path: serving and prompt-tuning training.
 
 Counterpart of the JAX package's ``models/swin_unetr.py`` for
-``training_mode="downstream"`` with the flagship decoder
-(``unetr_res_block="none"``, ``unetr_up_block="swin"``):
+``training_mode="downstream"``, in every decoder layout
+(``unetr_res_block`` none | simple | full x ``unetr_up_block`` swin |
+unetr):
 
 * patch embed: Conv3d with stride = patch, then BatchNorm (eps 1e-6);
 * ``depth_unet`` encoder stages of Swin block pairs + PatchMerging
   (depth merged at stage 0 only), heads doubling per stage;
-* bottleneck 3x3x3 conv + residual;
-* ``depth_unet`` SwinUpBlocks (pair-input conv, then a Swin pair);
-* x2 trilinear upsample (``align_corners=False``);
+* bottleneck: a ``UnetrBasicBlock`` under ``full``, else a 3x3x3 conv;
+  plus the residual;
+* ``depth_unet + 1`` skip blocks (identity under ``none``, a 3x3x3 conv
+  under ``simple``, a ``UnetrBasicBlock`` under ``full``); the last one
+  takes the raw input;
+* ``depth_unet`` up blocks: ``SwinUpBlock`` (pair-input conv, then a Swin
+  pair) or ``UnetrUpBlock`` (transposed conv, conv block);
+* output layer: a x2 trilinear upsample (``align_corners=False``) under
+  ``none``, else one more up block at full resolution onto the last skip
+  (a ``SwinUpBlock`` with its own two prompt tokens, or a
+  ``UnetrUpBlock``);
 * seg head: BatchNorm (eps 1e-5) then a 3x3x3 conv.
 
 Prompt tokens are ``[tokens, C]`` parameters, two per stage (window and
-shifted block) for encoder and decoder.  Attribute names follow the
+shifted block) for encoder and decoder, and two (``prompt_tokens.out``)
+for a Swin output layer.  Under ``unetr_up_block: unetr`` the decoder
+tokens exist but no block reads them, as in the JAX model, so checkpoints
+keep the same leaves.  The 3x3x3 convs of the trunk (bottleneck, simple
+skips) run in the trunk's dtype; the UNETR blocks in fp32, as flax
+computes them (``unet_blocks.py``).  Attribute names follow the
 reference's torch keys, so ``load_state_dict`` takes a reference-schema
 state dict (``utils/weights.py``).  ``eval()`` (serving): BatchNorms use
 their running statistics, dropout is off, the decoder convs run the pair
@@ -47,7 +61,8 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.resize import upsample_trilinear
 from .swin_block import ConsecutiveSwinBlocks
-from .unet_blocks import SwinUpBlock, batch_norm, conv3d, same_conv
+from .unet_blocks import (SwinUpBlock, UnetrBasicBlock, UnetrUpBlock,
+                          batch_norm, conv3d, same_conv)
 
 
 def _env_flag(name: str) -> bool:
@@ -57,14 +72,10 @@ def _env_flag(name: str) -> bool:
 class SwinUnetR(nn.Module):
     def __init__(self, conf: ModelConfig, dropout_seed: int = 0):
         super().__init__()
-        if conf.training_mode != "downstream" or \
-                conf.unetr_res_block != "none" or \
-                conf.unetr_up_block != "swin":
+        if conf.training_mode != "downstream":
             raise NotImplementedError(
-                "the PyTorch port serves training_mode='downstream' with "
-                "unetr_res_block='none' and unetr_up_block='swin'; got "
-                f"{conf.training_mode}/{conf.unetr_res_block}/"
-                f"{conf.unetr_up_block}")
+                "the PyTorch port builds training_mode='downstream' only; "
+                f"got {conf.training_mode} (ROADMAP queue A items 7 and 8)")
         self.conf = conf
         depth = conf.depth_unet
         hc = conf.hidden_channels
@@ -98,15 +109,43 @@ class SwinUnetR(nn.Module):
 
         in_chs = [hc[i] for i in range(depth)][::-1]
         out_chs = [hc[i + 1] for i in range(depth)][::-1]
-        self.bottleneck = same_conv(out_chs[0], out_chs[0])
+        res, swin = conf.unetr_res_block, conf.unetr_up_block == "swin"
+        if res != "none" and swin and conf.use_decoder_prompting:
+            self.prompt_tokens.out = nn.ParameterList([
+                nn.Parameter(torch.empty(conf.tokens_per_prompt_decoder,
+                                         hc[0]))
+                for _ in range(2)])
+        if res == "full":
+            self.bottleneck = UnetrBasicBlock(
+                out_chs[0], out_chs[0], res_block=conf.basic_block_res)
+            # The last skip block takes the raw input.
+            self.residual_blocks = nn.ModuleList([
+                UnetrBasicBlock(c, in_chs[min(i, depth - 1)],
+                                res_block=conf.basic_block_res)
+                for i, c in enumerate(in_chs + [conf.input_channels])])
+        else:
+            self.bottleneck = same_conv(out_chs[0], out_chs[0])
+            if res == "simple":
+                self.residual_blocks = nn.ModuleList([
+                    same_conv(c, in_chs[min(i, depth - 1)])
+                    for i, c in enumerate(in_chs + [conf.input_channels])])
+
+        def up_block(cin, cout, strides):
+            if not swin:
+                return UnetrUpBlock(cin, cout, res_block=conf.res_block)
+            return SwinUpBlock(
+                cin, cout, strides, (3, 3, 3), conf.pos_bias_embed_dim,
+                conf.num_heads_decoder, ws, conf.max_prompts,
+                conf.tokens_per_prompt_decoder, pad_mode=conf.pad_mode,
+                dtype=dt, attn_drop=conf.attn_drop,
+                proj_drop=conf.proj_drop)
+
+        # Depth is re-expanded at the last level only, mirroring stage 0.
         self.decoder_blocks = nn.ModuleList([
-            SwinUpBlock(out_chs[i], in_chs[i],
-                        (2, 2, 1 if i < depth - 1 else 2), (3, 3, 3),
-                        conf.pos_bias_embed_dim, conf.num_heads_decoder, ws,
-                        conf.max_prompts, conf.tokens_per_prompt_decoder,
-                        pad_mode=conf.pad_mode, dtype=dt,
-                        attn_drop=conf.attn_drop, proj_drop=conf.proj_drop)
+            up_block(out_chs[i], in_chs[i], (2, 2, 1 if i < depth - 1 else 2))
             for i in range(depth)])
+        if res != "none":
+            self.output_layer = up_block(hc[0], hc[0], (2, 2, 2))
         self.extra_heads = nn.ModuleDict({"downstream": nn.Sequential(
             nn.BatchNorm3d(hc[0], eps=1e-5, momentum=0.1),
             same_conv(hc[0], conf.output_channels_downstream))})
@@ -158,22 +197,40 @@ class SwinUnetR(nn.Module):
         tokens = getattr(self.prompt_tokens, name, None)
         return None if tokens is None else tokens[idx]
 
+    def _skip(self, i: int, c: torch.Tensor) -> torch.Tensor:
+        res = self.conf.unetr_res_block
+        if res == "none":
+            return c
+        block = self.residual_blocks[i]
+        if res == "simple":
+            return conv3d(c.to(self.conf.dtype), block)
+        return block(c)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: ``[B, H, W, D, C_in]`` -> downstream logits
         ``[B, H, W, D, classes]`` (fp32)."""
         conf = self.conf
         enc = batch_norm(conv3d(x.to(conf.dtype), self.input_layer[0]),
                          self.input_layer[1]).to(conf.dtype)
-        feats = [enc]
+        feats = [enc, x]
         for j, stage in enumerate(self.encoder_blocks):
             enc = stage(enc, (self._tokens("enc", 2 * j),
                               self._tokens("enc", 2 * j + 1)))
             feats.insert(0, enc)
-        dec = conv3d(feats[0], self.bottleneck) + feats[0]
+        if conf.unetr_res_block == "full":
+            dec = self.bottleneck(feats[0]) + feats[0]
+        else:
+            dec = conv3d(feats[0], self.bottleneck) + feats[0]
         for j, up in enumerate(self.decoder_blocks):
-            dec = up(dec, feats[j + 1], (self._tokens("dec", 2 * j),
-                                         self._tokens("dec", 2 * j + 1)))
-        out = upsample_trilinear(dec, (2, 2, 2), align_corners=False).float()
+            dec = up(dec, self._skip(j, feats[j + 1]),
+                     (self._tokens("dec", 2 * j),
+                      self._tokens("dec", 2 * j + 1)))
+        if conf.unetr_res_block == "none":
+            out = upsample_trilinear(dec, (2, 2, 2), align_corners=False)
+        else:
+            out = self.output_layer(
+                dec, self._skip(conf.depth_unet, feats[-1]),
+                (self._tokens("out", 0), self._tokens("out", 1)))
         head = self.extra_heads["downstream"]
-        out = batch_norm(out, head[0]).to(conf.dtype)
+        out = batch_norm(out.float(), head[0]).to(conf.dtype)
         return conv3d(out, head[1]).float()

@@ -18,14 +18,17 @@ folded into an affine (``models/unet_blocks.py::bn_fold``).
 
 CUDA tensors run ``csrc/conv3x3_pair.cu`` (B3 is its one-input case):
 fp32 inputs are rounded to bf16 first, as the JAX wrapper rounds them
-(``conv_pallas.py``), and the output keeps the input's dtype (the model's
-``out_dtype``).  CPU tensors run :func:`conv_pair_reference` /
+(``conv_pallas.py``), and the output is written in ``out_dtype`` (the
+block's dtype; default the input's).  CPU tensors run :func:`conv_pair_reference` /
 :func:`conv_reference`.  ``conv3x3_fused_pair.launches`` and
-``conv3x3_fused.launches`` count the kernel launches.
+``conv3x3_fused.launches`` count the kernel launches;
+``conv3x3_fused_pair.launches_by_shape`` counts the pair's by the
+per-sample shape of ``xa`` (``(D, H, W, Ca)``).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -200,29 +203,35 @@ def tile_info(shape, co: int, tile=(0, 0)) -> dict:
 def conv3x3_fused_pair(xa: torch.Tensor, xb: torch.Tensor,
                        weight: torch.Tensor, bias: torch.Tensor,
                        scale: torch.Tensor, shift: torch.Tensor,
-                       w27: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       w27: Optional[torch.Tensor] = None,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
     """``conv(leaky(concat(xa, xb) * scale + shift)) + bias``, "same"
-    3x3x3, channels-last; output in xa's dtype.  The operands are bf16 on
-    the kernel path (fp32 inputs rounded first) and xa's dtype on the
-    plain path.
+    3x3x3, channels-last; output in ``out_dtype`` (default xa's dtype).
+    The operands are bf16 on the kernel path (fp32 inputs rounded first)
+    and xa's dtype on the plain path.
 
     ``w27`` (CUDA only): the cached :func:`kernel_weight` of ``weight``.
     """
     _check_args(xa, xb, weight, bias, scale, shift)
+    out_dtype = out_dtype or xa.dtype
     if not xa.is_cuda:
         return conv_pair_reference(xa, xb, weight, bias, scale, shift,
-                                   matmul_dtype=xa.dtype)
+                                   matmul_dtype=xa.dtype,
+                                   out_dtype=out_dtype)
     if w27 is None:
         w27 = kernel_weight(weight)
     a16, b16 = _operand(xa), _operand(xb)
     check_kernel_args(a16, b16, w27, bias, scale, shift)
     out = _launch(a16, b16, w27, bias, scale, shift, True,
-                  "conv3x3_fused_pair", xa.dtype)
+                  "conv3x3_fused_pair", out_dtype)
     conv3x3_fused_pair.launches += 1
+    conv3x3_fused_pair.launches_by_shape[tuple(xa.shape[1:])] += 1
     return out
 
 
 conv3x3_fused_pair.launches = 0
+conv3x3_fused_pair.launches_by_shape = collections.Counter()
 
 
 def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

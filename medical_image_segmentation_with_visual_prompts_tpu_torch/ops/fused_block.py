@@ -49,11 +49,14 @@ tensors take :func:`block_reference` and its autograd.  The one
 arithmetic difference: the kernel feeds the (dropped) softmax
 probabilities to its P.V tensor-core product as bf16, the plain version
 (like the JAX ``_block_reference``) keeps them fp32.
-``fused_swin_block.launches`` counts the forward kernel's launches.
+``fused_swin_block.launches`` counts the forward kernel's launches, and
+``fused_swin_block.launches_by_shape`` the same launches by the
+per-sample shape of ``x_win`` (``(P, M, C)``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional, Tuple
 
@@ -566,6 +569,7 @@ def _forward(x_win: torch.Tensor, ops: BlockOperands,
     kernels.check(_launch(x_win, out, ops, labels, dropout),
                   "fused_swin_block")
     fused_swin_block.launches += 1
+    fused_swin_block.launches_by_shape[tuple(x_win.shape[1:])] += 1
     return out
 
 
@@ -620,6 +624,7 @@ def fused_swin_block(x_win: torch.Tensor, ops: BlockOperands,
 
 
 fused_swin_block.launches = 0
+fused_swin_block.launches_by_shape = collections.Counter()
 
 
 def labels_tensor(labels: Optional[np.ndarray], device) -> Optional[torch.Tensor]:

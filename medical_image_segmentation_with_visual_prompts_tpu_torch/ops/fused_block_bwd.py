@@ -17,7 +17,9 @@ counterpart of the JAX ``jax.vjp(_operand_args)``).
   kernel, so two runs on the same inputs give the same bits.
   ``block_backward.launches`` counts its calls (one per call, whatever
   it launches) and ``block_backward.big_launches`` those of them in the
-  device-memory form; :func:`launch_info` gives the launch's shape.  A
+  device-memory form, ``block_backward.launches_by_shape`` all of them
+  by the per-sample shape of ``x_win`` (``(P, M, C)``);
+  :func:`launch_info` gives the launch's shape.  A
   window too large for the shared-memory layout at every cluster size
   (M 256 at C 192) takes the kernel's device-memory form
   (``BackwardPlan.big``: LN1 of the rows and the gathered [dQ dK dV]
@@ -29,6 +31,7 @@ counterpart of the JAX ``jax.vjp(_operand_args)``).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -302,6 +305,7 @@ def block_backward(x_win: torch.Tensor, dout: torch.Tensor,
                           out), "block_backward")
     block_backward.launches += 1
     block_backward.big_launches += plan.big
+    block_backward.launches_by_shape[(pw, m, c)] += 1
     cc = c * c
     w = {key: out[i * cc:(i + 1) * cc].view(c, c)
          for i, key in enumerate(("wq", "wk", "wv"))}
@@ -321,3 +325,4 @@ def block_backward(x_win: torch.Tensor, dout: torch.Tensor,
 
 block_backward.launches = 0
 block_backward.big_launches = 0
+block_backward.launches_by_shape = collections.Counter()

@@ -51,12 +51,15 @@ without factors gets the dense form, which the tests hold equal.
 SM; one CTA per (window, head)) from the shapes alone; :func:`launch_info`
 asks the card for the launch's shape.  ``.launches`` counts each
 kernel's launches (B6's on :func:`fused_window_attention_packed_qkv`,
-whichever of its two functions launched it), and ``.factor_launches``
-those that built the bias from its factors.
+whichever of its two functions launched it), ``.factor_launches``
+those that built the bias from its factors, and B6's
+``.launches_by_shape`` its launches by the per-sample content shape
+``(P, M, C)``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Optional, Tuple
@@ -433,11 +436,13 @@ def fused_window_attention_packed_qkv(
                   num_heads, matmul_dtype, factors)
     fused_window_attention_packed_qkv.launches += 1
     fused_window_attention_packed_qkv.factor_launches += factors is not None
+    fused_window_attention_packed_qkv.launches_by_shape[(p, m_len, c)] += 1
     return out
 
 
 fused_window_attention_packed_qkv.launches = 0
 fused_window_attention_packed_qkv.factor_launches = 0
+fused_window_attention_packed_qkv.launches_by_shape = collections.Counter()
 
 
 def fused_window_attention_packed_qkv_prompts(
@@ -477,6 +482,7 @@ def fused_window_attention_packed_qkv_prompts(
                   matmul_dtype, factors, y_prompt)
     fused_window_attention_packed_qkv.launches += 1
     fused_window_attention_packed_qkv.factor_launches += factors is not None
+    fused_window_attention_packed_qkv.launches_by_shape[(p, m, c)] += 1
     return out
 
 

@@ -1,11 +1,16 @@
-"""Gaussian-stitched sliding-window inference on the device.
+"""Sliding-window inference on the device.
 
-Counterpart of the JAX package's ``parallel/sliding_window.py``
-(``gaussian`` mode): windows are cut from the device-resident volume,
-run through the model in chunks, turned into softmax probabilities,
-weighted by a separable Gaussian importance map (sigma = roi/8, floor
-1e-4), overlap-added into a volume and divided by the precomputed blend
-weights.  The stitch is a plain slice-add per window -- the JAX coset
+Counterpart of the JAX package's ``parallel/sliding_window.py``, in its
+two modes:
+
+* ``gaussian``: windows are cut from the device-resident volume, run
+  through the model in chunks, turned into softmax probabilities,
+  weighted by a separable Gaussian importance map (sigma = roi/8, floor
+  1e-4), overlap-added into a volume and divided by the precomputed
+  blend weights;
+* ``per_window``: each window's argmax prediction, unstitched (the
+  reference's evaluation protocol).
+  The stitch is a plain slice-add per window -- the JAX coset
 decomposition exists to avoid TPU scatters.  The window grid, bucket
 and pad-coverage helpers are the same numpy functions.
 """
@@ -107,7 +112,7 @@ def gaussian_weight_acc(starts, valid, window, out_spatial) -> np.ndarray:
 
 
 class BucketedInference:
-    """Gaussian sliding-window inference with shape bucketing.
+    """Sliding-window inference with shape bucketing.
 
     ``apply_fn`` maps a window batch ``[n, *window, C_in]`` to logits
     ``[n, *window, classes]``.  ``coverage="crop"``: callers pre-crop to
@@ -116,16 +121,20 @@ class BucketedInference:
     is segmented.  ``chunk=None`` runs the whole grid in one batch when
     it has at most 32 windows, else batches of 16.  ``preprocess`` runs
     on the device on the uploaded volume (e.g. intensity windowing of a
-    raw int16 payload).
+    raw int16 payload).  ``mode="per_window"`` returns the argmax of each
+    valid window instead of the stitched probabilities.
     """
 
     def __init__(self, apply_fn: Callable, window: Sequence[int],
                  chunk: Optional[int] = None, num_classes: int = 2,
                  stride=None, preprocess: Optional[Callable] = None,
                  coverage: str = "crop", pad_value: float = 0.0,
-                 device=None):
+                 device=None, mode: str = "gaussian"):
         if coverage not in ("crop", "pad"):
             raise ValueError(f"coverage must be crop|pad, got {coverage}")
+        if mode not in ("gaussian", "per_window"):
+            raise ValueError(f"mode must be gaussian|per_window, got {mode}")
+        self.mode = mode
         self.apply_fn = apply_fn
         self.window = tuple(window)
         self.chunk = chunk
@@ -176,8 +185,10 @@ class BucketedInference:
 
     def __call__(self, cropped) -> torch.Tensor:
         """cropped: ``[H', W', D', C]`` numpy volume (already center-
-        cropped for ``coverage="crop"``).  Returns stitched class
-        probabilities ``[H', W', D', classes]`` (fp32, on the device)."""
+        cropped for ``coverage="crop"``).  ``gaussian``: stitched class
+        probabilities ``[H', W', D', classes]`` (fp32); ``per_window``:
+        the argmax labels ``[N, *window]`` (int64) of the valid windows,
+        in the order of ``plan(dims)[1][valid]``.  On the device."""
         dims = tuple(cropped.shape[:3])
         bucket, starts, valid = self.plan(dims)
         self._buckets.add(bucket)
@@ -187,19 +198,27 @@ class BucketedInference:
         vol = torch.from_numpy(vol).to(self.device, non_blocking=True)
         if self.preprocess is not None:
             vol = self.preprocess(vol)
-        wacc = self._weights(bucket, dims, starts, valid)
+        per_window = self.mode == "per_window"
+        if not per_window:
+            wacc = self._weights(bucket, dims, starts, valid)
+            acc = torch.zeros((*bucket, self.num_classes),
+                              dtype=torch.float32, device=self.device)
         starts = starts[valid]
-        acc = torch.zeros((*bucket, self.num_classes), dtype=torch.float32,
-                          device=self.device)
+        preds = []
         wh, ww, wd = self.window
         chunk = self.resolve_chunk(len(starts))
         for c0 in range(0, len(starts), chunk):
             part = starts[c0:c0 + chunk]
             batch = torch.stack([vol[s[0]:s[0] + wh, s[1]:s[1] + ww,
                                      s[2]:s[2] + wd] for s in part])
-            probs = torch.softmax(self.apply_fn(batch).float(), dim=-1) \
-                * self.gauss
+            logits = self.apply_fn(batch)
+            if per_window:
+                preds.append(torch.argmax(logits, dim=-1))
+                continue
+            probs = torch.softmax(logits.float(), dim=-1) * self.gauss
             for s, p in zip(part, probs):
                 acc[s[0]:s[0] + wh, s[1]:s[1] + ww, s[2]:s[2] + wd] += p
+        if per_window:
+            return torch.cat(preds)
         probs = acc / torch.clamp(wacc, min=1e-8)
         return probs[:dims[0], :dims[1], :dims[2]]

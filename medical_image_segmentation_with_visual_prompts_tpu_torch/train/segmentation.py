@@ -168,6 +168,13 @@ class SegmentationTrainer:
                                include_background=self.hparams.include_background)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        # A trainable parameter the loss does not reach (the decoder
+        # prompt tokens under ``unetr_up_block: unetr``) steps with a zero
+        # gradient, as optax does: weight decay, moments and count.
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         self.optimizer.step()
         return loss.detach(), seg_stats(logits.detach(), seg_true,
                                         self.num_classes)

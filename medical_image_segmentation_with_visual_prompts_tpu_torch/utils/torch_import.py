@@ -104,15 +104,24 @@ def _conv_rules(prefix: str, ours: str):
     }
 
 
-def _basic_block_rules(prefix: str, ours: str, res_block: bool):
-    convs = ("conv1", "conv2", "conv3") if res_block else ("conv1", "conv2")
+def _basic_block_rules(prefix: str, ours: str, res_block: bool,
+                       project: bool, layer: str = "layer"):
+    """The convs of a UNETR conv block: ``conv1``, ``conv2`` and, in a
+    residual block whose input and output channel counts differ, the 1x1
+    projection ``conv3``.  ``layer`` is the wrapper level of a
+    ``UnetrBasicBlock`` (``""`` for an up block's ``conv_block``, which
+    has none).  The instance norms have no parameters."""
+    convs = ("conv1", "conv2", "conv3") if res_block and project \
+        else ("conv1", "conv2")
+    tp, op = (f"{prefix}.{layer}", f"{ours}/{layer}") if layer \
+        else (prefix, ours)
     rules = {}
     for c in convs:
         rules.update({
-            f"{prefix}.layer.{c}.conv.weight": (
-                "params", f"{ours}/layer/{c}/Conv_0/kernel", _conv_w),
-            f"{prefix}.layer.{c}.conv.bias": (
-                "params", f"{ours}/layer/{c}/Conv_0/bias", _ident),
+            f"{tp}.{c}.conv.weight": (
+                "params", f"{op}/{c}/Conv_0/kernel", _conv_w),
+            f"{tp}.{c}.conv.bias": (
+                "params", f"{op}/{c}/Conv_0/bias", _ident),
         })
     return rules
 
@@ -120,7 +129,12 @@ def _basic_block_rules(prefix: str, ours: str, res_block: bool):
 def build_key_rules(conf) -> Dict[str, Tuple]:
     """torch state-dict key -> (collection, 'a/b/c' flax path, transform
     or ``("stack", k)``), or None for a buffer with no flax leaf; every
-    training mode and decoder layout of the JAX package."""
+    training mode and decoder layout of the JAX package.
+
+    The UNETR blocks' rules follow the flax tree the JAX model builds,
+    where the JAX package's own table does not: an up block's
+    ``conv_block`` has no ``layer`` level, and ``conv3`` exists only where
+    a residual block changes the channel count."""
     depth = conf.depth_unet
     mode = conf.training_mode
     needs_decoder = mode != "self_supervised_learning_encoder"
@@ -180,14 +194,17 @@ def build_key_rules(conf) -> Dict[str, Tuple]:
     if needs_decoder:
         if conf.unetr_res_block == "full":
             rules.update(_basic_block_rules("bottleneck", "bottleneck",
-                                            conf.basic_block_res))
+                                            conf.basic_block_res, False))
         else:
             rules.update(_conv_rules("bottleneck", "bottleneck"))
         for i in range(depth + 1):
             if conf.unetr_res_block == "full":
+                # Only the last one (the raw input) may change channels.
                 rules.update(_basic_block_rules(
                     f"residual_blocks.{i}", f"residual_blocks_{i}",
-                    conf.basic_block_res))
+                    conf.basic_block_res,
+                    i == depth and conf.input_channels !=
+                    conf.hidden_channels[0]))
             elif conf.unetr_res_block == "simple":
                 rules.update(_conv_rules(f"residual_blocks.{i}",
                                          f"residual_blocks_{i}"))
@@ -222,9 +239,10 @@ def build_key_rules(conf) -> Dict[str, Tuple]:
                         f"{oprefix}/transp_conv/ConvTranspose_0/bias",
                         _ident),
                 })
+                # conv_block: 2C (upsampled, skip) -> C, no wrapper level.
                 rules.update(_basic_block_rules(
                     f"{tprefix}.conv_block", f"{oprefix}/conv_block",
-                    conf.res_block))
+                    conf.res_block, True, layer=""))
         heads = []
         if mode in ("supervised_learning_decoder", "supervised_learning_all"):
             heads.append(("extra_heads.segmentation", "head_segmentation"))

@@ -118,6 +118,22 @@ def test_backward_plan_is_a_function_of_the_shapes(name, m, n, c, heads,
                <= fbb.SMEM_PER_CTA)
 
 
+@pytest.mark.parametrize("windows", [512, 1024, 13824])
+def test_backward_plan_output_layer(windows):
+    """The Swin output layer (full/simple + swin layouts): C 48, 4 heads,
+    M 256, N 320 -- enc0's shapes at 512 windows per image (1024 at the
+    training batch 2).  The shared-memory form fits, at enc0's cluster of
+    2 head groups and 512 threads, one CTA per SM."""
+    m, n, c, heads, tabw = 256, 320, 48, 4, 64 + 64 + 16 + 64
+    plan = fbb.backward_plan(windows, m, n, c, heads, tabw, sms=132)
+    assert (plan.big, plan.ks, plan.hs, plan.qs, plan.threads) == \
+        (False, 2, 2, 1, 512), plan
+    assert plan.smem == fbb.backward_smem(m, n, c, heads, tabw, 2)
+    assert plan.smem <= fbb.SMEM_PER_CTA and plan.ctas_per_sm == 1
+    assert fbb.backward_smem(m, n, c, heads, tabw, 1) > fbb.SMEM_PER_CTA
+    assert plan == fbb.backward_plan(128, m, n, c, heads, tabw, sms=132)
+
+
 def test_backward_plan_forced_and_refused():
     m, n, c, heads, tabw = 128, 193, 192, 4, 337
     for ks, split in ((4, (4, 1)), (8, (4, 2))):

@@ -10,8 +10,14 @@
   port's, leaf for leaf, exactly.
 * The name map (``utils/torch_import.py``) against the JAX
   ``export_state_dict``/``import_state_dict`` rules: the same rules table
-  in every training mode, and ``to_flax_variables``/``load_flax_variables``
-  exact on the tiny config and on the example config's widths at depth 1.
+  in every training mode and decoder layout, and ``to_flax_variables``/
+  ``load_flax_variables`` exact on the tiny config in every layout and on
+  the example config's widths at depth 1.  The JAX table names flax
+  leaves that the JAX model does not build in the UNETR layouts (an up
+  block's ``conv_block/layer/...``, and ``conv3`` where a residual block
+  keeps its channel count), so its exporter raises there; the port's
+  table follows the flax tree, and the tests hold both tables to it.
+* Partition labels in every layout against the JAX ``label_of``.
 * The optimizer leaves (``train/common.py``) against ``tx.init`` of the
   JAX trainer's optax state: the same structure, order and dtypes, exact
   values both ways.
@@ -38,6 +44,12 @@ from medical_image_segmentation_with_visual_prompts_tpu.train.common import \
     adamw as jax_adamw
 from medical_image_segmentation_with_visual_prompts_tpu.utils import \
     checkpoint as jax_ckpt
+from medical_image_segmentation_with_visual_prompts_tpu.models import \
+    ModelConfig as JaxModelConfig
+from medical_image_segmentation_with_visual_prompts_tpu.models import \
+    SwinUnetR as JaxSwinUnetR
+from medical_image_segmentation_with_visual_prompts_tpu.utils import \
+    torch_export as jax_export
 from medical_image_segmentation_with_visual_prompts_tpu.utils import \
     torch_import as jax_import
 from medical_image_segmentation_with_visual_prompts_tpu.utils.summary import \
@@ -48,6 +60,8 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.config import \
     ModelConfig
 from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
     SwinUnetR
+from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
+    partition
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train import \
     SegmentationTrainer
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train.common \
@@ -213,18 +227,57 @@ def test_checkpoint_files_cross_both_ways(tmp_path, tiny):
         ckpt.load_checkpoint(tmp_path)          # no *.ckpt directly in it
 
 
+LAYOUTS = [(r, u) for r in ("none", "simple", "full")
+           for u in ("swin", "unetr")]
+
+
+def flax_leaves(conf: dict) -> set:
+    """``collection/a/b`` of every leaf of the JAX model's variables
+    (shapes only, ``jax.eval_shape``)."""
+    jconf = JaxModelConfig.from_namespace(Namespace(**conf))
+    x = jax.ShapeDtypeStruct((1, *conf["roi_size"], conf["input_channels"]),
+                             np.float32)
+    v = jax.eval_shape(lambda x: JaxSwinUnetR(jconf).init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        x, deterministic=True), x)
+    return {"/".join(k) for k in traverse_util.flatten_dict(v)}
+
+
+def jax_table_faulty(layout) -> bool:
+    """Layouts where the JAX rules table names leaves that do not exist:
+    a ``full`` bottleneck's ``conv3``, the unetr up blocks' ``layer``."""
+    return layout[0] == "full" or layout[1] == "unetr"
+
+
 @pytest.mark.parametrize("mode", ["downstream", "supervised_learning_all",
                                   "self_supervised_learning_encoder"])
-@pytest.mark.parametrize("layout", [("none", "swin"), ("full", "unetr"),
-                                    ("simple", "swin")])
+@pytest.mark.parametrize("layout", LAYOUTS)
 def test_rules_table_is_the_jax_one(mode, layout):
-    conf = ModelConfig.from_mapping(tiny_conf(
-        training_mode=mode, unetr_res_block=layout[0],
-        unetr_up_block=layout[1]))
+    """The port's table names every leaf of the JAX model's tree and no
+    other; it is the JAX table wherever that one names real leaves, and
+    elsewhere the JAX table with its two UNETR faults repaired."""
+    raw = tiny_conf(training_mode=mode, unetr_res_block=layout[0],
+                    unetr_up_block=layout[1])
+    conf = ModelConfig.from_mapping(raw)
     ours = torch_import.build_key_rules(conf)
     theirs = jax_import.build_key_rules(conf)
-    assert list(ours) == list(theirs)
+    leaves = flax_leaves(raw)
+    assert {f"{r[0]}/{r[1]}" for r in ours.values() if r} == leaves
+    repaired, n_faults = {}, 0
     for key, rule in theirs.items():
+        if rule and f"{rule[0]}/{rule[1]}" not in leaves:
+            n_faults += 1
+            key = key.replace(".conv_block.layer.", ".conv_block.")
+            rule = (rule[0], rule[1].replace("/conv_block/layer/",
+                                             "/conv_block/"), rule[2])
+            if f"{rule[0]}/{rule[1]}" not in leaves:
+                assert ".conv3." in key, key    # a projection not built
+                continue
+        repaired[key] = rule
+    assert (n_faults > 0) == (jax_table_faulty(layout)
+                              and mode != "self_supervised_learning_encoder")
+    assert list(ours) == list(repaired)
+    for key, rule in repaired.items():
         if rule is None:
             assert ours[key] is None, key
         else:
@@ -232,6 +285,28 @@ def test_rules_table_is_the_jax_one(mode, layout):
             otf = ours[key][2] if isinstance(ours[key][2], tuple) \
                 else ours[key][2].__name__
             assert ours[key][:2] == rule[:2] and otf == tf, key
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_partition_labels_are_the_jax_ones(layout):
+    """Every port parameter's label is the JAX ``label_of`` of the flax
+    leaf it maps to, in every layout (the output layer's prompt tokens
+    are decoder prompts, skip blocks and output layer decoder bodies)."""
+    conf = ModelConfig.from_mapping(tiny_conf(
+        unetr_res_block=layout[0], unetr_up_block=layout[1]))
+    rules = torch_import.build_key_rules(conf)
+    model = SwinUnetR(conf)
+    labels = {}
+    for name, _ in model.named_parameters():
+        path = tuple(rules[name][1].split("/"))
+        labels[name] = partition.label_of(name)
+        assert labels[name] == jax_partition.label_of(path), name
+    if layout[0] != "none" and layout[1] == "swin":
+        assert labels["prompt_tokens.out.1"] == "decoder_prompt"
+    if layout[0] != "none":
+        assert {labels[n] for n in labels
+                if n.startswith(("residual_blocks", "output_layer"))} <= \
+            {"decoder_body", "decoder_bias_content", "decoder_prompt"}
 
 
 def _example_depth1():
@@ -244,14 +319,31 @@ def _example_depth1():
     return conf
 
 
-@pytest.mark.parametrize("which", ["tiny", "example_depth1"])
-def test_name_map_is_the_exporter_exactly(which, tiny):
+@pytest.mark.parametrize("which", ["tiny", "example_depth1"] + [
+    f"tiny_{r}_{u}" for r, u in LAYOUTS if (r, u) != ("none", "swin")])
+def test_name_map_is_the_exporter_exactly(which, tiny, monkeypatch):
+    """Where the JAX table is faulty (``jax_table_faulty``) its exporter
+    raises, and the comparison runs the JAX exporter and importer on the
+    port's table."""
+    layout = ("none", "swin")
     if which == "tiny":
         conf, _, jconf, variables, _ = tiny
     else:
-        conf = _example_depth1()
+        if which == "example_depth1":
+            conf = _example_depth1()
+        else:
+            layout = tuple(which.split("_")[1:])
+            conf = tiny_conf(unetr_res_block=layout[0],
+                             unetr_up_block=layout[1])
         _, jconf, variables = jax_model(conf, seed=4)
         variables = jax.tree_util.tree_map(np.asarray, variables)
+    if jax_table_faulty(layout):
+        with pytest.raises(KeyError, match="does not exist"):
+            export_state_dict(variables, jconf)
+        monkeypatch.setattr(jax_export, "build_key_rules",
+                            torch_import.build_key_rules)
+        monkeypatch.setattr(jax_import, "build_key_rules",
+                            torch_import.build_key_rules)
     sd = export_state_dict(variables, jconf)
     model = SwinUnetR(ModelConfig.from_mapping(conf))
     torch_import.load_flax_variables(model, variables)

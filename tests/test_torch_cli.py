@@ -19,6 +19,12 @@ volumes, on the CPU.
 * Fault C5: the port's ``infer --ckpt`` serves the JAX trainer's
   checkpoint; its labels agree with the JAX model served by JAX
   ``BucketedInference`` from the same file on at least 99.9% of voxels.
+* A non-flagship layout (``unetr_res_block: full``, the Swin output layer
+  with its two prompt tokens): the JAX trainer's checkpoint serves
+  through the port's ``infer --ckpt`` (the same 99.9%) and resumes in the
+  port's trainer with the file's state bit for bit; the port's own
+  checkpoint restores in the JAX package leaf for leaf, optimizer state
+  included.
 """
 
 import json
@@ -26,6 +32,7 @@ from argparse import Namespace
 from datetime import datetime
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -411,3 +418,97 @@ def test_module_entry_point_tests_a_checkpoint(runs, tmp_path):
     for key in ("iou", "dcc"):
         assert f": {key}: {np.mean(want[key]):.4f} +/- " in log.read_text()
     assert not list(tmp_path.glob("*/summary/events.out.tfevents.*"))
+
+
+def test_full_swin_checkpoints_cross_both_ways(runs, tmp_path, monkeypatch):
+    from medical_image_segmentation_with_visual_prompts_tpu.models import \
+        partition as jax_partition
+    from test_torch_checkpoint import _jax_opt_state
+    root = runs["root"]
+    for mod in (config, jax_configs):
+        monkeypatch.setattr(mod, "DEFAULT_CKPT_DIR", tmp_path / "ckpts")
+        monkeypatch.setattr(mod, "DEFAULT_ROOT_LOG_DIR", tmp_path / "logs")
+
+    def yml(name, **over):
+        conf = tiny_conf(
+            image_dir_downstream=str(root / "train_img"),
+            mask_dir_downstream=str(root / "train_msk"),
+            image_dir_test=str(root / "test_img"),
+            mask_dir_test=str(root / "test_msk"), unetr_res_block="full",
+            unetr_up_block="swin", **over)
+        for key in ("training_mode", "use_encoder_prompting",
+                    "use_decoder_prompting"):
+            conf.pop(key)
+        (tmp_path / f"{name}.yml").write_text(yaml.safe_dump(conf))
+        return str(tmp_path / f"{name}.yml")
+
+    fit0, fit1 = (yml(f"full{e}", max_epochs_downstream=e) for e in (0, 1))
+    # 1. The JAX trainer fits epoch 0 and saves 0001.ckpt.
+    jtr = jax_init.setup_fitting(jax_configs.get_full_configs(cli_args(
+        configs=fit0, run_name="jfull", save_ckpt_prompt_tokens=True,
+        save_ckpt_prompt_tokens_path=str(tmp_path / "jax_ckpt"))))
+    jtr.train()
+    jfile = tmp_path / "jax_ckpt" / "0001.ckpt"
+    # 2. The port serves it.
+    src = root / "test_img" / "case0.nii.gz"
+    out = tmp_path / "seg.nii.gz"
+    infer.main(["--configs", fit0, "--ckpt", str(jfile), "--input",
+                str(src), "--output", str(out), "--stride-factor", "0.75",
+                "--device", "cpu", "--chunk", "4", "--use-encoder-prompting",
+                "--use-decoder-prompting"])
+    labels, _ = load_nifti(str(out))
+    conf = tiny_conf(**yaml.safe_load(open(fit0)))
+    jm, jconf, template = jax_model(conf)
+    variables = jax_ckpt.restore_like(
+        template, jax_ckpt.load_checkpoint(jfile)["model_state_dict"])
+    assert "prompt_tokens_out_0" in variables["params"]
+
+    def apply_fn(batch):
+        return jm.apply(variables, batch, deterministic=True)["downstream"]
+
+    vol, _ = load_nifti(str(src))
+    runner = jax_sw.BucketedInference(
+        apply_fn, tuple(conf["roi_size"]), 4, 2, stride=0.75,
+        preprocess=jax_infer.device_scale_intensity(), coverage="pad",
+        pad_value=-1000.0)
+    want = np.asarray(jnp.argmax(runner(vol[..., None]), axis=-1))
+    assert labels.shape == want.shape == vol.shape
+    assert (labels == want).mean() >= 0.999
+    # 3. The port resumes from it: the file's state bit for bit, then an
+    # epoch whose steps move the output layer's tokens.
+    args = cli_args(configs=fit1, run_name="pfull",
+                    load_ckpt_prompt_tokens=True,
+                    load_ckpt_prompt_tokens_path=str(jfile))
+    hp = config.get_full_configs(args)
+    saved = ckpt.load_checkpoint(jfile)
+    resumed = initialization.select_trainer(
+        hp, initialization.select_backbone(hp), None, None, None, None,
+        "cpu")
+    assert resumed.prepare_fit() == 1
+    assert_trees_equal(to_flax_variables(resumed.model),
+                       saved["model_state_dict"])
+    assert_trees_equal(adamw_leaves(resumed.optimizer, resumed.model),
+                       saved["optimizer_state_dict"]["__flat_leaves__"])
+    before = resumed.model.prompt_tokens.out[0].detach().clone()
+    fitted = main.main("fit", config.get_full_configs(args), "cpu")
+    assert fitted.start_epoch == 1 and len(fitted.losses) == 2
+    assert all(np.isfinite(fitted.losses))
+    assert (fitted.model.prompt_tokens.out[0].detach() - before).abs().max() \
+        > 0
+    # 4. The port's own checkpoint restores in the JAX package.
+    pfit = main.main("fit", config.get_full_configs(cli_args(
+        configs=fit0, run_name="pfull0", save_ckpt_prompt_tokens=True,
+        save_ckpt_prompt_tokens_path=str(tmp_path / "port_ckpt"))), "cpu")
+    pfile = jax_ckpt.load_checkpoint(tmp_path / "port_ckpt" / "0001.ckpt")
+    back = jax_ckpt.restore_like(template, pfile["model_state_dict"])
+    assert_trees_equal(jax.tree_util.tree_map(np.asarray, back),
+                       to_flax_variables(pfit.model))
+    _, _, state = _jax_opt_state({**conf, "weight_decay_downstream": 0.0},
+                                 jconf, template)
+    leaves = jax_ckpt.restore_like(
+        jax.tree_util.tree_leaves(state),
+        pfile["optimizer_state_dict"]["__flat_leaves__"])
+    assert int(leaves[0]) == len(pfit.losses)
+    trainable, _ = jax_partition.split_params(
+        template["params"], jax_partition.trainable_labels(jconf))
+    assert "prompt_tokens_out_1" in trainable

@@ -228,6 +228,31 @@ def test_fused_swin_block_flagship_geometries(dev, c, heads, dims, shift,
     _assert_close(got, ref)
 
 
+# The Swin output layer of the full/simple + swin layouts: a SwinUpBlock
+# at the input resolution, C 48, 4 heads, 128x128x8 (M 256, N 320; 512
+# windows per image, eight times enc0's 64).
+OUTPUT_LAYER_BLOCK = (48, 4, (128, 128, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_fused_swin_block_output_layer(dev, shift, dtype, dropout):
+    """B1 on the output layer's blocks at batch 2 (1024 windows; the
+    dropout counters of 1024 windows stay within 32 bits)."""
+    x, ops, labels = _flagship_block(dev, *OUTPUT_LAYER_BLOCK, shift, 2,
+                                     dtype)
+    assert x.shape[:2] == (2, 512)
+    drop = DROP if dropout else fb.NO_DROPOUT
+    with torch.inference_mode():
+        ref = fb.block_reference(x, ops, labels, drop)
+        got = fb.fused_swin_block(x, ops, labels, drop)
+        torch.cuda.synchronize()
+    assert got.dtype == dtype
+    _assert_close(got, ref)
+
+
 # (C, heads, dims, images, the cluster size B1 picks for that many
 # windows, images of a second batch that picks another size)
 CLUSTER_CASES = [(48, 4, (64, 64, 4), 27, 1, 1),
@@ -321,6 +346,27 @@ def test_conv3x3_pair_kernel_writes_fp32(dev, shape, ca, cb, co):
         got = cf.conv3x3_fused_pair(xa, xb, w, bias, scale, shift)
         torch.cuda.synchronize()
     assert got.dtype == torch.float32
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+def test_conv3x3_pair_kernel_output_layer(dev, dtype, out_dtype):
+    """The Swin output layer's conv: 48 + 48 -> 48 at 128x128x8 (depth 8,
+    3.5 M output voxels per 27 windows), batch 2; written in the block's
+    dtype (``out_dtype``) whatever the inputs' (an fp32 trunk after a
+    ``full`` bottleneck, a bf16 block)."""
+    xa, xb, w, bias, scale, shift = _conv_case(dev, (2, 128, 128, 8), 48,
+                                               48, 48, seed=4, dtype=dtype)
+    with torch.inference_mode():
+        ref = cf.conv_pair_reference(xa, xb, w, bias, scale, shift,
+                                     out_dtype=out_dtype)
+        got = cf.conv3x3_fused_pair(xa, xb, w, bias, scale, shift,
+                                    out_dtype=out_dtype)
+        torch.cuda.synchronize()
+    assert got.shape == (2, 128, 128, 8, 48) and got.dtype == out_dtype
     _assert_close(got, ref)
 
 
@@ -483,6 +529,30 @@ def test_block_backward_flagship_geometries(dev, c, heads, dims, shift,
     _assert_grads_close(_flat_grads(dx, grads), ref)
     info = fbb.launch_info(x, ops, labels, drop)
     assert info["ctas"] >= 64 and info["smem"] <= 227 * 1024, info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_block_backward_output_layer(dev, shift, dtype, dropout):
+    """B4 on the output layer's training calls (1024 windows at batch 2)
+    against the autograd of the plain block: the shared-memory form at
+    enc0's plan (``backward_plan``, held on the CPU in
+    ``test_torch_block_bwd_plan.py``)."""
+    x, ops, labels = _flagship_block(dev, *OUTPUT_LAYER_BLOCK, shift, 2,
+                                     dtype)
+    drop = DROP if dropout else fb.NO_DROPOUT
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        12)).to(dev, dtype)
+    ref = _flat_grads(*fbb.block_backward_reference(x, dout, ops, labels,
+                                                    drop))
+    dx, grads = fbb.block_backward(x, dout, ops, labels, drop)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype
+    _assert_grads_close(_flat_grads(dx, grads), ref)
+    info = fbb.launch_info(x, ops, labels, drop)
+    assert not info["big"] and info["ctas"] == 2048, info
 
 
 @pytest.mark.cuda
@@ -859,6 +929,45 @@ def test_window_attention_flagship_repeats_and_plan(dev, c, heads, masked):
     assert info["threads"] == plan.threads
     assert info["ctas"] == 6 * heads
     assert info["ctas_per_sm"] >= 1 and info["registers"] <= 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+def test_window_attention_output_layer(dev, shift):
+    """B6 on the Swin output layer's unfused blocks at batch 2 (C 48, 4
+    heads, 128x128x8: 512 windows of M 256, N 320 per image; the shift on
+    every axis, depth included), as the unfused block calls it (the prompt
+    rows apart, the bias as its factors): within TOL of the plain version,
+    and the launch counted at its shape."""
+    c, heads, dims = OUTPUT_LAYER_BLOCK
+    g = torch.Generator().manual_seed(16)
+    blk = SwinTransformerBlock(c, (8, 8, 4), 64, heads, 1, 64,
+                               shift_size=shift, pad_mode="aligned",
+                               dtype=torch.bfloat16)
+    blk = init_weights(blk, g).to(dev)
+    blk.fused_block = False
+    x = torch.randn((2, *dims, c), generator=g).to(dev, torch.bfloat16)
+    tok = (0.5 * torch.randn((64, c), generator=g)).to(dev)
+    at = blk.attn
+    ws = [lin.weight.t() for lin in (at.to_q, at.to_k, at.to_v)]
+    scale = (c // heads) ** -0.5
+    counted = wa.fused_window_attention_packed_qkv.launches_by_shape
+    with torch.inference_mode():
+        x_win, ops, labels, _ = blk.windows(x, tok)
+        y = blk.attn_input(x_win, tok)
+        m = x_win.shape[2]
+        ref = wa.fused_window_attention_packed_qkv_reference(
+            y, *ws, m, ops.bias, labels, scale, heads)
+        before = counted[(512, m, c)]
+        got = wa.fused_window_attention_packed_qkv_prompts(
+            y[:, :, :m].contiguous(), y[0, 0, m:].contiguous(), *ws,
+            ops.bias, labels, scale, heads, wqkv=at.kernel_weight(),
+            factors=ops.factors)
+        torch.cuda.synchronize()
+    assert tuple(x_win.shape[:3]) == (2, 512, 256)
+    assert (labels is not None) == any(shift) and ops.factors is not None
+    assert counted[(512, m, c)] == before + 1
+    _assert_close(got, ref)
 
 
 @pytest.mark.cuda

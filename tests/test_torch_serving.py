@@ -165,6 +165,83 @@ def test_infer_main_end_to_end_matches_jax_serving(tmp_path, tiny_jax):
     assert 0 < (want > 0).mean() < 1       # both classes present
 
 
+def test_per_window_mode_matches_jax(tiny_jax):
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import ModelConfig
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .torch_import import load_flax_variables
+    conf, jm, jconf, variables = tiny_jax
+    roi = tuple(conf["roi_size"])
+    model = SwinUnetR(ModelConfig.from_mapping(conf))
+    load_flax_variables(model, variables)
+    vol = np.random.default_rng(7).uniform(
+        0, 1, size=(30, 36, 13, 1)).astype(np.float32)
+    slices, _, _ = sw.window_starts(vol.shape[:3], roi, 0.5)
+    vol = np.ascontiguousarray(vol[slices])
+    runner = sw.BucketedInference(model.eval(), roi, 4, 2, stride=0.5,
+                                  device="cpu", mode="per_window")
+    with torch.inference_mode():
+        got = runner(vol).numpy()
+    _, starts, valid = runner.plan(vol.shape[:3])
+    starts = starts[valid]
+    assert got.shape == (len(starts), *roi) and len(starts) > 4
+
+    def apply_fn(batch):
+        return jm.apply(variables, batch, deterministic=True)["downstream"]
+
+    run = jax_sw.make_sliding_window_fn(apply_fn, roi, 4, 2,
+                                        mode="per_window", stride=0.5)
+    padded, n = jax_sw.pad_starts(starts, 4)
+    want = np.asarray(run(jnp.asarray(vol), jnp.asarray(padded),
+                          jnp.asarray(n)))[:n]
+    assert (got == want).mean() >= 0.999
+    assert 0 < (want > 0).mean() < 1
+    with pytest.raises(ValueError, match="mode"):
+        sw.BucketedInference(model, roi, mode="stitch")
+
+
+def test_watch_directory_serves_each_new_volume_once(tmp_path):
+    import os
+    import time
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import ModelConfig
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import init_weights
+    conf = tiny_conf()
+    model = init_weights(SwinUnetR(ModelConfig.from_mapping(conf)),
+                         torch.Generator().manual_seed(0))
+    inbox, out, ref = tmp_path / "in", tmp_path / "out", tmp_path / "ref"
+    inbox.mkdir()
+    rng = np.random.default_rng(8)
+    old = time.time() - 60
+    for name in ("a.nii.gz", "b.nii.gz"):
+        save_nifti(str(inbox / name), rng.normal(
+            0, 400, size=(20, 18, 9)).astype(np.int16))
+        os.utime(inbox / name, (old, old))
+    (inbox / "notes.txt").write_text("not a volume")
+    assert infer.watch_directory(conf, model, inbox, out, interval=0.0,
+                                 max_polls=2, stride=1.0) == (2, 0)
+    # A volume still being written (too new) waits; served ones stay done.
+    save_nifti(str(inbox / "c.nii.gz"), np.zeros((20, 18, 9), np.int16))
+    assert infer.watch_directory(conf, model, inbox, out, interval=0.0,
+                                 max_polls=1, stride=1.0) == (0, 0)
+    assert sorted(p.name for p in out.iterdir()) == [
+        "a_seg.nii.gz", "b_seg.nii.gz"]
+    pairs = infer.resolve_io([str(inbox / "a.nii.gz"),
+                              str(inbox / "b.nii.gz")], str(ref))
+    assert infer.serve_volumes(conf, model, pairs, stride=1.0) == (2, 0)
+    for name in ("a_seg.nii.gz", "b_seg.nii.gz"):
+        np.testing.assert_array_equal(load_nifti(str(out / name))[0],
+                                      load_nifti(str(ref / name))[0])
+    with pytest.raises(SystemExit, match="single --input directory"):
+        infer.main(["--ckpt", "x.pt", "--input", str(inbox), str(inbox),
+                    "--output", str(out), "--watch", "--device", "cpu"])
+
+
 def test_serve_volumes_counts_failures(tmp_path):
     from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
         import ModelConfig

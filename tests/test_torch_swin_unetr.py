@@ -8,6 +8,11 @@ plain versions at fp32 (pad-folded blocks where the geometry allows, so
 the fold algebra is checked against the padded computation).  Logits
 agree to float reassociation: 1e-4 absolute on O(1) logits.
 
+Every decoder layout (``unetr_res_block`` none/simple/full x
+``unetr_up_block`` swin/unetr) is held to the JAX model at the tiny
+config, its variables carried by the port's name map
+(``utils/torch_import.py::load_flax_variables``).
+
 Geometries: ``configurations/tiny_cpu.yml`` (every stage window-aligned,
 so both pad modes coincide there); a variant with window 4x4x4 on a
 32x32x8 roi whose stage 1 (8x8x2) folds its depth axis under the plain
@@ -39,9 +44,15 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
     SwinUnetR
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import (
     init_weights, load_reference_checkpoint)
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils.torch_import \
+    import load_flax_variables
 
 ROOT = Path(__file__).resolve().parent.parent
 ATOL = 1e-4
+
+# (unetr_res_block, unetr_up_block): every decoder layout of the JAX model.
+LAYOUTS = [(r, u) for r in ("none", "simple", "full")
+           for u in ("swin", "unetr")]
 
 VARIANTS = {
     "tiny_aligned": dict(pad_mode="aligned"),
@@ -169,6 +180,29 @@ def test_init_weights_is_seeded_with_live_batchnorm_stats():
     assert a.encoder_blocks[0].swin_blocks[0].attn_norm.bias.abs().max() > 0
 
 
+def test_init_weights_seeds_every_layout():
+    """The UNETR blocks' convs and transposed convs, the output layer and
+    its prompt tokens are drawn like the rest: seeded, finite, weights
+    non-zero, biases small."""
+    for layout in LAYOUTS:
+        conf = tiny_conf(unetr_res_block=layout[0], unetr_up_block=layout[1])
+        a, b = (init_weights(SwinUnetR(ModelConfig.from_mapping(conf)),
+                             torch.Generator().manual_seed(3))
+                for _ in range(2))
+        for (name, p), q in zip(a.named_parameters(), b.parameters()):
+            assert torch.equal(p, q) and torch.isfinite(p).all(), name
+            assert p.abs().max() > 0, name
+        for name, m in a.named_modules():
+            if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
+                assert m.bias.abs().max() < 0.2, name
+        if layout[1] == "unetr":
+            w = a.decoder_blocks[0].transp_conv.conv.weight
+            fan = (w.shape[0] + w.shape[1]) * w[0, 0].numel()
+            assert w.abs().max() <= (6.0 / fan) ** 0.5
+        if layout[0] != "none" and layout[1] == "swin":
+            assert a.prompt_tokens.out[1].abs().max() > 0
+
+
 def test_reference_checkpoint_roundtrip(tmp_path):
     conf = tiny_conf()
     model = init_weights(SwinUnetR(ModelConfig.from_mapping(conf)),
@@ -185,7 +219,42 @@ def test_reference_checkpoint_roundtrip(tmp_path):
         torch.testing.assert_close(other.state_dict()[k], v, msg=k)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS, ids="-".join)
+def test_layout_logits_match_jax_fp32(layout):
+    """Each decoder layout at the tiny config, both prompt sets on, fp32,
+    within the tolerance of ``test_logits_match_jax_fp32``."""
+    conf = tiny_conf(unetr_res_block=layout[0], unetr_up_block=layout[1],
+                     pad_mode="aligned")
+    jm, jconf, variables = jax_model(conf, seed=5)
+    x = np.random.default_rng(6).standard_normal(
+        (2, *conf["roi_size"], 1)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda v, x: jm.apply(
+        v, x, deterministic=True)["downstream"])(variables, jnp.asarray(x)))
+    model = SwinUnetR(ModelConfig.from_mapping(conf))
+    load_flax_variables(model, variables)
+    with torch.inference_mode():
+        got = model.eval()(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, *conf["roi_size"], 2)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    has_out = layout[0] != "none" and layout[1] == "swin"
+    assert hasattr(model.prompt_tokens, "out") == has_out
+    # The decoder tokens exist under the unetr up path too (unused).
+    assert len(model.prompt_tokens.dec) == 2 * conf["depth_unet"]
+
+
 def test_unported_layouts_raise():
-    with pytest.raises(NotImplementedError, match="downstream"):
-        SwinUnetR(ModelConfig.from_mapping(
-            tiny_conf(unetr_res_block="simple")))
+    """Every decoder layout builds; what is left unported are the
+    training modes past ``downstream``, and those raise naming the queue
+    items that port them.  An unknown layout value is refused."""
+    for layout in LAYOUTS:
+        SwinUnetR(ModelConfig.from_mapping(tiny_conf(
+            unetr_res_block=layout[0], unetr_up_block=layout[1])))
+    for mode in ("self_supervised_learning_encoder",
+                 "self_supervised_learning_decoder",
+                 "self_supervised_learning_all",
+                 "supervised_learning_decoder", "supervised_learning_all"):
+        with pytest.raises(NotImplementedError, match="queue A"):
+            SwinUnetR(ModelConfig.from_mapping(tiny_conf(
+                training_mode=mode)))
+    with pytest.raises(ValueError, match="unetr_res_block"):
+        ModelConfig.from_mapping(tiny_conf(unetr_res_block="partial"))

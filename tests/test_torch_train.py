@@ -14,6 +14,14 @@
   magnitude, and the BatchNorm running statistics after three steps to
   1e-5 (fp32 throughout; the port pad-folds nothing here, the JAX model
   runs its XLA path: float reassociation only).
+* The same three steps in two other decoder layouts, the variables
+  carried by the port's name map: ``full``/``swin`` (the Swin output
+  layer's prompt tokens train) and ``none``/``unetr`` (the decoder prompt
+  tokens get no gradient, yet optax decays them and counts their
+  moments: the port steps them with a zero gradient).  Losses to 1e-4
+  relative, every trainable tensor after three steps to 1e-4 absolute,
+  the optimizer's optax leaves (counts exact, moments to 1e-4 of their
+  largest magnitude).
 """
 
 from argparse import Namespace
@@ -24,6 +32,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from flax import traverse_util
 
 from medical_image_segmentation_with_visual_prompts_tpu.data import \
     datasets as jax_datasets
@@ -57,6 +66,10 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
     partition
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train import \
     SegmentationTrainer
+from medical_image_segmentation_with_visual_prompts_tpu_torch.train.common \
+    import adamw_leaves
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils.torch_import \
+    import flax_paths, load_flax_variables, to_flax_variables
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils.metrics \
     import DiceCoefficient, MeanIoU, seg_stats
 from test_torch_swin_unetr import jax_model, tiny_conf
@@ -230,6 +243,85 @@ def test_train_steps_match_jax():
         elif "prompt_tokens" in name or "extra_heads" in name:
             np.testing.assert_allclose(t.numpy(), np.asarray(want_sd[name]),
                                        atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("layout", [("full", "swin"), ("none", "unetr")],
+                         ids="-".join)
+def test_train_steps_match_jax_in_other_layouts(layout):
+    conf = {**_train_conf(), "unetr_res_block": layout[0],
+            "unetr_up_block": layout[1]}
+    hp = Namespace(**conf)
+    jm, jconf, variables = jax_model(conf, seed=3)
+    jtr = JaxTrainer(hp, JaxSwinUnetR, None, None, _Null(), _Null())
+    labels = jax_partition.trainable_labels(jtr.model_conf)
+    trainable, frozen = jax_partition.split_params(variables["params"],
+                                                   labels)
+    bs = variables["batch_stats"]
+    tx = optax.inject_hyperparams(jax_adamw)(lr=1e-3, weight_decay=0.1)
+    opt_state = tx.init(trainable)
+    step, _ = jtr._build_steps(frozen, tx)
+
+    ptr = SegmentationTrainer(hp, SwinUnetR, None, None, _Null(), _Null(),
+                              device="cpu")
+    load_flax_variables(ptr.model, variables)
+    ptr.configure_optimizers()
+    ptr.model.train()
+    named = dict(ptr.model.named_parameters())
+    unused = {n for n in named if n.startswith("prompt_tokens.dec")} \
+        if layout[1] == "unetr" else set()
+    before = {n: named[n].detach().clone() for n in unused}
+
+    rng = np.random.default_rng(12)
+    k = jax.random.PRNGKey(1)
+    valid = jnp.ones((2,), jnp.float32)
+    jlosses, plosses = [], []
+    for i in range(3):
+        batch = {"image": rng.normal(0.4, 0.2, (2, 16, 16, 8, 1)).astype(
+            np.float32), "mask": rng.integers(0, 3, (2, 16, 16, 8, 1)).astype(
+            np.float32)}
+        trainable, bs, opt_state, loss, _, _ = step(
+            trainable, bs, opt_state, jnp.asarray(batch["image"]),
+            jnp.asarray(batch["mask"]), k, valid)
+        jlosses.append(float(loss))
+        ploss, _ = ptr.train_step(batch)
+        plosses.append(float(ploss))
+        if i == 0:
+            for name, p in named.items():
+                if not p.requires_grad:
+                    continue
+                assert p.grad is not None and torch.isfinite(p.grad).all()
+                assert (p.grad.abs().max() > 0) == (name not in unused), \
+                    name
+    np.testing.assert_allclose(plosses, jlosses, rtol=1e-4)
+    if layout[0] == "full":
+        assert "prompt_tokens.out.0" in named and \
+            named["prompt_tokens.out.0"].requires_grad
+    # Every trainable tensor after three steps; unused tokens decayed.
+    want = {"/".join(k): np.asarray(v) for k, v in
+            traverse_util.flatten_dict(trainable).items()}
+    got = {"/".join(k): v for k, v in traverse_util.flatten_dict(
+        to_flax_variables(ptr.model)["params"]).items()}
+    for path, v in want.items():
+        np.testing.assert_allclose(got[path], v, atol=1e-4, err_msg=path)
+    for n in unused:
+        np.testing.assert_allclose(
+            named[n].detach().numpy(),
+            before[n].numpy() * (1 - 1e-3 * 0.1) ** 3, rtol=1e-6)
+    # The optimizer state as optax leaves: counts, hyperparameters, moments.
+    jleaves = [np.asarray(v) for v in jax.tree_util.tree_leaves(opt_state)]
+    pleaves = adamw_leaves(ptr.optimizer, ptr.model)
+    assert len(pleaves) == len(jleaves)
+    assert int(pleaves[0]) == int(pleaves[3]) == int(jleaves[0]) == 3
+    for a, b in zip(pleaves[4:], jleaves[4:]):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_allclose(a, b, atol=1e-4 * max(
+            float(np.abs(b).max()), 1e-30))
+    paths = [p for p, _ in flax_paths(ptr.model, [
+        n for n, p in named.items() if p.requires_grad])]
+    n = len(paths)
+    for path, mu, nu in zip(paths, pleaves[4:4 + n], pleaves[4 + n:]):
+        if path.startswith("prompt_tokens_dec") and unused:
+            assert not mu.any() and not nu.any(), path
 
 
 def test_trainer_runs_with_dropout_and_updates_only_the_prompts(tmp_path):
