@@ -70,7 +70,21 @@ the port's paths:
   ``infer.watch_directory``, three training steps (14 B1 + 14 B4 each),
   and one forward of ``none``/``unetr`` and ``simple``/``unetr`` (6 B1)
   and ``simple``/``swin`` (14 B1 + 4 B2); a Swin output layer's plain
-  forward runs 9 windows at a time.
+  forward runs 9 windows at a time;
+* phase-2 students-teacher training (phases ``students-blocks`` and
+  ``students-teacher``): B1 with dropout and B4 at the 24 block calls of
+  the two students' crops (96x96x8 and 80x80x8 at window 8x8x4: depth
+  folded at 24x24x2, H/W and depth padded at 12x12x2, 20x20x2 and
+  10x10x2) and B2 at their 6 decoder convs, against their plain versions;
+  then ``main --mode fit --training-mode supervised_learning_all`` at the
+  flagship model with the example config's phase-2 section on seeded
+  synthetic volumes (4 steps of 36 B1 + 24 B4, 2 validation steps of 36
+  B1 + 9 B2), with the kernels and with the plain versions (losses within
+  2e-2), its epoch-0 checkpoint resumed bit for bit (student, teacher,
+  optimizer, step), the teacher's EMA after one step against host fp64,
+  a profile of 2 steps and the prototype loss's device time; and
+  ``self_supervised_learning_decoder`` for 2 steps (36 B1 + 12 B4 each;
+  the encoder bit for bit its initial values).
 
 B2 and B3 are timed beside one cuDNN ``conv3d`` on the same shapes
 without the prologue (bf16, channels-last), and each B2 launch reports
@@ -345,8 +359,10 @@ def phase_blocks(gen_seed: int = SEED):
             "bound": bound}
 
 
-def phase_convs(gen_seed: int = SEED + 1):
-    """B2 at the 3 decoder pair-conv shapes."""
+def phase_convs(gen_seed: int = SEED + 1, shapes=CONV_SHAPES,
+                batch: int = BATCH, one_input: bool = True):
+    """B2 at the decoder pair-conv ``shapes`` (default: the 3 of the
+    serving forward) on ``batch`` samples; with ``one_input`` also B3."""
     import torch
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .conv_fused import (conv3x3_fused_pair, conv_pair_reference,
@@ -360,11 +376,11 @@ def phase_convs(gen_seed: int = SEED + 1):
     ms = plain_ms = cudnn_ms = 0.0
     bound = Bound()
     g = torch.Generator().manual_seed(gen_seed)
-    for name, ca, cb, co, dims in CONV_SHAPES:
+    for name, ca, cb, co, dims in shapes:
         cin = ca + cb
-        xa = torch.randn((BATCH, *dims, ca), generator=g).to(
+        xa = torch.randn((batch, *dims, ca), generator=g).to(
             "cuda", torch.bfloat16)
-        xb = torch.randn((BATCH, *dims, cb), generator=g).to(
+        xb = torch.randn((batch, *dims, cb), generator=g).to(
             "cuda", torch.bfloat16)
         w = (torch.randn((co, cin, 3, 3, 3), generator=g)
              * (27 * cin) ** -0.5).cuda()
@@ -387,10 +403,10 @@ def phase_convs(gen_seed: int = SEED + 1):
             xc = torch.cat([xa, xb], -1).permute(0, 4, 1, 2, 3)
             wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
             t_l = cuda_ms(lambda: F.conv3d(xc, wb, bb, padding=1))
-        tiles[name] = tile_info((BATCH, *dims), co)
+        tiles[name] = tile_info((batch, *dims), co)
         print(f"    tile {tiles[name]}")
         cudnn_ms += t_l
-        vox = BATCH * dims[0] * dims[1] * dims[2]
+        vox = batch * dims[0] * dims[1] * dims[2]
         # bf16 inputs, bf16 27-tap weight, fp32 scale/shift/bias, bf16 out.
         bound.add(2 * vox * co * 27 * cin,
                   vox * cin * 2 + 27 * cin * co * 2 + cin * 8 + co * 4
@@ -401,7 +417,7 @@ def phase_convs(gen_seed: int = SEED + 1):
         plain_ms += t_p
     print(f"  B2: {ms:.4f} ms per forward (cuDNN conv3d without the prologue "
           f"{cudnn_ms:.4f}, bound {bound.ms:.4f} ({bound.by}))")
-    b3 = phase_conv_one_input(g, failures)
+    b3 = phase_conv_one_input(g, failures) if one_input else None
     if failures:
         raise RuntimeError("phase B2 failed: " + "; ".join(failures))
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
@@ -584,10 +600,12 @@ def phase_attention(gen_seed: int = SEED + 7):
     return res
 
 
-def phase_blocks_train(gen_seed: int = SEED + 5):
-    """B1 with dropout and B4 at the 6 flagship geometries, no-shift and
-    shift, at the training batch's window counts: the 12 block calls of
-    one training step."""
+def phase_blocks_train(gen_seed: int = SEED + 5,
+                       geometries=BLOCK_GEOMETRIES,
+                       name: str = "blocks-train"):
+    """B1 with dropout and B4 at the block ``geometries`` (default: the 6
+    flagship ones), no-shift and shift, at the training batch's window
+    counts (the flagship's: the 12 block calls of one training step)."""
     import torch
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .fused_block import (PARAM_KEYS, Dropout, block_reference,
@@ -595,7 +613,8 @@ def phase_blocks_train(gen_seed: int = SEED + 5):
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .fused_block_bwd import (block_backward, block_backward_reference,
                                  launch_info)
-    print(f"phase blocks-train: B1 with dropout {DROP_RATE}/{DROP_RATE} and "
+    phase = name
+    print(f"phase {phase}: B1 with dropout {DROP_RATE}/{DROP_RATE} and "
           f"B4 vs their plain versions (bf16, batch {TRAIN_BATCH}); B4 run "
           "twice, its outputs bit-identical")
     failures, fwd_errs, bwd_errs = [], [], []
@@ -603,7 +622,7 @@ def phase_blocks_train(gen_seed: int = SEED + 5):
     bwd = {"ms": 0.0, "plain_ms": 0.0, "big_ms": 0.0, "bound": Bound()}
     names = ("x", "bias", "ext_k", "ext_v", *PARAM_KEYS)
     g = torch.Generator().manual_seed(gen_seed)
-    for i, (name, c, heads, dims) in enumerate(BLOCK_GEOMETRIES):
+    for i, (name, c, heads, dims) in enumerate(geometries):
         for j, shift in enumerate(((0, 0, 0), (4, 4, 2))):
             blk = make_block(c, heads, shift, g, DROP_RATE)
             x = torch.randn((TRAIN_BATCH, *dims, c), generator=g).to(
@@ -673,7 +692,7 @@ def phase_blocks_train(gen_seed: int = SEED + 5):
                   f"B4 kernel {t_bk:.4f} ms (device-memory form {t_bb:.4f} "
                   f"ms), plain {t_bp:.4f} ms")
     if failures:
-        raise RuntimeError("phase blocks-train failed: " + "; ".join(failures))
+        raise RuntimeError(f"phase {phase} failed: " + "; ".join(failures))
     fwd["max_abs_err"] = max(fwd_errs)
     bwd["max_abs_err"] = max(bwd_errs)
     return fwd, bwd
@@ -1222,15 +1241,16 @@ def run_trainer(hp, kernels: bool, pair: bool = False):
     return tr, read_counters(), time.perf_counter() - t0
 
 
-def profile_steps(tr, hp, steps: int = 2) -> None:
+def profile_steps(tr, hp, steps: int = 2, loaders=None) -> None:
     """Device time of ``steps`` training steps by kernel bucket
-    (``torch.profiler``), and the device's idle share over them."""
+    (``torch.profiler``), and the device's idle share over them; the
+    batches from ``loaders(hp)`` (default: the downstream fit loaders)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
         import get_fit_loader_downstream
     batches = []
-    for batch in get_fit_loader_downstream(hp)[0]:
+    for batch in (loaders or get_fit_loader_downstream)(hp)[0]:
         batches.append(batch)
         if len(batches) == steps:
             break
@@ -2167,6 +2187,370 @@ def phase_layouts(card: str):
     return out
 
 
+# The phase-2 students' crops (example_configs.yml) and their block
+# geometries at patch 2, window 8x8x4, pad_mode aligned: (name, C, heads,
+# spatial dims).  The 24x24x2 stage pad-folds its depth axis (M 128, N
+# 193); 12x12x2, 20x20x2 and 10x10x2 pad H/W and depth materially (M 256).
+STUDENT_CROPS = ((96, 96, 8), (80, 80, 8))
+STUDENT_GEOMETRIES = tuple(
+    (f"s{h}-{part}", c, heads, dims)
+    for h, (s0, s1, s2) in ((96, ((48, 48, 4), (24, 24, 2), (12, 12, 2))),
+                            (80, ((40, 40, 4), (20, 20, 2), (10, 10, 2))))
+    for part, c, heads, dims in (
+        ("enc0", 48, 4, s0), ("enc1", 96, 8, s1), ("enc2", 192, 16, s2),
+        ("dec0", 192, 4, s2), ("dec1", 96, 4, s1), ("dec2", 48, 4, s0)))
+# The students' decoder pair convs (eval mode: validation).
+STUDENT_CONVS = tuple(
+    (f"s{h}-{part}", ca, cb, co, dims)
+    for h, grids in ((96, ((12, 12, 2), (24, 24, 2), (48, 48, 4))),
+                     (80, ((10, 10, 2), (20, 20, 2), (40, 40, 4))))
+    for (part, ca, cb, co), dims in zip(
+        (("dec0", 384, 192, 192), ("dec1", 192, 96, 96),
+         ("dec2", 96, 48, 48)), grids))
+# Launches per phase-2 step: 3 forwards (2 students, the teacher) of 12
+# B1; the backward of the students' trainable blocks (every block in the
+# _all modes, the 6 decoder blocks in the _decoder ones); per validation
+# step 3 eval forwards of 12 B1 + 3 B2.
+PHASE2_STEP = {"B1": 36, "B4": 24}
+PHASE2_DECODER_STEP = {"B1": 36, "B4": 12}
+PHASE2_VAL = {"B1": 36, "B2": 9}
+PHASE2_VOLUMES = 3   # split 0.8: 2 train x 4 crops = 4 steps, 1 val: 2
+
+
+def write_pretrain_set(root: Path, volumes: int, seed: int) -> None:
+    """Seeded synthetic CT set for phase 2: int16 HU volumes with masks
+    labelled 0-5 (a body 2, two organs 1 and 3, a bone 5 and a small
+    structure 4, which is not an active label)."""
+    import numpy as np
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import save_nifti
+    rng = np.random.default_rng(seed)
+    (root / "img").mkdir()
+    (root / "msk").mkdir()
+    for k in range(volumes):
+        shape = (144 + 8 * (k % 3), 136 + 8 * (k % 2), 12 + k % 4)
+        zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n) for n in shape),
+                                 indexing="ij")
+        mask = np.where((zz ** 2 + yy ** 2) < 0.8, 2, 0)
+        hu = rng.normal(-800.0, 60.0, shape)
+        hu[mask == 2] = rng.normal(40.0, 80.0, int((mask == 2).sum()))
+        for label, mean in ((1, 300.0), (3, 120.0), (5, 900.0), (4, 60.0)):
+            c = rng.uniform(-0.4, 0.4, 3)
+            r = rng.uniform(0.12, 0.3)
+            blob = ((zz - c[0]) ** 2 + (yy - c[1]) ** 2
+                    + ((xx - c[2]) / 2) ** 2) < r * r
+            mask[blob] = label
+            hu[blob] = rng.normal(mean, 50.0, int(blob.sum()))
+        save_nifti(str(root / "img" / f"case{k:02d}.nii.gz"),
+                   np.clip(hu, -1024, 3071).astype(np.int16))
+        save_nifti(str(root / "msk" / f"case{k:02d}.nii.gz"),
+                   mask.astype(np.int16))
+
+
+def pretrain_config(root: Path) -> str:
+    """``configurations/example_configs.yml`` with the flagship model
+    (bf16 trunk, ``pad_mode: aligned``; its widths, window, prompts and
+    dropout are the example's), the data of ``root``, and epoch 0 only
+    (``max_epochs_students_teacher: 0``: the YAML wins over the command
+    line).  The phase-2 section as published."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import load_conf
+    conf = load_conf("example_configs.yml")
+    conf.update(compute_dtype="bfloat16", pad_mode="aligned",
+                image_dir_pretrain=str(root / "img"),
+                image_dir_supervised=str(root / "img"),
+                mask_dir_supervised=str(root / "msk"),
+                max_epochs_students_teacher=0)
+    path = root / "pretrain.yml"
+    path.write_text(json.dumps(conf))
+    return str(path)
+
+
+def pretrain_args(configs: str, mode: str, run: str, *more: str) -> list:
+    return ["--mode", "fit", "--training-mode", mode, "--configs", configs,
+            "--use-encoder-prompting", "--use-decoder-prompting",
+            "--run-name", run, *more]
+
+
+# Biases whose every path to the loss passes a BatchNorm on batch
+# statistics, which removes a per-channel constant: their true gradient is
+# 0 (the patch embedding's conv, the bottleneck conv, and the MLP and LN2
+# biases of the last block of each up block but the last).
+def bn_cancelled(depth: int) -> set:
+    names = {"input_layer.0.bias", "bottleneck.bias"}
+    for j in range(depth - 1):
+        blk = f"decoder_blocks.{j}.swin_layer.swin_blocks.1"
+        names |= {f"{blk}.mlp.bias", f"{blk}.mlp_norm.bias"}
+    return names
+
+
+def check_gradients(tr, failures: list) -> int:
+    """Every trainable gradient finite, and non-zero but where the true
+    gradient is 0 (:func:`bn_cancelled`); returns the count checked."""
+    zero_ok = bn_cancelled(tr.model_conf.depth_unet)
+    n = 0
+    for name, p in tr.model.named_parameters():
+        if not p.requires_grad:
+            continue
+        n += 1
+        gr = p.grad
+        if gr is None or not bool(gr.isfinite().all()) or (
+                name not in zero_ok and not float(gr.abs().sum()) > 0):
+            failures.append(f"trainable {name}: gradient "
+                            f"{'missing' if gr is None else 'bad'}")
+    return n
+
+
+def run_phase2(hp, kernels: bool):
+    """``main.main("fit", hp)`` on the card (kernels) or the same trainer
+    with the plain versions (``setup_fitting`` + ``train()``, which is
+    what ``main.main`` runs); returns the trainer, its launches and wall
+    seconds."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import initialization
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    if kernels:
+        tr = cli_main.main("fit", hp)
+    else:
+        tr = initialization.setup_fitting(hp, "cuda")
+        tr.model.set_kernels(False)
+        tr.teacher.set_kernels(False)
+        tr.train()
+    torch.cuda.synchronize()
+    return tr, read_counters(), time.perf_counter() - t0
+
+
+def loss_device_ms(tr, batch) -> float:
+    """Device ms of the clustered-prototype loss, forward and backward,
+    at one step's shapes (the students' and the teacher's fp32 latents
+    of the flagship width, the batch's coordinates and fresh jitters)."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.losses \
+        import clustered_prototype_loss, draw_jitters
+    conf = tr.hparams
+    c0 = tr.model_conf.hidden_channels[0]
+    g = torch.Generator().manual_seed(SEED + 14)
+    b = conf.batch_size_students_teacher
+    emb_s = [torch.randn((b, *crop, c0), generator=g).cuda().requires_grad_()
+             for crop in conf.crop_size_students]
+    emb_t = torch.randn((b, *conf.roi_size, c0), generator=g).cuda()
+    coords = [torch.from_numpy(batch[f"coord_st_{i}"]).cuda()
+              for i in range(len(emb_s))]
+    coord = torch.from_numpy(batch["coord"]).cuda()
+    jitters = draw_jitters(len(emb_s), float(conf.reduction_factor), g)
+
+    def step():
+        loss = clustered_prototype_loss(
+            emb_s, emb_t, coords, coord, jitters,
+            reduction_factor=float(conf.reduction_factor),
+            k_means_iterations=int(conf.k_means_iterations),
+            fwhm=float(conf.fwhm))
+        loss.backward()
+
+    return cuda_ms(step, 5)
+
+
+def phase_students_teacher(card: str):
+    """Phase-2 students-teacher training through ``main --mode fit
+    --training-mode ...`` at the flagship model with the example config's
+    phase-2 section (roi 128x128x8, students 96x96x8 and 80x80x8, tau
+    0.99, reduction 4, fwhm 128, 3 k-means iterations, batch 2, 4 crops
+    per volume, 5 pretrain classes), on seeded synthetic volumes:
+    ``supervised_learning_all`` for 4 steps + 2 validation steps with the
+    kernels and with the plain versions from the same seeds (losses,
+    launches, gradients, the epoch-0 checkpoint and a resume from it bit
+    for bit, the teacher's EMA after one step), a profile of 2 steps, and
+    ``self_supervised_learning_decoder`` for 2 steps (the encoder
+    unchanged, 12 B4 per step)."""
+    import numpy as np
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        config
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import get_fit_loader_supervised_learning
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR, partition
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.train \
+        .common import grouped_adamw_leaves
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import initialization
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .checkpoint import load_checkpoint, tree_leaves
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .torch_import import to_flax_variables
+    print("phase students-teacher: main --mode fit --training-mode "
+          "supervised_learning_all / self_supervised_learning_decoder, "
+          "flagship model (bf16, pad_mode aligned, 64+64 prompt tokens, "
+          "dropout 0.1/0.1), example_configs.yml phase 2 (students 96x96x8 "
+          "and 80x80x8, batch 2)")
+    failures, out = [], {}
+
+    def same(a, b) -> bool:
+        a, b = tree_leaves(a), tree_leaves(b)
+        return len(a) == len(b) and all(
+            np.asarray(x).dtype == np.asarray(y).dtype
+            and np.array_equal(x, y) for x, y in zip(a, b))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        config.DEFAULT_ROOT_LOG_DIR = root / "logs"
+        write_pretrain_set(root, PHASE2_VOLUMES, SEED + 15)
+        cfg = pretrain_config(root)
+        ckpt_dir = root / "backbone"
+        argv = pretrain_args(cfg, "supervised_learning_all", "st-all",
+                             "--save-ckpt-backbone",
+                             "--save-ckpt-backbone-path", str(ckpt_dir))
+        hp = config.get_full_configs(cli_main.build_parser().parse_args(argv))
+        plain, plain_launches, _ = run_phase2(hp, False)
+        tr, launches, wall = run_phase2(hp, True)
+        steps, val_steps = len(tr.losses), len(tr.val_losses)
+        want = expect(PHASE2_STEP, steps)
+        for k, v in PHASE2_VAL.items():
+            want[k] += v * val_steps
+        print(f"  kernels: {steps} steps + {val_steps} validation steps in "
+              f"{wall:.3f} s, launches {launches}")
+        print(f"  plain versions: launches {plain_launches}")
+        if steps != 4 or val_steps != 2:
+            failures.append(f"{steps} steps and {val_steps} validation "
+                            "steps, not 4 and 2")
+        if launches != want:
+            failures.append(f"launches {launches}, expected {want} "
+                            f"({PHASE2_STEP} per step, {PHASE2_VAL} per "
+                            "validation step)")
+        if any(plain_launches.values()):
+            failures.append(f"plain run launched kernels: {plain_launches}")
+        for i, (lk, lp) in enumerate(zip(tr.losses + tr.val_losses,
+                                         plain.losses + plain.val_losses)):
+            kind = "step" if i < steps else "validation step"
+            for key in ("prt", "seg", "tot"):
+                rel = abs(lk[key] - lp[key]) / max(abs(lp[key]), 1e-12)
+                if not (np.isfinite(lk[key]) and rel <= TRAIN_LOSS_RTOL):
+                    failures.append(f"{kind} {i} {key} {lk[key]} vs "
+                                    f"{lp[key]}")
+            print(f"  {kind} {i}: " + ", ".join(
+                f"{k} {lk[k]:.6f} vs {lp[k]:.6f}" for k in lk)
+                + f" (kernels vs plain, tol {TRAIN_LOSS_RTOL} relative)")
+        n_grad = check_gradients(tr, failures)
+        print(f"  {n_grad} trainable tensors with finite gradients, non-zero "
+              f"but for the {len(bn_cancelled(3))} biases a batch-statistics "
+              "BatchNorm removes")
+        k_ms = float(np.median(tr.step_ms))
+        p_ms = float(np.median(plain.step_ms))
+        print(f"  median step ms: kernels {k_ms:.3f}, plain {p_ms:.3f} (host "
+              f"clock around each step, ending in its loss read) on {card}")
+        print(f"  steps ms kernels {[round(v, 3) for v in tr.step_ms]}; "
+              f"plain {[round(v, 3) for v in plain.step_ms]}")
+        del plain
+
+        # The epoch-0 checkpoint, and a resume from it.
+        ckpt = ckpt_dir / "0001.ckpt"
+        saved = load_checkpoint(ckpt)
+        if "teacher_state_dict" not in saved:
+            failures.append("the checkpoint has no teacher_state_dict")
+        resume = config.get_full_configs(cli_main.build_parser().parse_args(
+            pretrain_args(cfg, "supervised_learning_all", "st-resume",
+                          "--load-ckpt-backbone",
+                          "--load-ckpt-backbone-path", str(ckpt))))
+        probe = initialization.select_trainer(resume, SwinUnetR, None, None,
+                                              _Quiet(), None)
+        start = probe.prepare_fit()
+        restored = {
+            "student": same(to_flax_variables(probe.model),
+                            saved["model_state_dict"]),
+            "teacher": same(to_flax_variables(probe.teacher),
+                            saved.get("teacher_state_dict", {})),
+            "optimizer": same(grouped_adamw_leaves(
+                probe.optimizer, probe.model, probe.step_count),
+                saved["optimizer_state_dict"]["__flat_leaves__"]),
+            "step": probe.step_count == steps == int(
+                saved["scheduler_state_dict"]["step"])}
+        print(f"  resume from {ckpt.name}: start epoch {start}; bit for bit "
+              f"{restored}")
+        if start != 1 or not all(restored.values()):
+            failures.append(f"resume: start {start}, {restored}")
+
+        # The EMA: the teacher after one step from host copies.
+        batch = next(iter(get_fit_loader_supervised_learning(hp)[0]))
+        tau = float(hp.tau)
+        t0 = [p.detach().double().cpu() for p in probe.teacher.parameters()]
+        s0 = [p.detach().double().cpu() for p in probe.model.parameters()]
+        probe.model.train()
+        probe.teacher.train()
+        probe.train_step(batch)
+        worst = 0.0
+        for t, a, b in zip(probe.teacher.parameters(), t0, s0):
+            want_t = tau * a + (1.0 - tau) * b
+            scale = tau * a.abs() + (1.0 - tau) * b.abs()
+            err = (t.detach().double().cpu() - want_t).abs()
+            worst = max(worst, float((err / scale.clamp_min(1e-30)).max()))
+        print(f"  EMA: teacher after one step vs tau*t0 + (1-tau)*s0 (host "
+              f"fp64): worst error {worst:.3g} of |tau*t0| + |(1-tau)*s0| "
+              "(limit 2^-22)")
+        if not worst <= 2.0 ** -22:
+            failures.append(f"EMA error {worst}")
+        del probe
+
+        tr.model.train()        # validation left both models in eval mode
+        tr.teacher.train()
+        profile_steps(tr, hp, loaders=get_fit_loader_supervised_learning)
+        print(f"  (profile of supervised_learning_all steps on {card})")
+        out["loss_ms"] = loss_device_ms(tr, batch)
+        print(f"  clustered-prototype loss, forward + backward: "
+              f"{out['loss_ms']:.4f} device ms per step (CUDA events) on "
+              f"{card}")
+        out.update(launches=launches, step_ms=k_ms, plain_step_ms=p_ms)
+        del tr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        config.DEFAULT_ROOT_LOG_DIR = root / "logs"
+        write_pretrain_set(root, 2, SEED + 16)    # 1 train, 1 val volume
+        cfg = pretrain_config(root)
+        hp = config.get_full_configs(cli_main.build_parser().parse_args(
+            pretrain_args(cfg, "self_supervised_learning_decoder", "st-dec")))
+        tr, launches, wall = run_phase2(hp, True)
+        steps, val_steps = len(tr.losses), len(tr.val_losses)
+        want = expect(PHASE2_DECODER_STEP, steps)
+        for k, v in PHASE2_VAL.items():
+            want[k] += v * val_steps
+        print(f"  self_supervised_learning_decoder: {steps} steps + "
+              f"{val_steps} validation steps in {wall:.3f} s, launches "
+              f"{launches}; losses {[round(v['tot'], 5) for v in tr.losses]}")
+        if steps != 2 or launches != want:
+            failures.append(f"decoder mode: {steps} steps, launches "
+                            f"{launches}, expected {want}")
+        fresh = initialization.select_trainer(hp, SwinUnetR, None, None,
+                                              _Quiet(), None)
+        enc = partition.encoder_labels(tr.model_conf, True)
+        kept = moved = 0
+        for (name, p), q in zip(tr.model.named_parameters(),
+                                fresh.model.parameters()):
+            if partition.label_of(name) in enc:
+                kept += 1
+                if not torch.equal(p, q):
+                    failures.append(f"decoder mode moved the frozen {name}")
+            elif p.requires_grad:
+                moved += int(not torch.equal(p, q))
+        check_gradients(tr, failures)
+        print(f"  {kept} encoder tensors bit for bit their initial values; "
+              f"{moved} decoder tensors moved")
+        if not moved:
+            failures.append("decoder mode moved no decoder tensor")
+        out["decoder_launches"] = launches
+        del tr, fresh
+    if failures:
+        raise RuntimeError("phase students-teacher failed: "
+                           + "; ".join(failures))
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, **extra):
     bound = m["bound"]
     return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -2245,6 +2629,12 @@ def main() -> int:
     clock("b4-device-memory, cli done")
     lay = phase_layouts(card)
     clock("layouts done")
+    b1_st, b4_st = phase_blocks_train(SEED + 13, STUDENT_GEOMETRIES,
+                                      "students-blocks")
+    b2_st, _ = phase_convs(SEED + 14, STUDENT_CONVS, TRAIN_BATCH,
+                           one_input=False)
+    st = phase_students_teacher(card)
+    clock("students-blocks, students-teacher done")
 
     print("serve-path times are per 27-window flagship forward, train-path "
           "times per training step of batch 2 (sums over the path's calls), "
@@ -2287,6 +2677,14 @@ def main() -> int:
     print(f"B2: {b2['ms']:.4f} ms per forward vs cuDNN conv3d without the "
           f"prologue {b2['cudnn_ms']:.4f}; B3 no prologue "
           f"{b3['no_prologue_ms']:.4f} vs cuDNN {b3['library_ms']:.4f} ms")
+    print(f"students-teacher (supervised_learning_all, flagship model, "
+          f"example phase 2): step median {st['step_ms']:.3f} ms (plain "
+          f"{st['plain_step_ms']:.3f}); at the students' 24 block calls (both "
+          f"crops, batch 2) B1 {b1_st['ms']:.4f} ms (plain "
+          f"{b1_st['plain_ms']:.4f}), B4 {b4_st['ms']:.4f} ms (plain "
+          f"{b4_st['plain_ms']:.4f}); B2 at their 6 decoder convs "
+          f"{b2_st['ms']:.4f} ms (cuDNN without the prologue "
+          f"{b2_st['cudnn_ms']:.4f}); prototype loss {st['loss_ms']:.4f} ms")
 
     def paths(key):
         return {"serve": serve_launches[key],
@@ -2305,6 +2703,8 @@ def main() -> int:
                 "layouts-per-window": lay["stitch"]["per_window_launches"][
                     key],
                 "layouts-watch": lay["stitch"]["watch_launches"][key],
+                "students-teacher-fit": st["launches"][key],
+                "students-teacher-decoder": st["decoder_launches"][key],
                 **{f"layouts-forward-{path}": got[key]
                    for path, got in lay["forward"].items()}}
 
@@ -2312,6 +2712,15 @@ def main() -> int:
         return {"calls": "the Swin output layer's, per 27-window forward "
                 "(B4: per training step of batch 2)", "launches": launches,
                 "launches_path": path,
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound"].ms, "bound_by": m["bound"].by,
+                "max_abs_err": m["max_abs_err"], **extra}
+
+    def students(m, key, **extra):
+        return {"calls": "the 2 students' (96x96x8, 80x80x8) 24 block calls "
+                "of a phase-2 step (B2: their 6 eval decoder convs), batch 2",
+                "launches": st["launches"][key],
+                "launches_path": "students-teacher-fit",
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound"].ms, "bound_by": m["bound"].by,
                 "max_abs_err": m["max_abs_err"], **extra}
@@ -2330,7 +2739,8 @@ def main() -> int:
            "output_layer": output_layer(
                lay["b1"], lay["serve"]["B1@out"], "layouts-serve",
                library_ms=None,
-               cluster=[i["cluster"] for i in lay["b1"]["launch"]])},
+               cluster=[i["cluster"] for i in lay["b1"]["launch"]]),
+           "students": students(b1_st, "B1", library_ms=None)},
         kernel_entry("conv3x3_fused_pair", "conv3x3_pair.cu",
                      "ops/conv_pallas.py:270", serve_launches["B2"],
                      paths("B2"), b2,
@@ -2342,7 +2752,10 @@ def main() -> int:
                      output_layer=output_layer(
                          lay["b2"], lay["serve"]["B2@out"], "layouts-serve",
                          library_ms=lay["b2"]["library_ms"],
-                         tile=lay["b2"]["tile"])),
+                         tile=lay["b2"]["tile"]),
+                     students=students(b2_st, "B2", library_ms=None,
+                                       cudnn_conv3d_ms=b2_st["cudnn_ms"],
+                                       tiles=b2_st["tiles"])),
         kernel_entry("conv3x3_fused", "conv3x3_pair.cu",
                      "ops/conv_pallas.py:41", 0, paths("B3"), b3,
                      no_prologue_ms=b3["no_prologue_ms"],
@@ -2365,7 +2778,9 @@ def main() -> int:
            "output_layer": output_layer(
                lay["b4"], lay["train"]["B4@out"], "layouts-train",
                library_ms=None,
-               cluster=[i["cluster"] for i in lay["b4"]["launch"]])},
+               cluster=[i["cluster"] for i in lay["b4"]["launch"]]),
+           "students": students(b4_st, "B4", library_ms=None,
+                                device_memory_form_ms=b4_st["big_ms"])},
         kernel_entry("fused_swin_pair", "fused_pair.cu",
                      "ops/fused_block.py:592", pair_launches["B5"],
                      paths("B5"), b5,

@@ -1,13 +1,16 @@
 """Dataset scanning, splitting and batched loading for downstream fitting
-and testing.
+and testing and for phase-2 pretraining.
 
 Counterpart of the JAX package's ``data/datasets.py``
-(``get_fit_loader_downstream``, ``get_test_loader_downstream``): sorted image/mask pairing, optional
-subsampling WITH replacement (``random.choices``), a shuffled split by
-``split_ratio`` (two volumes split 1/1), per-item transforms seeded from
-``(seed, epoch, idx)``, and a loader that shuffles item order per epoch
-and re-batches the flattened crop samples, keeping the last partial
-batch.  The same ``random`` and numpy draws in the same order as the JAX
+(``get_fit_loader_downstream``, ``get_test_loader_downstream``,
+``get_fit_loader_self_supervised_learning``,
+``get_fit_loader_supervised_learning``): sorted image (and image/mask)
+listing, optional subsampling WITH replacement (``random.choices``), a
+shuffled split by ``split_ratio`` (downstream: two volumes split 1/1),
+per-item transforms seeded from ``(seed, epoch, idx)``, and a loader that
+shuffles item order per epoch and re-batches the flattened crop samples,
+keeping the last partial batch for downstream and dropping it for
+pretraining.  The same ``random`` and numpy draws in the same order as the JAX
 loader, so one seed gives the same batches.  Items are transformed in a
 thread pool ahead of the consumer; batches are dicts of numpy arrays,
 channels-last.
@@ -29,6 +32,31 @@ import numpy as np
 from . import transforms as T
 
 
+def num_samples_of(conf) -> int:
+    """Crop samples per volume in the config's training mode."""
+    mode = conf.training_mode
+    if mode == "downstream":
+        return conf.num_samples_downstream
+    if mode == "self_supervised_learning_encoder":
+        return conf.num_samples_multi_view
+    return conf.num_samples_students_teacher
+
+
+def batch_size_of(conf) -> int:
+    """Batch size in the config's training mode."""
+    mode = conf.training_mode
+    if mode == "downstream":
+        return conf.batch_size_downstream
+    if mode == "self_supervised_learning_encoder":
+        return conf.batch_size_multi_view
+    return conf.batch_size_students_teacher
+
+
+def _scan_images(image_dir, image_key="image"):
+    return [{image_key: str(p), "name": p.stem}
+            for p in sorted(Path(image_dir).iterdir())]
+
+
 def _scan_pairs(image_dir, mask_dir, image_key="image", mask_key="mask"):
     image_paths = sorted(Path(image_dir).iterdir())
     mask_paths = sorted(Path(mask_dir).iterdir())
@@ -46,11 +74,13 @@ def _subsample(data: List[Dict], k: int, rng) -> List[Dict]:
     return data if k == -1 else rng.choices(data, k=k)
 
 
-def _split_downstream(data: List[Dict], split_ratio: float, rng):
+def _split(data: List[Dict], split_ratio: float, rng,
+           downstream: bool = False):
     rng.shuffle(data)
-    if len(data) < 2:
+    if downstream and len(data) < 2:
         raise ValueError("Not enough samples for downstream task.")
-    split = 1 if len(data) == 2 else math.floor(len(data) * split_ratio)
+    split = 1 if downstream and len(data) == 2 else \
+        math.floor(len(data) * split_ratio)
     return data[:split], data[split:]
 
 
@@ -165,7 +195,8 @@ def get_fit_loader_downstream(conf):
                                   conf.mask_dir_downstream,
                                   conf.image_dict_key, conf.mask_dict_key),
                       conf.num_selected_data_downstream, rng)
-    train_data, val_data = _split_downstream(data, conf.split_ratio, rng)
+    train_data, val_data = _split(data, conf.split_ratio, rng,
+                                  downstream=True)
     seed = getattr(conf, "seed", None)
 
     def tf(item, item_rng):
@@ -178,6 +209,38 @@ def get_fit_loader_downstream(conf):
                           samples_per_item=conf.num_samples_downstream)
 
     return make(train_data), make(val_data)
+
+
+def _pretrain_loaders(conf, data):
+    rng = _rng_of(conf)
+    train_data, val_data = _split(data(rng), conf.split_ratio, rng)
+    seed = getattr(conf, "seed", None)
+
+    def tf(item, item_rng):
+        return T.transform_pretrain_fit(item, conf, item_rng)
+
+    def make(d):
+        return DataLoader(Dataset(d, tf, seed=seed), batch_size_of(conf),
+                          shuffle=True, num_workers=conf.num_workers,
+                          drop_last=True,
+                          samples_per_item=num_samples_of(conf))
+
+    return make(train_data), make(val_data)
+
+
+def get_fit_loader_self_supervised_learning(conf):
+    """(train, validation) loaders over the pretrain images."""
+    return _pretrain_loaders(conf, lambda rng: _subsample(
+        _scan_images(conf.image_dir_pretrain, conf.image_dict_key),
+        conf.num_selected_data_pretrain, rng))
+
+
+def get_fit_loader_supervised_learning(conf):
+    """(train, validation) loaders over the supervised image/mask pairs."""
+    return _pretrain_loaders(conf, lambda rng: _subsample(
+        _scan_pairs(conf.image_dir_supervised, conf.mask_dir_supervised,
+                    conf.image_dict_key, conf.mask_dict_key),
+        conf.num_selected_data_supervised, rng))
 
 
 def get_test_loader_downstream(conf):

@@ -1,4 +1,4 @@
-"""Host-side volume IO and the downstream training transforms.
+"""Host-side volume IO and the training transforms.
 
 Counterpart of the part of the JAX package's ``data/transforms.py`` that
 serving uses: RAS reorientation from the NIfTI affine (MONAI
@@ -16,6 +16,14 @@ orientation and resize, random spatial crops, symmetric pad) draws from
 an explicit ``np.random.Generator`` in the JAX package's order, so one
 seed gives the JAX loader's crops; :func:`transform_downstream_test`
 gives the test loader whole volumes.
+
+The pretrain side (:func:`transform_pretrain_fit`, phase 2) adds the
+centred coordinate grids, the students' views and the random intensity
+chain (bias field, std shift, contrast, scale, histogram shift; coarse
+dropout and coarse shuffle per student), with the same draws in the same
+order as the JAX package's: each student's copy is taken before the
+augmentations, and its crop to ``crop_size_students[i]`` last.  numpy
+only.
 """
 
 from __future__ import annotations
@@ -135,6 +143,132 @@ def rand_spatial_crop(x: np.ndarray, roi: Sequence[int],
     return crop, tuple(starts)
 
 
+def get_coord_grid(shape: Sequence[int]) -> np.ndarray:
+    """Centred voxel coordinate grid ``[H, W, D, 3]`` (float32)."""
+    h, w, d = shape[:3]
+    grid = np.stack(np.meshgrid(np.arange(h), np.arange(w), np.arange(d),
+                                indexing="ij"), axis=-1).astype(np.float32)
+    grid -= np.array([(h - 1) / 2.0, (w - 1) / 2.0, (d - 1) / 2.0],
+                     dtype=np.float32)
+    return grid
+
+
+def rand_bias_field(x: np.ndarray, rng: np.random.Generator,
+                    degree: int = 3, coeff_range=(0.0, 0.1)) -> np.ndarray:
+    """Multiplicative smooth polynomial bias field (MONAI RandBiasFieldd)."""
+    h, w, d = x.shape[:3]
+    coords = [np.linspace(-1, 1, s, dtype=np.float32) for s in (h, w, d)]
+    field = np.zeros((h, w, d), dtype=np.float32)
+    for i in range(degree + 1):
+        for j in range(degree + 1 - i):
+            for k in range(degree + 1 - i - j):
+                c = rng.uniform(*coeff_range)
+                field += c * np.multiply.outer(
+                    np.multiply.outer(coords[0] ** i, coords[1] ** j),
+                    coords[2] ** k)
+    return x * np.exp(field)[..., None]
+
+
+def rand_std_shift(x: np.ndarray, rng: np.random.Generator,
+                   factors=(0.0, 0.1)) -> np.ndarray:
+    factor = rng.uniform(factors[0], factors[1])
+    return x + factor * float(np.std(x))
+
+
+def rand_adjust_contrast(x: np.ndarray, rng: np.random.Generator,
+                         gamma=(0.5, 4.5)) -> np.ndarray:
+    g = rng.uniform(gamma[0], gamma[1])
+    mn, mx = float(x.min()), float(x.max())
+    span = mx - mn + 1e-7
+    return ((x - mn) / span) ** g * span + mn
+
+
+def rand_scale_intensity(x: np.ndarray, rng: np.random.Generator,
+                         factors: float = -2.0) -> np.ndarray:
+    lo, hi = (factors, abs(factors)) if np.isscalar(factors) else factors
+    f = rng.uniform(min(lo, hi), max(lo, hi))
+    return x * (1.0 + f)
+
+
+def rand_histogram_shift(x: np.ndarray, rng: np.random.Generator,
+                         num_control_points=(8, 12)) -> np.ndarray:
+    n = int(rng.integers(num_control_points[0], num_control_points[1] + 1))
+    mn, mx = float(x.min()), float(x.max())
+    if mx - mn < 1e-7:
+        return x
+    ref = np.linspace(mn, mx, n)
+    target = np.sort(rng.uniform(mn, mx, n))
+    target[0], target[-1] = mn, mx
+    return np.interp(x, ref, target).astype(np.float32)
+
+
+def _holes(x: np.ndarray, rng: np.random.Generator, holes: int,
+           spatial_size: int, max_holes: Optional[int],
+           max_spatial_size: Optional[int]):
+    """The random boxes of MONAI's coarse transforms, as slices."""
+    n = holes if max_holes is None else int(rng.integers(holes, max_holes + 1))
+    for _ in range(n):
+        size = [spatial_size if max_spatial_size is None
+                else int(rng.integers(spatial_size, max_spatial_size + 1))
+                for _ in range(3)]
+        start = [int(rng.integers(0, max(x.shape[ax] - size[ax], 0) + 1))
+                 for ax in range(3)]
+        yield tuple(slice(start[ax], start[ax] + size[ax]) for ax in range(3))
+
+
+def rand_coarse_dropout(x: np.ndarray, rng: np.random.Generator,
+                        holes: int, spatial_size: int,
+                        max_holes: Optional[int] = None,
+                        max_spatial_size: Optional[int] = None,
+                        dropout_holes: bool = True,
+                        fill: float = 0.0) -> np.ndarray:
+    """MONAI RandCoarseDropoutd: ``fill`` inside the holes
+    (``dropout_holes``), or only the holes kept and ``fill`` elsewhere."""
+    out = x.copy() if dropout_holes else np.full_like(x, fill)
+    for sl in _holes(x, rng, holes, spatial_size, max_holes,
+                     max_spatial_size):
+        out[sl] = fill if dropout_holes else x[sl]
+    return out
+
+
+def rand_coarse_shuffle(x: np.ndarray, rng: np.random.Generator,
+                        holes: int, spatial_size: int,
+                        max_holes: Optional[int] = None,
+                        max_spatial_size: Optional[int] = None) -> np.ndarray:
+    """MONAI RandCoarseShuffled: the voxels of each hole permuted."""
+    out = x.copy()
+    for sl in _holes(x, rng, holes, spatial_size, max_holes,
+                     max_spatial_size):
+        block = out[sl]
+        flat = block.reshape(-1, block.shape[-1])
+        out[sl] = flat[rng.permutation(flat.shape[0])].reshape(block.shape)
+    return out
+
+
+def _basic_intensity_augs(x: np.ndarray, rng: np.random.Generator,
+                          prob: float, std_shift_factors) -> np.ndarray:
+    """The shared random-intensity chain, each step with ``prob``."""
+    if rng.uniform() < prob:
+        x = rand_bias_field(x, rng)
+    if rng.uniform() < prob:
+        x = rand_std_shift(x, rng, std_shift_factors)
+    if rng.uniform() < prob:
+        x = rand_adjust_contrast(x, rng)
+    if rng.uniform() < prob:
+        x = rand_scale_intensity(x, rng, -2.0)
+    if rng.uniform() < prob:
+        x = rand_histogram_shift(x, rng)
+    return x
+
+
+def _random_orientation(sample: Dict[str, np.ndarray], keys,
+                        rng: np.random.Generator) -> None:
+    """One of three 90-degree rotations, uniformly, of every key."""
+    plane = [(0, 1), (0, 2), (1, 2)][int(rng.integers(0, 3))]
+    for k in keys:
+        sample[k] = rotate90(sample[k], 1, plane)
+
+
 def transform_downstream_fit(item: Dict, conf,
                              rng: np.random.Generator) -> List[Dict]:
     """``num_samples_downstream`` random (image, mask) crops of one
@@ -142,9 +276,7 @@ def transform_downstream_fit(item: Dict, conf,
     sample = {"image": scale_intensity_range(load_image(item["image"])),
               "mask": load_image(item["mask"])}
     if getattr(conf, "random_orientation", False):
-        plane = [(0, 1), (0, 2), (1, 2)][int(rng.integers(0, 3))]
-        for k in ("image", "mask"):
-            sample[k] = rotate90(sample[k], 1, plane)
+        _random_orientation(sample, ("image", "mask"), rng)
     if getattr(conf, "resize_content", False):
         sample["image"] = resize(sample["image"], conf.resize_spatial_size,
                                  "trilinear")
@@ -166,3 +298,83 @@ def transform_downstream_test(item: Dict, conf) -> Dict:
     """The whole RAS volume pair, intensities windowed, no crop."""
     return {"image": scale_intensity_range(load_image(item["image"])),
             "mask": load_image(item["mask"]), "name": item["name"]}
+
+
+_PHASE2 = ("self_supervised_learning_decoder", "self_supervised_learning_all",
+           "supervised_learning_decoder", "supervised_learning_all")
+
+
+def _student_view(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """A student's image augmentations: one of {identity, coarse dropout
+    inside holes, only holes kept, coarse shuffle} with weights (0.7, 0.1,
+    0.1, 0.1), then the intensity chain at 0.1."""
+    choice = rng.choice(4, p=(0.7, 0.1, 0.1, 0.1))
+    if choice == 1:
+        x = rand_coarse_dropout(x, rng, holes=1, spatial_size=4, max_holes=3,
+                                max_spatial_size=16, dropout_holes=True)
+    elif choice == 2:
+        x = rand_coarse_dropout(x, rng, holes=5, spatial_size=32,
+                                max_spatial_size=48, dropout_holes=False)
+    elif choice == 3:
+        x = rand_coarse_shuffle(x, rng, holes=1, spatial_size=4, max_holes=3,
+                                max_spatial_size=16)
+    return _basic_intensity_augs(x, rng, prob=0.1,
+                                 std_shift_factors=(0.0, 0.2))
+
+
+def transform_pretrain_fit(item: Dict, conf,
+                           rng: np.random.Generator) -> List[Dict]:
+    """Phase-2 samples of one volume: ``num_samples_students_teacher``
+    teacher crops at ``roi_size`` (``image``, ``coord`` with the prototype
+    loss, ``mask`` in the supervised modes), and per student ``i`` the
+    same keys ``<key>_st_<i>`` cut from the teacher crop at
+    ``crop_size_students[i]``."""
+    from .datasets import num_samples_of
+    mode = conf.training_mode
+    load_mask = mode in ("supervised_learning_decoder",
+                         "supervised_learning_all")
+    students_view = mode in _PHASE2 and conf.use_prototype_assignment
+    sample = {"image": scale_intensity_range(load_image(item["image"]))}
+    if load_mask:
+        sample["mask"] = load_image(item["mask"])
+    if getattr(conf, "resize_content", False):
+        sample["image"] = resize(sample["image"], conf.resize_spatial_size,
+                                 "trilinear")
+        if load_mask:
+            sample["mask"] = resize(sample["mask"], conf.resize_spatial_size,
+                                    "nearest")
+    if students_view:
+        sample["coord"] = get_coord_grid(sample["image"].shape)
+    keys = [k for k in ("image", "mask", "coord") if k in sample]
+    if getattr(conf, "random_orientation", False):
+        _random_orientation(sample, keys, rng)
+    random_transforms = getattr(conf, "random_transforms", False)
+    num_students = len(conf.crop_size_students) if students_view else 0
+    out = []
+    for _ in range(num_samples_of(conf)):
+        img_c, start = rand_spatial_crop(sample["image"], conf.roi_size, rng)
+        crops = {"image": spatial_pad(img_c, conf.roi_size)}
+        for k in keys[1:]:
+            c, _ = rand_spatial_crop(sample[k], conf.roi_size, rng,
+                                     start=start)
+            crops[k] = spatial_pad(c, conf.roi_size)
+        # Each student's copy of the teacher crop, before the augmentations.
+        students = {f"{k}_st_{i}": crops[k].copy()
+                    for i in range(num_students) for k in keys}
+        if random_transforms:
+            crops["image"] = _basic_intensity_augs(
+                crops["image"], rng, prob=0.05, std_shift_factors=(0.0, 0.1))
+            for i in range(num_students):
+                students[f"image_st_{i}"] = _student_view(
+                    students[f"image_st_{i}"], rng)
+        # Each student's crop last; its first key picks the start.
+        for i in range(num_students):
+            size = conf.crop_size_students[i]
+            st_start = None
+            for k in keys:
+                key = f"{k}_st_{i}"
+                c, st_start = rand_spatial_crop(students[key], size, rng,
+                                                start=st_start)
+                students[key] = spatial_pad(c, size)
+        out.append({**crops, **students, "name": item["name"]})
+    return out

@@ -1,3 +1,5 @@
+from .clustered_prototype import clustered_prototype_loss, draw_jitters
 from .dice import dice_focal_loss, dice_loss, focal_loss
 
-__all__ = ["dice_focal_loss", "dice_loss", "focal_loss"]
+__all__ = ["clustered_prototype_loss", "dice_focal_loss", "dice_loss",
+           "draw_jitters", "focal_loss"]

@@ -10,11 +10,16 @@ parameter names (the reference's torch keys).  Labels:
 * ``encoder_prompt`` / ``decoder_prompt``: the prompt tokens (the
   output layer's ``prompt_tokens.out`` are decoder ones) and the
   RelativePE token bias (``enc_token``, ``weights_token``);
+* ``head_segmentation``: the supervised phase-2 segmentation head;
 * ``head_downstream``: the downstream segmentation head.
 
 Downstream training updates the prompts of the active prompt sets and
-the downstream head (:func:`downstream_labels`); :func:`set_trainable`
-freezes everything else with ``requires_grad_(False)``.
+the downstream head (:func:`downstream_labels`); phase 2 updates the
+decoder (``_decoder`` modes) or everything (``_all`` modes) with the
+active prompt sets (:func:`trainable_labels`, the JAX group builders,
+including their edge case: the encoder prompts stay frozen in the
+``_decoder`` modes).  :func:`set_trainable` freezes everything else with
+``requires_grad_(False)``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from __future__ import annotations
 from typing import List, Set, Tuple
 
 from torch import nn
+
+from ..config import SUPERVISED_MODES
 
 _ENCODER_PREFIXES = ("input_layer", "encoder_blocks")
 _DECODER_PREFIXES = ("bottleneck", "residual_blocks", "decoder_blocks",
@@ -37,6 +44,8 @@ def label_of(name: str) -> str:
         return "decoder_prompt"
     if name.startswith("extra_heads.downstream"):
         return "head_downstream"
+    if name.startswith("extra_heads.segmentation"):
+        return "head_segmentation"
     if name.startswith(_ENCODER_PREFIXES):
         side = "encoder"
     elif name.startswith(_DECODER_PREFIXES):
@@ -59,6 +68,40 @@ def downstream_labels(conf) -> Set[str]:
     if conf.use_decoder_prompting:
         labels.add("decoder_prompt")
     return labels
+
+
+def encoder_labels(conf, include_prompt_tokens: bool = False) -> Set[str]:
+    """The encoder's labels (the reference's ``named_parameters_encoder``;
+    the phase-1 heads, not built in the port yet, are left out)."""
+    labels = {"encoder_body", "encoder_bias_content"}
+    if include_prompt_tokens and conf.use_encoder_prompting:
+        labels.add("encoder_prompt")
+    return labels
+
+
+def decoder_labels(conf, include_prompt_tokens: bool = False) -> Set[str]:
+    """The decoder's labels (``named_parameters_decoder``), with the
+    segmentation head in the supervised modes."""
+    labels = {"decoder_body", "decoder_bias_content"}
+    if include_prompt_tokens and conf.use_decoder_prompting:
+        labels.add("decoder_prompt")
+    if conf.training_mode in SUPERVISED_MODES:
+        labels.add("head_segmentation")
+    return labels
+
+
+def trainable_labels(conf) -> Set[str]:
+    """Labels updated in each training mode the port trains."""
+    mode = conf.training_mode
+    if mode in ("self_supervised_learning_decoder",
+                "supervised_learning_decoder"):
+        return decoder_labels(conf, include_prompt_tokens=True)
+    if mode in ("self_supervised_learning_all", "supervised_learning_all"):
+        return (encoder_labels(conf, include_prompt_tokens=True)
+                | decoder_labels(conf, include_prompt_tokens=True))
+    if mode == "downstream":
+        return downstream_labels(conf)
+    raise ValueError(f"Training mode {mode} not available!")
 
 
 def set_trainable(model: nn.Module, labels: Set[str]

@@ -1,7 +1,8 @@
-"""SwinUnetR, downstream path: serving and prompt-tuning training.
+"""SwinUnetR: serving, prompt tuning and phase-2 pretraining.
 
-Counterpart of the JAX package's ``models/swin_unetr.py`` for
-``training_mode="downstream"``, in every decoder layout
+Counterpart of the JAX package's ``models/swin_unetr.py`` in the
+``downstream`` mode and the four phase-2 modes
+(``{self_,}supervised_learning_{decoder,all}``), in every decoder layout
 (``unetr_res_block`` none | simple | full x ``unetr_up_block`` swin |
 unetr):
 
@@ -19,7 +20,17 @@ unetr):
   ``none``, else one more up block at full resolution onto the last skip
   (a ``SwinUpBlock`` with its own two prompt tokens, or a
   ``UnetrUpBlock``);
-* seg head: BatchNorm (eps 1e-5) then a 3x3x3 conv.
+* seg head: BatchNorm (eps 1e-5) then a 3x3x3 conv: ``head_downstream``
+  (``extra_heads.downstream``) in the downstream mode,
+  ``head_segmentation`` (``extra_heads.segmentation``, to
+  ``output_channels_pretrain``) in the supervised phase-2 modes, none in
+  the self-supervised ones.
+
+``forward`` returns the downstream logits tensor in the downstream mode,
+and in the phase-2 modes the dict ``{"latent_outputs": fp32 decoder
+output [B, H, W, D, C0]}`` plus ``"seg_pred"`` (the head's fp32 logits)
+in the supervised ones.  The phase-1 mode
+(``self_supervised_learning_encoder``) is not built yet.
 
 Prompt tokens are ``[tokens, C]`` parameters, two per stage (window and
 shifted block) for encoder and decoder, and two (``prompt_tokens.out``)
@@ -58,7 +69,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import ModelConfig
+from ..config import SUPERVISED_MODES, ModelConfig
 from ..ops.resize import upsample_trilinear
 from .swin_block import ConsecutiveSwinBlocks
 from .unet_blocks import (SwinUpBlock, UnetrBasicBlock, UnetrUpBlock,
@@ -72,10 +83,11 @@ def _env_flag(name: str) -> bool:
 class SwinUnetR(nn.Module):
     def __init__(self, conf: ModelConfig, dropout_seed: int = 0):
         super().__init__()
-        if conf.training_mode != "downstream":
+        if conf.training_mode == "self_supervised_learning_encoder":
             raise NotImplementedError(
-                "the PyTorch port builds training_mode='downstream' only; "
-                f"got {conf.training_mode} (ROADMAP queue A items 7 and 8)")
+                "the PyTorch port does not build the phase-1 mode "
+                "self_supervised_learning_encoder yet (ROADMAP queue A "
+                "item 8)")
         self.conf = conf
         depth = conf.depth_unet
         hc = conf.hidden_channels
@@ -146,9 +158,17 @@ class SwinUnetR(nn.Module):
             for i in range(depth)])
         if res != "none":
             self.output_layer = up_block(hc[0], hc[0], (2, 2, 2))
-        self.extra_heads = nn.ModuleDict({"downstream": nn.Sequential(
-            nn.BatchNorm3d(hc[0], eps=1e-5, momentum=0.1),
-            same_conv(hc[0], conf.output_channels_downstream))})
+        self.head_name, classes = None, 0
+        if conf.training_mode == "downstream":
+            self.head_name = "downstream"
+            classes = conf.output_channels_downstream
+        elif conf.training_mode in SUPERVISED_MODES:
+            self.head_name = "segmentation"
+            classes = conf.output_channels_pretrain
+        self.extra_heads = nn.ModuleDict({} if classes == 0 else {
+            self.head_name: nn.Sequential(
+                nn.BatchNorm3d(hc[0], eps=1e-5, momentum=0.1),
+                same_conv(hc[0], classes))})
         self.use_checkpoint = conf.use_checkpoint
         # Dropout seeds of every block call come from this generator.
         self.dropout_generator = torch.Generator().manual_seed(dropout_seed)
@@ -206,9 +226,9 @@ class SwinUnetR(nn.Module):
             return conv3d(c.to(self.conf.dtype), block)
         return block(c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: ``[B, H, W, D, C_in]`` -> downstream logits
-        ``[B, H, W, D, classes]`` (fp32)."""
+    def forward(self, x: torch.Tensor):
+        """x: ``[B, H, W, D, C_in]`` -> the downstream logits ``[B, H, W,
+        D, classes]`` (fp32), or the phase-2 dict (module docstring)."""
         conf = self.conf
         enc = batch_norm(conv3d(x.to(conf.dtype), self.input_layer[0]),
                          self.input_layer[1]).to(conf.dtype)
@@ -231,6 +251,14 @@ class SwinUnetR(nn.Module):
             out = self.output_layer(
                 dec, self._skip(conf.depth_unet, feats[-1]),
                 (self._tokens("out", 0), self._tokens("out", 1)))
-        head = self.extra_heads["downstream"]
-        out = batch_norm(out.float(), head[0]).to(conf.dtype)
+        if conf.training_mode == "downstream":
+            return self._head(out)
+        outputs = {"latent_outputs": out.float()}
+        if self.head_name is not None:
+            outputs["seg_pred"] = self._head(out)
+        return outputs
+
+    def _head(self, out: torch.Tensor) -> torch.Tensor:
+        head = self.extra_heads[self.head_name]
+        out = batch_norm(out.float(), head[0]).to(self.conf.dtype)
         return conv3d(out, head[1]).float()

@@ -1,3 +1,4 @@
 from .segmentation import SegmentationTrainer
+from .students_teacher import StudentsTeacherTrainer
 
-__all__ = ["SegmentationTrainer"]
+__all__ = ["SegmentationTrainer", "StudentsTeacherTrainer"]

@@ -55,7 +55,8 @@ from ..utils.metrics import DiceCoefficient, MeanIoU, seg_stats
 from ..utils.schedules import step_decay
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
-from .common import AvgLosses, adamw, adamw_leaves, load_adamw_leaves
+from .common import (AvgLosses, adamw, adamw_leaves, fill_missing_grads,
+                     load_adamw_leaves)
 
 TEST_CHUNK = 10        # windows per forward of the per-window test
 SAVE_EVERY = 20        # epochs between prompt-token checkpoints
@@ -168,13 +169,7 @@ class SegmentationTrainer:
                                include_background=self.hparams.include_background)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        # A trainable parameter the loss does not reach (the decoder
-        # prompt tokens under ``unetr_up_block: unetr``) steps with a zero
-        # gradient, as optax does: weight decay, moments and count.
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        fill_missing_grads(self.optimizer)
         self.optimizer.step()
         return loss.detach(), seg_stats(logits.detach(), seg_true,
                                         self.num_classes)

@@ -2,25 +2,27 @@
 
 Counterpart of the JAX package's ``utils/initialization.py``, including
 its quirk that test mode passes the downstream test loader in the train
-loader's slot.  The port trains the downstream mode; the other training
-modes raise NotImplementedError naming the ROADMAP queue A item that
-ports them.
+loader's slot.  The port trains the downstream mode
+(``SegmentationTrainer``) and the four phase-2 modes
+(``StudentsTeacherTrainer`` on the pretrain loaders); the phase-1 mode
+raises NotImplementedError naming the ROADMAP queue A item that ports
+it.
 """
 
 from __future__ import annotations
 
-from ..data import get_fit_loader_downstream, get_test_loader_downstream
+from ..config import PHASE2_MODES
+from ..data import (get_fit_loader_downstream,
+                    get_fit_loader_self_supervised_learning,
+                    get_fit_loader_supervised_learning,
+                    get_test_loader_downstream)
 from ..models import SwinUnetR
-from ..train import SegmentationTrainer
+from ..train import SegmentationTrainer, StudentsTeacherTrainer
 from .loggers import SummaryWriter, get_logger
 
 # Training mode -> the ROADMAP queue A item that ports its trainer.
 NOT_PORTED = {
     "self_supervised_learning_encoder": "item 8 (phase-1 trainer)",
-    "self_supervised_learning_decoder": "item 7 (phase-2 trainer)",
-    "self_supervised_learning_all": "item 7 (phase-2 trainer)",
-    "supervised_learning_decoder": "item 7 (phase-2 trainer)",
-    "supervised_learning_all": "item 7 (phase-2 trainer)",
 }
 
 
@@ -30,7 +32,7 @@ def _check_mode(hparams) -> None:
         raise NotImplementedError(
             f"training mode {mode} is not ported to the PyTorch package yet "
             f"(ROADMAP queue A {NOT_PORTED[mode]})")
-    if mode != "downstream":
+    if mode != "downstream" and mode not in PHASE2_MODES:
         raise NotImplementedError(f"Training mode {mode} not available!")
 
 
@@ -59,13 +61,20 @@ def select_backbone(hparams):
 def select_trainer(hparams, backbone, train_loader, val_loader, logger,
                    writer, device=None):
     _check_mode(hparams)
-    return SegmentationTrainer(hparams, backbone, train_loader, val_loader,
-                               logger, writer, device=device)
+    trainer = StudentsTeacherTrainer if hparams.training_mode in \
+        PHASE2_MODES else SegmentationTrainer
+    return trainer(hparams, backbone, train_loader, val_loader, logger,
+                   writer, device=device)
 
 
 def select_fitting_loader(hparams):
     _check_mode(hparams)
-    return get_fit_loader_downstream(hparams)
+    mode = hparams.training_mode
+    if mode == "downstream":
+        return get_fit_loader_downstream(hparams)
+    if mode.startswith("self_supervised"):
+        return get_fit_loader_self_supervised_learning(hparams)
+    return get_fit_loader_supervised_learning(hparams)
 
 
 def select_testing_loader(hparams):

@@ -24,6 +24,14 @@
 * Fault C4: a backbone checkpoint written by the JAX ``save_checkpoint``
   merges into the port's trainer; the merged tensors equal the JAX
   exporter's view of the file bit for bit, the others keep their values.
+* Phase 2: the trainable labels of each phase-2 mode are the JAX ones;
+  the phase-2 trainers' checkpoints (student, ``teacher_state_dict``, the
+  grouped optimizer's optax leaves, ``{"step": n}``) cross both ways: the
+  port's file restores into the JAX trainer's own templates (its model
+  variables and ``tx.init`` state) leaf for leaf, and the JAX trainer's
+  file resumes the port's trainer bit for bit (epoch, step, both models,
+  optimizer); a checkpoint without a teacher merges into the student,
+  which the teacher then copies.
 """
 
 from argparse import Namespace
@@ -42,6 +50,8 @@ from medical_image_segmentation_with_visual_prompts_tpu.models import \
     partition as jax_partition
 from medical_image_segmentation_with_visual_prompts_tpu.train.common import \
     adamw as jax_adamw
+from medical_image_segmentation_with_visual_prompts_tpu.train \
+    .students_teacher import StudentsTeacherTrainer as JaxStudentsTeacher
 from medical_image_segmentation_with_visual_prompts_tpu.utils import \
     checkpoint as jax_ckpt
 from medical_image_segmentation_with_visual_prompts_tpu.models import \
@@ -63,9 +73,9 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
 from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
     partition
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train import \
-    SegmentationTrainer
+    SegmentationTrainer, StudentsTeacherTrainer
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train.common \
-    import adamw_leaves, load_adamw_leaves
+    import adamw_leaves, grouped_adamw_leaves, load_adamw_leaves
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
     checkpoint as ckpt
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
@@ -76,6 +86,8 @@ from test_torch_swin_unetr import jax_model, tiny_conf
 
 
 class _Null:
+    dataset = ()
+
     def info(self, *a, **k):
         pass
 
@@ -465,3 +477,117 @@ def test_trainer_merges_a_jax_backbone_checkpoint(tmp_path, tiny):
     assert any(k.endswith("pe.weights_token") for k in kept)
     for k in kept:
         assert torch.equal(after[k], before[k]), k
+
+
+PHASE2 = ("self_supervised_learning_decoder", "self_supervised_learning_all",
+          "supervised_learning_decoder", "supervised_learning_all")
+
+
+@pytest.mark.parametrize("mode", PHASE2)
+@pytest.mark.parametrize("prompting", [(True, True), (True, False),
+                                       (False, False)])
+def test_trainable_labels_are_the_jax_ones(mode, prompting):
+    raw = tiny_conf(training_mode=mode, use_encoder_prompting=prompting[0],
+                    use_decoder_prompting=prompting[1])
+    assert partition.trainable_labels(ModelConfig.from_mapping(raw)) == \
+        jax_partition.trainable_labels(
+            JaxModelConfig.from_namespace(Namespace(**raw)))
+
+
+def _phase2_jax_state(conf, seed=7):
+    """The JAX phase-2 trainer's templates: student and teacher
+    variables, its optimizer and the optimizer's initial state."""
+    hp = Namespace(**conf)
+    _, _, student = jax_model(conf, seed=seed)
+    _, _, teacher = jax_model(conf, seed=seed + 1)
+    student = jax.tree_util.tree_map(np.asarray, student)
+    teacher = jax.tree_util.tree_map(np.asarray, teacher)
+    jtr = JaxStudentsTeacher(hp, JaxSwinUnetR, _Null(), _Null(), _Null(),
+                             _Null())
+    labels = jax_partition.trainable_labels(jtr.model_conf)
+    trainable, frozen = jax_partition.split_params(student["params"], labels)
+    tx, _ = jtr.configure_optimizers(trainable)
+    return student, teacher, trainable, frozen, tx
+
+
+def _phase2_trainer(conf, **kw):
+    return StudentsTeacherTrainer(Namespace(**conf, **kw), SwinUnetR, None,
+                                  None, _Null(), _Null(), device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["supervised_learning_decoder",
+                                  "self_supervised_learning_all"])
+def test_phase2_checkpoints_cross_both_ways(tmp_path, mode):
+    from test_torch_phase2 import make_batch
+    conf = tiny_conf(training_mode=mode, seed=0)
+    student, teacher, trainable, frozen, tx = _phase2_jax_state(conf)
+    # The port writes after two steps; the JAX trainer's templates take it.
+    ours = _phase2_trainer(conf, save_ckpt_backbone=True,
+                           save_ckpt_backbone_path=str(tmp_path / "port"))
+    ours.prepare_fit()
+    ours.model.train()
+    ours.teacher.train()
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        ours.train_step(make_batch(rng))
+    ours._save(0)
+    got = jax_ckpt.load_checkpoint(tmp_path / "port" / "0001.ckpt")
+    assert got["current_epoch"] == 1 and int(
+        got["scheduler_state_dict"]["step"]) == 2
+    for key, model in (("model_state_dict", ours.model),
+                       ("teacher_state_dict", ours.teacher)):
+        state = jax_ckpt.restore_like(
+            {"params": student["params"],
+             "batch_stats": student["batch_stats"]}, got[key])
+        assert_trees_equal(jax.tree_util.tree_map(np.asarray, state),
+                           torch_import.to_flax_variables(model))
+    opt = jax_ckpt.restore_like(tx.init(trainable),
+                                got["optimizer_state_dict"])
+    assert_trees_equal([np.asarray(x) for x in jax.tree_util.tree_leaves(
+        opt)], grouped_adamw_leaves(ours.optimizer, ours.model, 2))
+    assert all(int(opt.inner_states[g].inner_state[0].count) == 2
+               for g in ("base", "prompt"))
+
+    # The JAX trainer writes (its state after one update); the port
+    # resumes it bit for bit.
+    grads = jax.tree_util.tree_map(lambda a: np.full_like(a, 0.25),
+                                   trainable)
+    _, state = tx.update(grads, tx.init(trainable), trainable)
+    path = jax_ckpt.save_checkpoint(
+        tmp_path / "jax", 11, student, state, {"step": 1},
+        teacher_state=teacher)
+    resumed = _phase2_trainer(conf, load_ckpt_backbone=True,
+                              load_ckpt_backbone_path=str(path))
+    assert resumed.prepare_fit() == 11 and resumed.step_count == 1
+    assert_trees_equal(torch_import.to_flax_variables(resumed.model), student)
+    assert_trees_equal(torch_import.to_flax_variables(resumed.teacher),
+                       teacher)
+    assert_trees_equal(
+        grouped_adamw_leaves(resumed.optimizer, resumed.model, 1),
+        [np.asarray(x) for x in jax.tree_util.tree_leaves(state)])
+
+
+def test_phase2_backbone_checkpoint_merges_into_student_and_teacher(
+        tmp_path):
+    """A checkpoint without a teacher (here a downstream model's, with
+    its prompt tokens and head): the student takes every leaf the file
+    and the model share, keeps the rest, and the teacher copies it."""
+    conf = tiny_conf(training_mode="supervised_learning_all", seed=0)
+    _, _, dvars = jax_model(tiny_conf(), seed=9)
+    path = jax_ckpt.save_checkpoint(tmp_path / "b", 3, dvars, None,
+                                    {"epoch": 3})
+    fresh = _phase2_trainer(conf)
+    tr = _phase2_trainer(conf, load_ckpt_backbone=True,
+                         load_ckpt_backbone_path=str(path))
+    assert tr.prepare_fit() == 0 and tr.step_count == 0
+    want = ckpt.merge_state(torch_import.to_flax_variables(fresh.model),
+                            jax.tree_util.tree_map(np.asarray, dvars))
+    assert_trees_equal(torch_import.to_flax_variables(tr.model), want)
+    head = "extra_heads.segmentation.1.weight"
+    assert torch.equal(tr.model.state_dict()[head],
+                       fresh.model.state_dict()[head])
+    assert not torch.equal(tr.model.state_dict()["bottleneck.weight"],
+                           fresh.model.state_dict()["bottleneck.weight"])
+    sd = tr.model.state_dict()
+    for k, v in tr.teacher.state_dict().items():
+        assert torch.equal(v, sd[k]), k

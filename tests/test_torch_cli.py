@@ -19,6 +19,11 @@ volumes, on the CPU.
 * Fault C5: the port's ``infer --ckpt`` serves the JAX trainer's
   checkpoint; its labels agree with the JAX model served by JAX
   ``BucketedInference`` from the same file on at least 99.9% of voxels.
+* Phase 2: ``main --mode fit --training-mode supervised_learning_all``
+  and ``self_supervised_learning_decoder`` on the CPU fit one epoch on
+  synthetic volumes through their loaders and save the epoch-0 backbone
+  checkpoint with its teacher; the phase-1 mode still raises naming its
+  queue item.
 * A non-flagship layout (``unetr_res_block: full``, the Swin output layer
   with its two prompt tokens): the JAX trainer's checkpoint serves
   through the port's ``infer --ckpt`` (the same 99.9%) and resumes in the
@@ -60,6 +65,8 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch import (
     config, infer, main)
 from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
     partition
+from medical_image_segmentation_with_visual_prompts_tpu_torch.train import \
+    StudentsTeacherTrainer
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train.common \
     import adamw_leaves
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
@@ -171,16 +178,64 @@ def test_get_full_configs_raises_as_jax_does(roots, args, error):
 
 
 def test_other_training_modes_name_their_roadmap_item(roots):
-    for mode, item in (("self_supervised_learning_encoder", "item 8"),
-                       ("supervised_learning_all", "item 7")):
+    """The phase-1 mode raises naming its queue item; the four phase-2
+    modes build the students-teacher trainer; ``view`` raises."""
+    hp = config.get_full_configs(cli_args(
+        training_mode="self_supervised_learning_encoder"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        initialization.setup_fitting(hp, "cpu")
+    for mode in initialization.PHASE2_MODES:
         hp = config.get_full_configs(cli_args(training_mode=mode))
-        with pytest.raises(NotImplementedError, match=item):
-            initialization.setup_fitting(hp, "cpu")
-    hp = config.get_full_configs(cli_args())
-    hp.view = True
-    with pytest.raises(NotImplementedError, match="item 9"):
-        initialization.select_trainer(hp, initialization.select_backbone(hp),
-                                      None, None, None, None, "cpu")
+        tr = initialization.select_trainer(
+            hp, initialization.select_backbone(hp), None, None, None, None,
+            "cpu")
+        assert isinstance(tr, StudentsTeacherTrainer)
+        assert tr.supervised == mode.startswith("supervised")
+    for mode in ("downstream", "supervised_learning_decoder"):
+        hp = config.get_full_configs(cli_args(training_mode=mode))
+        hp.view = True
+        with pytest.raises(NotImplementedError, match="item 9"):
+            initialization.select_trainer(
+                hp, initialization.select_backbone(hp), None, None, None,
+                None, "cpu")
+
+
+@pytest.mark.parametrize("mode", ["supervised_learning_all",
+                                  "self_supervised_learning_decoder"])
+def test_phase2_fit_runs_one_epoch_through_main(roots, mode):
+    root = roots
+    _volumes(root, "pre", [(20 + k, 18, 9) for k in range(3)], 2)
+    conf = tiny_conf(image_dir_pretrain=str(root / "pre_img"),
+                     image_dir_supervised=str(root / "pre_img"),
+                     mask_dir_supervised=str(root / "pre_msk"),
+                     attn_drop=0.1, proj_drop=0.1)
+    for key in ("training_mode", "use_encoder_prompting",
+                "use_decoder_prompting"):
+        conf.pop(key)
+    (root / "phase2.yml").write_text(yaml.safe_dump(conf))
+    args = cli_args(training_mode=mode, configs=str(root / "phase2.yml"),
+                    run_name="p2", save_ckpt_backbone=True)
+    parsed = main.build_parser().parse_args(argv(args))
+    assert parsed.device == "cpu"
+    tr = main.main(parsed.mode, config.get_full_configs(parsed),
+                   parsed.device)
+    # 3 volumes split 0.8: 2 train x 2 crops = 2 steps, 1 val = 1 step.
+    assert isinstance(tr, StudentsTeacherTrainer)
+    assert len(tr.losses) == tr.step_count == 2 and len(tr.val_losses) == 1
+    names = ["prt", "seg", "tot"] if mode.startswith("supervised") \
+        else ["prt", "tot"]
+    assert all(sorted(p) == names and all(np.isfinite(list(p.values())))
+               for p in tr.losses + tr.val_losses)
+    saved = ckpt.load_checkpoint(tr.save_ckpt_path / "0001.ckpt")
+    assert "teacher_state_dict" in saved
+    assert int(saved["scheduler_state_dict"]["step"]) == 2
+    tags = {r["tag"] for r in _scalars(tr.hparams.summary_dir)}
+    assert {f"{k}_loss/{n}" for k in ("train", "val") for n in names} | \
+        {"perf/step_ms"} <= tags
+    assert ("val_metric/seg" in tags) == mode.startswith("supervised")
+    log = (Path(tr.hparams.log_dir) / "log.txt").read_text()
+    assert "Learning rate in step 0 epoch 0: 0.00025." in log
+    assert "Contrastive training loss in step 0 epoch 0" in log
 
 
 # ------------------------------------------------- the two CLIs end to end

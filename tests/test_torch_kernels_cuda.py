@@ -531,6 +531,69 @@ def test_block_backward_flagship_geometries(dev, c, heads, dims, shift,
     assert info["ctas"] >= 64 and info["smem"] <= 227 * 1024, info
 
 
+# The phase-2 students' stages that pad H/W and depth materially (crops
+# 96x96x8 and 80x80x8 at window 8x8x4, pad_mode aligned: M 256, N 320):
+# 20x20x2 at C 96 (encoder, 8 heads; decoder, 4), 10x10x2 and 12x12x2
+# at C 192 (encoder, 16 heads; decoder, 4).
+STUDENT_BLOCKS = [(96, 8, (20, 20, 2)), (96, 4, (20, 20, 2)),
+                  (192, 16, (10, 10, 2)), (192, 4, (12, 12, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", STUDENT_BLOCKS)
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_fused_swin_block_student_geometries(dev, c, heads, dims, shift,
+                                             dropout):
+    """B1 on the students' materially padded blocks at batch 2, against
+    its plain version (the shifted calls with their label mask)."""
+    x, ops, labels = _flagship_block(dev, c, heads, dims, shift, 2,
+                                     torch.bfloat16)
+    assert x.shape[2] == 256 and (labels is not None) == any(shift)
+    drop = DROP if dropout else fb.NO_DROPOUT
+    with torch.inference_mode():
+        ref = fb.block_reference(x, ops, labels, drop)
+        got = fb.fused_swin_block(x, ops, labels, drop)
+        torch.cuda.synchronize()
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", STUDENT_BLOCKS)
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+def test_block_backward_student_geometries(dev, c, heads, dims, shift):
+    """B4 on the students' materially padded training calls (dropout
+    on), each gradient within GRAD_TOL of its largest magnitude."""
+    x, ops, labels = _flagship_block(dev, c, heads, dims, shift, 2,
+                                     torch.bfloat16)
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        12)).to(dev, torch.bfloat16)
+    ref = _flat_grads(*fbb.block_backward_reference(x, dout, ops, labels,
+                                                    DROP))
+    dx, grads = fbb.block_backward(x, dout, ops, labels, DROP)
+    torch.cuda.synchronize()
+    _assert_grads_close(_flat_grads(dx, grads), ref)
+
+
+# The students' decoder pair convs that no serving path gives B2:
+# 10x10x2, 12x12x2, 20x20x2 and 40x40x4 grids at batch 2.
+STUDENT_CONVS = [((2, 10, 10, 2), 384, 192, 192),
+                 ((2, 12, 12, 2), 384, 192, 192),
+                 ((2, 20, 20, 2), 192, 96, 96), ((2, 40, 40, 4), 96, 48, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ca,cb,co", STUDENT_CONVS)
+def test_conv3x3_pair_kernel_student_grids(dev, shape, ca, cb, co):
+    xa, xb, w, bias, scale, shift = _conv_case(dev, shape, ca, cb, co)
+    with torch.inference_mode():
+        ref = cf.conv_pair_reference(xa, xb, w, bias, scale, shift)
+        got = cf.conv3x3_fused_pair(xa, xb, w, bias, scale, shift)
+        torch.cuda.synchronize()
+    assert got.shape == (*shape, co)
+    _assert_close(got, ref)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

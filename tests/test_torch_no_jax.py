@@ -31,6 +31,7 @@ def test_every_port_module_imports_without_jax():
                     "ops.window_attention",
                     "ops.conv_fused", "models.window_attention",
                     "ops.augment", "losses.dice",
+                    "losses.clustered_prototype", "train.students_teacher",
                     "utils.metrics", "utils.schedules", "utils.device",
                     "models.partition", "data.datasets", "train.common",
                     "train.segmentation", "main", "utils.checkpoint",

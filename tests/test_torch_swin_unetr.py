@@ -11,7 +11,10 @@ agree to float reassociation: 1e-4 absolute on O(1) logits.
 Every decoder layout (``unetr_res_block`` none/simple/full x
 ``unetr_up_block`` swin/unetr) is held to the JAX model at the tiny
 config, its variables carried by the port's name map
-(``utils/torch_import.py::load_flax_variables``).
+(``utils/torch_import.py::load_flax_variables``); so are the four
+phase-2 modes' outputs (``latent_outputs``, and ``seg_pred`` in the
+supervised ones) on a student's 12x12x8 crop, whose 6x6x4 stage pads
+H/W materially.
 
 Geometries: ``configurations/tiny_cpu.yml`` (every stage window-aligned,
 so both pad modes coincide there); a variant with window 4x4x4 on a
@@ -243,18 +246,47 @@ def test_layout_logits_match_jax_fp32(layout):
 
 
 def test_unported_layouts_raise():
-    """Every decoder layout builds; what is left unported are the
-    training modes past ``downstream``, and those raise naming the queue
-    items that port them.  An unknown layout value is refused."""
+    """Every decoder layout builds, and so do the four phase-2 modes
+    (with the segmentation head in the supervised ones, no head in the
+    others); the phase-1 mode raises naming the queue item that ports
+    it.  An unknown layout value is refused."""
     for layout in LAYOUTS:
         SwinUnetR(ModelConfig.from_mapping(tiny_conf(
             unetr_res_block=layout[0], unetr_up_block=layout[1])))
-    for mode in ("self_supervised_learning_encoder",
-                 "self_supervised_learning_decoder",
-                 "self_supervised_learning_all",
-                 "supervised_learning_decoder", "supervised_learning_all"):
-        with pytest.raises(NotImplementedError, match="queue A"):
-            SwinUnetR(ModelConfig.from_mapping(tiny_conf(
-                training_mode=mode)))
+    for mode in PHASE2_MODES:
+        model = SwinUnetR(ModelConfig.from_mapping(tiny_conf(
+            training_mode=mode)))
+        assert list(model.extra_heads) == (
+            ["segmentation"] if mode.startswith("supervised") else [])
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        SwinUnetR(ModelConfig.from_mapping(tiny_conf(
+            training_mode="self_supervised_learning_encoder")))
     with pytest.raises(ValueError, match="unetr_res_block"):
         ModelConfig.from_mapping(tiny_conf(unetr_res_block="partial"))
+
+
+PHASE2_MODES = ("self_supervised_learning_decoder",
+                "self_supervised_learning_all",
+                "supervised_learning_decoder", "supervised_learning_all")
+
+
+@pytest.mark.parametrize("mode", PHASE2_MODES)
+def test_phase2_outputs_match_jax_fp32(mode):
+    conf = tiny_conf(training_mode=mode, pad_mode="aligned")
+    jm, _, variables = jax_model(conf, seed=8)
+    x = np.random.default_rng(9).standard_normal(
+        (2, 12, 12, 8, 1)).astype(np.float32)
+    want = jax.jit(lambda v, x: jm.apply(v, x, deterministic=True))(
+        variables, jnp.asarray(x))
+    model = SwinUnetR(ModelConfig.from_mapping(conf))
+    load_flax_variables(model, variables)
+    with torch.inference_mode():
+        got = model.eval()(torch.from_numpy(x))
+    assert sorted(got) == sorted(want) == (
+        ["latent_outputs", "seg_pred"] if mode.startswith("supervised")
+        else ["latent_outputs"])
+    assert got["latent_outputs"].shape == (2, 12, 12, 8, 8)
+    for key, value in got.items():
+        assert value.dtype == torch.float32
+        np.testing.assert_allclose(value.numpy(), np.asarray(want[key]),
+                                   atol=ATOL, rtol=0, err_msg=key)
