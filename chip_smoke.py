@@ -84,7 +84,23 @@ the port's paths:
   optimizer, step), the teacher's EMA after one step against host fp64,
   a profile of 2 steps and the prototype loss's device time; and
   ``self_supervised_learning_decoder`` for 2 steps (36 B1 + 12 B4 each;
-  the encoder bit for bit its initial values).
+  the encoder bit for bit its initial values);
+* phase-1 multi-view pretraining (phases ``multi-view-blocks``,
+  ``multi-view`` and ``multi-view-mutual``): B1 with dropout and B4 at
+  the 12 encoder block calls of a step at batch 14 (the reference's 2
+  volumes x 7 crops) at the flagship (bf16, aligned) and the example
+  config (fp32, reference padding: B4's device-memory form at C 192), B5
+  at the 6 pair calls, against their plain versions; ``main --mode fit
+  --training-mode self_supervised_learning_encoder`` at the flagship
+  model with the example config's multi-view section (batch 2 of 7 crops
+  per volume: 7 steps of 12 B1 + 12 B4, 3 validation steps of 12 B1),
+  kernels vs plain, its checkpoint resumed bit for bit, a profile; one
+  step on the block pairs (6 B5 + 6 B1 + 12 B4); the same fit at batch
+  14; one phase-2 ``self_supervised_learning_all`` step from the phase-1
+  checkpoint (the encoder the checkpoint's, the teacher the student);
+  and mutual learning at the flagship roi: one step at the H-W swap (18
+  B1 + 18 B4, against plain) and a ``ValueError`` before any launch at
+  the two swaps whose reconstruction is not the roi's shape.
 
 B2 and B3 are timed beside one cuDNN ``conv3d`` on the same shapes
 without the prologue (bf16, channels-last), and each B2 launch reports
@@ -2272,11 +2288,17 @@ def pretrain_args(configs: str, mode: str, run: str, *more: str) -> list:
             "--run-name", run, *more]
 
 
-# Biases whose every path to the loss passes a BatchNorm on batch
+# Biases whose every path to the loss passes a normalization on batch
 # statistics, which removes a per-channel constant: their true gradient is
-# 0 (the patch embedding's conv, the bottleneck conv, and the MLP and LN2
-# biases of the last block of each up block but the last).
-def bn_cancelled(depth: int) -> set:
+# 0.  Phase 2: the patch embedding's conv, the bottleneck conv, and the
+# MLP and LN2 biases of the last block of each up block but the last.
+# Phase 1: the patch embedding's conv and each reconstruction conv before
+# its instance norm.
+def bn_cancelled(depth: int, phase1: bool = False) -> set:
+    if phase1:
+        return {"input_layer.0.bias"} | {
+            f"extra_heads.reconstruction.{4 * i}.bias"
+            for i in range(depth + 1)}
     names = {"input_layer.0.bias", "bottleneck.bias"}
     for j in range(depth - 1):
         blk = f"decoder_blocks.{j}.swin_layer.swin_blocks.1"
@@ -2287,7 +2309,8 @@ def bn_cancelled(depth: int) -> set:
 def check_gradients(tr, failures: list) -> int:
     """Every trainable gradient finite, and non-zero but where the true
     gradient is 0 (:func:`bn_cancelled`); returns the count checked."""
-    zero_ok = bn_cancelled(tr.model_conf.depth_unet)
+    zero_ok = bn_cancelled(tr.model_conf.depth_unet,
+                           tr.model_conf.training_mode == PHASE1)
     n = 0
     for name, p in tr.model.named_parameters():
         if not p.requires_grad:
@@ -2301,7 +2324,7 @@ def check_gradients(tr, failures: list) -> int:
     return n
 
 
-def run_phase2(hp, kernels: bool):
+def run_fit(hp, kernels: bool):
     """``main.main("fit", hp)`` on the card (kernels) or the same trainer
     with the plain versions (``setup_fitting`` + ``train()``, which is
     what ``main.main`` runs); returns the trainer, its launches and wall
@@ -2319,7 +2342,8 @@ def run_phase2(hp, kernels: bool):
     else:
         tr = initialization.setup_fitting(hp, "cuda")
         tr.model.set_kernels(False)
-        tr.teacher.set_kernels(False)
+        if hasattr(tr, "teacher"):
+            tr.teacher.set_kernels(False)
         tr.train()
     torch.cuda.synchronize()
     return tr, read_counters(), time.perf_counter() - t0
@@ -2408,8 +2432,8 @@ def phase_students_teacher(card: str):
                              "--save-ckpt-backbone",
                              "--save-ckpt-backbone-path", str(ckpt_dir))
         hp = config.get_full_configs(cli_main.build_parser().parse_args(argv))
-        plain, plain_launches, _ = run_phase2(hp, False)
-        tr, launches, wall = run_phase2(hp, True)
+        plain, plain_launches, _ = run_fit(hp, False)
+        tr, launches, wall = run_fit(hp, True)
         steps, val_steps = len(tr.losses), len(tr.val_losses)
         want = expect(PHASE2_STEP, steps)
         for k, v in PHASE2_VAL.items():
@@ -2515,7 +2539,7 @@ def phase_students_teacher(card: str):
         cfg = pretrain_config(root)
         hp = config.get_full_configs(cli_main.build_parser().parse_args(
             pretrain_args(cfg, "self_supervised_learning_decoder", "st-dec")))
-        tr, launches, wall = run_phase2(hp, True)
+        tr, launches, wall = run_fit(hp, True)
         steps, val_steps = len(tr.losses), len(tr.val_losses)
         want = expect(PHASE2_DECODER_STEP, steps)
         for k, v in PHASE2_VAL.items():
@@ -2547,6 +2571,524 @@ def phase_students_teacher(card: str):
         del tr, fresh
     if failures:
         raise RuntimeError("phase students-teacher failed: "
+                           + "; ".join(failures))
+    return out
+
+
+# Phase 1 (multi-view encoder pretraining).  The encoder's 3 stages of a
+# 128x128x8 roi (window 8x8x4, 64 encoder prompt tokens); per view 6
+# block calls.  MV_BATCH is the reference trainer's batch (2 volumes x 7
+# crops); the port's loader, as the JAX package's, batches crops, so the
+# example config's ``batch_size_multi_view: 2`` steps on 2 crops.
+PHASE1 = "self_supervised_learning_encoder"
+MV_GEOMETRIES = (("enc0", 48, 4, (64, 64, 4)), ("enc1", 96, 8, (32, 32, 2)),
+                 ("enc2", 192, 16, (16, 16, 2)))
+MV_BATCH = 14
+# Launches per phase-1 step: 2 views x 6 encoder blocks, forward and
+# backward; with mutual learning a third view; on the block pairs 3 B5
+# per view, their backward a B1 recompute and 2 B4 per pair.
+MV_STEP = {"B1": 12, "B4": 12}
+MV_VAL = {"B1": 12}
+MV_MUTUAL_STEP = {"B1": 18, "B4": 18}
+MV_PAIR_STEP = {"B5": 6, "B1": 6, "B4": 12}
+MV_VOLUMES = 3       # split 0.8: 2 train x 7 crops = 7 steps of 2, 1 val: 3
+MV14_VOLUMES = 6     # batch 14: 4 train volumes = 2 steps, 2 val: 1
+
+
+def mv_block(c, heads, shift, gen, pad_mode, dtype):
+    """A phase-1 encoder block (seeded random weights, dropout on)."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinTransformerBlock
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import init_weights
+    blk = SwinTransformerBlock(c, (8, 8, 4), 64, heads, 1, 64,
+                               shift_size=shift, pad_mode=pad_mode,
+                               dtype=dtype, attn_drop=DROP_RATE,
+                               proj_drop=DROP_RATE)
+    return init_weights(blk, gen).cuda()
+
+
+def phase_multi_view_blocks(gen_seed: int = SEED + 17):
+    """B1 with dropout and B4 against their plain versions at the 12 block
+    calls of a phase-1 step at batch 14 (each geometry once per view, on
+    its own input), at the flagship (bf16, ``pad_mode: aligned``: the
+    depth-2 stages pad-folded) and the example config (fp32, ``pad_mode:
+    reference``: M 256 everywhere, B4's device-memory form at C 192); B4
+    twice with the same bits; then B5 with dropout at the flagship's 6
+    pair calls (3 encoder pairs per view) against ``pair_reference``.
+    Prints each call's ms, plain ms, error, and B1/B4 cluster and form."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block import (PARAM_KEYS, Dropout, block_reference,
+                             fused_swin_block)
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block import launch_info as fwd_launch_info
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block_bwd import (block_backward, block_backward_reference,
+                                 launch_info)
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_pair import fused_swin_pair, pair_reference
+    print(f"phase multi-view-blocks: B1 with dropout {DROP_RATE}/{DROP_RATE} "
+          f"and B4 vs their plain versions at the 12 block calls of a "
+          f"phase-1 step, batch {MV_BATCH}, flagship (bf16, aligned) and "
+          "example (fp32, reference); B5 at the flagship's 6 pair calls")
+    failures, out = [], {}
+    names = ("x", "bias", "ext_k", "ext_v", *PARAM_KEYS)
+    g = torch.Generator().manual_seed(gen_seed)
+    seed = 3000
+    for cfg, pad_mode, dtype in (("flagship", "aligned", torch.bfloat16),
+                                 ("example", "reference", torch.float32)):
+        fwd = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound(), "errs": []}
+        bwd = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound(), "errs": [],
+               "big_calls": 0}
+        for name, c, heads, dims in MV_GEOMETRIES:
+            for shift in ((0, 0, 0), (4, 4, 2)):
+                blk = mv_block(c, heads, shift, g, pad_mode, dtype)
+                tok = (0.5 * torch.randn((64, c), generator=g)).cuda()
+                for view in ("i", "j"):
+                    x = torch.randn((MV_BATCH, *dims, c), generator=g).to(
+                        "cuda", dtype)
+                    drop = Dropout((seed, seed + 1), DROP_RATE, DROP_RATE)
+                    seed += 2
+                    with torch.no_grad():
+                        x_win, ops, labels, _ = blk.windows(x, tok)
+                    dout = torch.randn(x_win.shape, generator=g).to(
+                        "cuda", dtype)
+                    tag = (f"{cfg} view {view} "
+                           + block_tag(name, c, heads, dims, x_win, ops,
+                                       labels))
+                    with torch.inference_mode():
+                        ref = block_reference(x_win, ops, labels, drop)
+                        got = fused_swin_block(x_win, ops, labels, drop)
+                        torch.cuda.synchronize()
+                        fwd["errs"].append(check_close(f"B1 {tag}", got, ref,
+                                                       failures))
+                        t_k = cuda_ms(lambda: fused_swin_block(
+                            x_win, ops, labels, drop))
+                        t_p = cuda_ms(lambda: block_reference(
+                            x_win, ops, labels, drop), 3)
+                    del ref, got
+                    fwd["bound"].add(*block_work(x_win, ops, labels))
+                    fwd["ms"] += t_k
+                    fwd["plain_ms"] += t_p
+                    ref_dx, ref_g = block_backward_reference(
+                        x_win, dout, ops, labels, drop)
+                    dx, got_g = block_backward(x_win, dout, ops, labels, drop)
+                    dx2, got_g2 = block_backward(x_win, dout, ops, labels,
+                                                 drop)
+                    torch.cuda.synchronize()
+                    info = launch_info(x_win, ops, labels, drop)
+                    bwd["big_calls"] += int(info["big"])
+                    print(f"    B1 launch {fwd_launch_info(x_win, ops)}; "
+                          f"B4 launch {info}")
+                    for gname, a, b, want in zip(
+                            names, (dx, *got_g), (dx2, *got_g2),
+                            (ref_dx, *ref_g)):
+                        if want is None:
+                            continue
+                        if not torch.equal(a, b):
+                            failures.append(f"B4 {tag} d{gname}: two runs "
+                                            "differ")
+                        bwd["errs"].append(check_close(
+                            f"  d{gname}", a, want, failures, GRAD_TOL,
+                            1e-6))
+                    del ref_dx, ref_g, dx, got_g, dx2, got_g2
+                    t_bk = cuda_ms(lambda: block_backward(
+                        x_win, dout, ops, labels, drop))
+                    t_bp = cuda_ms(lambda: block_backward_reference(
+                        x_win, dout, ops, labels, drop), 3)
+                    bwd["bound"].add(*block_bwd_work(x_win, ops, labels))
+                    bwd["ms"] += t_bk
+                    bwd["plain_ms"] += t_bp
+                    print(f"    B1 kernel {t_k:.4f} ms, plain {t_p:.4f} ms; "
+                          f"B4 kernel {t_bk:.4f} ms, plain {t_bp:.4f} ms")
+                    torch.cuda.empty_cache()
+        want_big = 4 if pad_mode == "reference" else 0
+        if bwd["big_calls"] != want_big:
+            failures.append(f"{cfg}: {bwd['big_calls']} B4 calls in the "
+                            f"device-memory form, expected {want_big}")
+        for m in (fwd, bwd):
+            m["max_abs_err"] = max(m.pop("errs"))
+        print(f"  {cfg}: per step (12 calls) B1 {fwd['ms']:.4f} ms (plain "
+              f"{fwd['plain_ms']:.4f}, bound {fwd['bound'].ms:.4f}), B4 "
+              f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, bound "
+              f"{bwd['bound'].ms:.4f}; {bwd['big_calls']} calls in the "
+              "device-memory form)")
+        out[cfg] = {"B1": fwd, "B4": bwd}
+
+    pair = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound(), "errs": []}
+    for name, c, heads, dims in MV_GEOMETRIES:
+        blocks = make_pair(c, heads, g, DROP_RATE)
+        toks = tuple((0.5 * torch.randn((64, c), generator=g)).cuda()
+                     for _ in range(2))
+        for view in ("i", "j"):
+            x = torch.randn((MV_BATCH, *dims, c), generator=g).to(
+                "cuda", torch.bfloat16)
+            d0 = Dropout((seed, seed + 1), DROP_RATE, DROP_RATE)
+            d1 = Dropout((seed + 2, seed + 3), DROP_RATE, DROP_RATE)
+            seed += 4
+            with torch.inference_mode():
+                x_win, ops0, ops1, labels, plan, _ = blocks.pair_windows(
+                    x, toks)
+                ref = pair_reference(x_win, ops0, ops1, labels, plan, d0, d1)
+                got = fused_swin_pair(x_win, ops0, ops1, labels, plan, d0, d1)
+                torch.cuda.synchronize()
+                pair["errs"].append(check_close(
+                    f"B5 view {view} {name} C{c} h{heads} "
+                    f"BP{x_win.shape[0] * x_win.shape[1]} "
+                    f"M{x_win.shape[2]}", got, ref, failures))
+                t_k = cuda_ms(lambda: fused_swin_pair(
+                    x_win, ops0, ops1, labels, plan, d0, d1))
+                t_p = cuda_ms(lambda: pair_reference(
+                    x_win, ops0, ops1, labels, plan, d0, d1), 3)
+            pair["bound"].add(*pair_work(x_win, ops0, ops1, labels))
+            pair["ms"] += t_k
+            pair["plain_ms"] += t_p
+            print(f"    B5 kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+    pair["max_abs_err"] = max(pair.pop("errs"))
+    out["B5"] = pair
+    print(f"  B5 per step (6 pair calls): {pair['ms']:.4f} ms (plain "
+          f"{pair['plain_ms']:.4f}, bound {pair['bound'].ms:.4f})")
+    if failures:
+        raise RuntimeError("phase multi-view-blocks failed: "
+                           + "; ".join(failures))
+    return out
+
+
+def multi_view_config(root: Path, name: str, **over) -> str:
+    """``configurations/example_configs.yml`` with the flagship model
+    (bf16 trunk, ``pad_mode: aligned``; its widths, window, prompts,
+    dropout and ``use_checkpoint`` are the example's), the pretrain data
+    of ``root``, epoch 0 only (``max_epochs_multi_view: 0``; the YAML wins
+    over the command line), and ``over``.  The multi-view section as
+    published otherwise."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import load_conf
+    conf = load_conf("example_configs.yml")
+    conf.update(compute_dtype="bfloat16", pad_mode="aligned",
+                image_dir_pretrain=str(root / "img"),
+                image_dir_supervised=str(root / "img"),
+                mask_dir_supervised=str(root / "msk"),
+                max_epochs_multi_view=0, max_epochs_students_teacher=0,
+                **over)
+    path = root / f"{name}.yml"
+    path.write_text(json.dumps(conf))
+    return str(path)
+
+
+def mv_args(configs: str, run: str, *more: str) -> list:
+    return ["--mode", "fit", "--training-mode", PHASE1, "--configs",
+            configs, "--use-encoder-prompting", "--run-name", run, *more]
+
+
+def loss_gate(kind: str, got: dict, want: dict, failures: list) -> str:
+    """``got`` within TRAIN_LOSS_RTOL of ``want`` for every loss; returns
+    the printed comparison."""
+    import numpy as np
+    for key in want:
+        rel = abs(got[key] - want[key]) / max(abs(want[key]), 1e-12)
+        if not (np.isfinite(got[key]) and rel <= TRAIN_LOSS_RTOL):
+            failures.append(f"{kind} {key} {got[key]} vs {want[key]}")
+    return ", ".join(f"{k} {got[k]:.6f} vs {want[k]:.6f}" for k in want)
+
+
+def fit_gates(tr, plain, launches, plain_launches, per_step, steps,
+              val_steps, failures: list) -> None:
+    """A phase-1 fit run against its plain twin: the step counts, exact
+    launches, no launch in the plain run, each step's losses."""
+    got = (len(tr.losses), len(tr.val_losses))
+    if got != (steps, val_steps):
+        failures.append(f"{got} steps and validation steps, not "
+                        f"{(steps, val_steps)}")
+    want = expect(per_step, len(tr.losses))
+    for k, v in MV_VAL.items():
+        want[k] += v * len(tr.val_losses)
+    print(f"  launches {launches} (expected {per_step} per step, {MV_VAL} "
+          f"per validation step); plain run {plain_launches}")
+    if launches != want:
+        failures.append(f"launches {launches}, expected {want}")
+    if any(plain_launches.values()):
+        failures.append(f"plain run launched kernels: {plain_launches}")
+    for i, (lk, lp) in enumerate(zip(tr.losses + tr.val_losses,
+                                     plain.losses + plain.val_losses)):
+        kind = "step" if i < len(tr.losses) else "validation step"
+        print(f"  {kind} {i}: " + loss_gate(f"{kind} {i}", lk, lp, failures)
+              + f" (kernels vs plain, tol {TRAIN_LOSS_RTOL} relative)")
+
+
+def phase_multi_view(card: str):
+    """Phase-1 multi-view pretraining through ``main --mode fit
+    --training-mode self_supervised_learning_encoder
+    --use-encoder-prompting`` at the flagship model with the example
+    config's multi-view section (roi 128x128x8, masking 2x2x2 at 0.2,
+    coding dim 512, rec/rot/con at 0.2/0.5/0.3, lr 5e-4, wd 0.1, warmup
+    100, t_total 4000, 7 crops per volume, batch 2) on seeded synthetic
+    volumes, with the kernels and with the plain versions from the same
+    seeds: losses, launches, gradients, the epoch-0 checkpoint resumed
+    bit for bit, a profile of 2 steps; one step on the block pairs (B5)
+    against the run's first; the same run at batch 14 (the reference's 2
+    volumes x 7 crops) with a profile; then one phase-2
+    ``self_supervised_learning_all`` step from the phase-1 checkpoint
+    (the hand-off: encoder tensors the checkpoint's, the teacher the
+    student)."""
+    import numpy as np
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        config
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import get_fit_loader_self_supervised_learning as ssl_loaders
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.train \
+        .common import grouped_adamw_leaves
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import initialization
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .checkpoint import load_checkpoint, tree_leaves
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .torch_import import to_flax_variables
+    print("phase multi-view: main --mode fit --training-mode "
+          f"{PHASE1} --use-encoder-prompting, flagship model (bf16, "
+          "pad_mode aligned, 64 encoder prompt tokens, dropout 0.1/0.1), "
+          "example_configs.yml multi-view section (7 crops per volume, "
+          "batch 2)")
+    failures, out = [], {}
+
+    def same(a, b) -> bool:
+        a, b = tree_leaves(a), tree_leaves(b)
+        return len(a) == len(b) and all(
+            np.asarray(x).dtype == np.asarray(y).dtype
+            and np.array_equal(x, y) for x, y in zip(a, b))
+
+    def hparams(argv):
+        return config.get_full_configs(cli_main.build_parser().parse_args(
+            argv))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        config.DEFAULT_ROOT_LOG_DIR = root / "logs"
+        write_pretrain_set(root, MV_VOLUMES, SEED + 18)
+        cfg = multi_view_config(root, "multi_view")
+        ckpt_dir = root / "backbone"
+        hp = hparams(mv_args(cfg, "mv", "--save-ckpt-backbone",
+                             "--save-ckpt-backbone-path", str(ckpt_dir)))
+        plain, plain_launches, _ = run_fit(hp, False)
+        tr, launches, wall = run_fit(hp, True)
+        print(f"  kernels: {len(tr.losses)} steps + {len(tr.val_losses)} "
+              f"validation steps in {wall:.3f} s")
+        fit_gates(tr, plain, launches, plain_launches, MV_STEP, 7, 3,
+                  failures)
+        n_grad = check_gradients(tr, failures)
+        print(f"  {n_grad} trainable tensors with finite gradients, non-zero "
+              f"but for the {len(bn_cancelled(3, True))} biases a "
+              "normalization on batch statistics removes")
+        k_ms = float(np.median(tr.step_ms))
+        p_ms = float(np.median(plain.step_ms))
+        print(f"  median step ms: kernels {k_ms:.3f}, plain {p_ms:.3f} (host "
+              f"clock around each step, ending in its loss read) on {card}")
+        print(f"  steps ms kernels {[round(v, 3) for v in tr.step_ms]}; "
+              f"plain {[round(v, 3) for v in plain.step_ms]}")
+        first = tr.losses[0]
+        del plain
+
+        # The epoch-0 checkpoint, and a resume from it.
+        ckpt = ckpt_dir / "0001.ckpt"
+        saved = load_checkpoint(ckpt)
+        probe = initialization.select_trainer(
+            hparams(mv_args(cfg, "mv-resume", "--load-ckpt-backbone",
+                            "--load-ckpt-backbone-path", str(ckpt))),
+            SwinUnetR, None, None, _Quiet(), None)
+        start = probe.prepare_fit()
+        restored = {
+            "model": same(to_flax_variables(probe.model),
+                          saved["model_state_dict"]),
+            "optimizer": same(grouped_adamw_leaves(
+                probe.optimizer, probe.model, probe.step_count),
+                saved["optimizer_state_dict"]["__flat_leaves__"]),
+            "step": probe.step_count == len(tr.losses) == int(
+                saved["scheduler_state_dict"]["step"]),
+            "no teacher": "teacher_state_dict" not in saved}
+        print(f"  resume from {ckpt.name}: start epoch {start}; bit for bit "
+              f"{restored}")
+        if start != 1 or not all(restored.values()):
+            failures.append(f"resume: start {start}, {restored}")
+        del probe
+
+        tr.model.train()        # validation left the model in eval mode
+        profile_steps(tr, hp, loaders=ssl_loaders)
+        print(f"  (profile of phase-1 steps at batch 2 on {card})")
+        out.update(launches=launches, step_ms=k_ms, plain_step_ms=p_ms)
+        del tr
+
+        # One step on the block pairs, from the run's initial state, draws
+        # and first batch: against the two-launch run's first step.
+        pair_tr = initialization.select_trainer(hp, SwinUnetR, None, None,
+                                                _Quiet(), None)
+        pair_tr.prepare_fit()
+        pair_tr.model.train().set_pair_kernel(True)
+        batch = next(iter(ssl_loaders(hp)[0]))
+        torch.cuda.synchronize()
+        reset_counters()
+        parts = {k: float(v) for k, v in pair_tr.train_step(batch).items()}
+        out["pair_launches"] = read_counters()
+        print(f"  block pairs, one step: launches {out['pair_launches']} "
+              f"(expected {MV_PAIR_STEP}); "
+              + loss_gate("pair step", parts, first, failures)
+              + " (block pairs vs the two-launch run's first step)")
+        if out["pair_launches"] != expect(MV_PAIR_STEP):
+            failures.append(f"pair step launches {out['pair_launches']}")
+        del pair_tr
+
+        # Phase 2 from the phase-1 checkpoint (backbone-only merge).
+        cfg2 = multi_view_config(root, "phase2")
+        hp2 = hparams(pretrain_args(cfg2, "self_supervised_learning_all",
+                                    "mv-to-p2", "--load-ckpt-backbone",
+                                    "--load-ckpt-backbone-path", str(ckpt)))
+        st = initialization.select_trainer(hp2, SwinUnetR, None, None,
+                                           _Quiet(), None)
+        st.prepare_fit()
+        student = to_flax_variables(st.model)["params"]
+        taken, differ = 0, []
+
+        def walk(a, b, path=""):
+            nonlocal taken
+            for k, v in a.items():
+                if k not in b:
+                    continue
+                if isinstance(v, dict):
+                    walk(v, b[k], f"{path}/{k}")
+                else:
+                    taken += 1
+                    if not np.array_equal(v, b[k]):
+                        differ.append(f"{path}/{k}")
+
+        walk(saved["model_state_dict"]["params"], student)
+        teacher_same = all(torch.equal(a, b) for a, b in zip(
+            st.teacher.state_dict().values(), st.model.state_dict().values()))
+        st.model.train()
+        st.teacher.train()
+        batch2 = next(iter(ssl_loaders(hp2)[0]))
+        torch.cuda.synchronize()
+        reset_counters()
+        parts2, _ = st.train_step(batch2)
+        parts2 = {k: float(v) for k, v in parts2.items()}
+        out["phase2_launches"] = read_counters()
+        print(f"  phase 2 from {ckpt.name}: {taken} student leaves taken from "
+              f"the checkpoint ({len(differ)} differ), teacher == student "
+              f"{teacher_same}; one self_supervised_learning_all step: "
+              f"launches {out['phase2_launches']} (expected {PHASE2_STEP}), "
+              f"losses {parts2}")
+        if differ or taken < 50 or not teacher_same:
+            failures.append(f"hand-off: {taken} leaves, differ {differ[:3]}, "
+                            f"teacher == student {teacher_same}")
+        if out["phase2_launches"] != expect(PHASE2_STEP) or not all(
+                np.isfinite(list(parts2.values()))):
+            failures.append(f"hand-off step: {out['phase2_launches']}, "
+                            f"{parts2}")
+        del st
+
+    # The reference's batch: 2 volumes x 7 crops per step.
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        config.DEFAULT_ROOT_LOG_DIR = root / "logs"
+        write_pretrain_set(root, MV14_VOLUMES, SEED + 19)
+        cfg = multi_view_config(root, "multi_view_14",
+                                batch_size_multi_view=MV_BATCH)
+        hp = hparams(mv_args(cfg, "mv14"))
+        plain, plain_launches, _ = run_fit(hp, False)
+        tr, launches, wall = run_fit(hp, True)
+        print(f"  batch {MV_BATCH}: {len(tr.losses)} steps + "
+              f"{len(tr.val_losses)} validation steps in {wall:.3f} s")
+        fit_gates(tr, plain, launches, plain_launches, MV_STEP, 2, 1,
+                  failures)
+        check_gradients(tr, failures)
+        out["b14_step_ms"] = float(np.median(tr.step_ms))
+        out["b14_plain_step_ms"] = float(np.median(plain.step_ms))
+        print(f"  batch {MV_BATCH} median step ms: kernels "
+              f"{out['b14_step_ms']:.3f}, plain "
+              f"{out['b14_plain_step_ms']:.3f} on {card}")
+        out["b14_launches"] = launches
+        del plain
+        tr.model.train()
+        profile_steps(tr, hp, loaders=ssl_loaders)
+        print(f"  (profile of phase-1 steps at batch {MV_BATCH} on {card})")
+        del tr
+    if failures:
+        raise RuntimeError("phase multi-view failed: " + "; ".join(failures))
+    return out
+
+
+def phase_multi_view_mutual(card: str):
+    """Mutual learning at the flagship model and roi: one step at each
+    axis swap, forced.  Swap 0 (H-W) trains: 18 B1 + 18 B4, its losses
+    against the plain versions; swaps 1 and 2 bring the reconstruction
+    back at 128x128x16 and 128x16x128, which the JAX step cannot
+    broadcast against the roi: the step must raise ``ValueError`` before
+    any launch."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        config
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import get_fit_loader_self_supervised_learning as ssl_loaders
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import initialization
+    print("phase multi-view-mutual: use_mutual_learning at the flagship "
+          "model and roi, one step per axis swap")
+    failures, out = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        config.DEFAULT_ROOT_LOG_DIR = root / "logs"
+        write_pretrain_set(root, 2, SEED + 20)
+        cfg = multi_view_config(root, "mutual", use_mutual_learning=True)
+        hp = config.get_full_configs(cli_main.build_parser().parse_args(
+            mv_args(cfg, "mv-mutual")))
+        batch = next(iter(ssl_loaders(hp)[0]))
+        trainers = {}
+        for kernels in (True, False):
+            tr = initialization.select_trainer(hp, SwinUnetR, None, None,
+                                               _Quiet(), None)
+            tr.prepare_fit()
+            tr.model.train().set_kernels(kernels)
+            trainers[kernels] = tr
+        draws = trainers[True].draw_views(batch["image"].shape[0])
+        for choice in (1, 2):
+            torch.cuda.synchronize()
+            reset_counters()
+            try:
+                trainers[True].train_step(batch, draws._replace(
+                    permute=choice))
+                failures.append(f"swap {choice} did not raise")
+            except ValueError as err:
+                print(f"  swap {choice}: ValueError: {err}")
+            got = read_counters()
+            if any(got.values()) or trainers[True].step_count:
+                failures.append(f"swap {choice}: launches {got}, step "
+                                f"{trainers[True].step_count}")
+        parts = {}
+        for kernels, tr in trainers.items():
+            torch.cuda.synchronize()
+            reset_counters()
+            parts[kernels] = {k: float(v) for k, v in tr.train_step(
+                batch, draws._replace(permute=0)).items()}
+            torch.cuda.synchronize()
+            if kernels:
+                out["launches"] = read_counters()
+        print(f"  swap 0: launches {out['launches']} (expected "
+              f"{MV_MUTUAL_STEP}); "
+              + loss_gate("mutual step", parts[True], parts[False], failures)
+              + f" (kernels vs plain, tol {TRAIN_LOSS_RTOL} relative)")
+        if out["launches"] != expect(MV_MUTUAL_STEP):
+            failures.append(f"mutual launches {out['launches']}")
+        check_gradients(trainers[True], failures)
+    if failures:
+        raise RuntimeError("phase multi-view-mutual failed: "
                            + "; ".join(failures))
     return out
 
@@ -2635,6 +3177,11 @@ def main() -> int:
                            one_input=False)
     st = phase_students_teacher(card)
     clock("students-blocks, students-teacher done")
+    mvb = phase_multi_view_blocks()
+    clock("multi-view-blocks done")
+    mv = phase_multi_view(card)
+    mvm = phase_multi_view_mutual(card)
+    clock("multi-view, multi-view-mutual done")
 
     print("serve-path times are per 27-window flagship forward, train-path "
           "times per training step of batch 2 (sums over the path's calls), "
@@ -2685,6 +3232,18 @@ def main() -> int:
           f"{b4_st['plain_ms']:.4f}); B2 at their 6 decoder convs "
           f"{b2_st['ms']:.4f} ms (cuDNN without the prologue "
           f"{b2_st['cudnn_ms']:.4f}); prototype loss {st['loss_ms']:.4f} ms")
+    print(f"multi-view (phase 1, flagship model, example multi-view "
+          f"section): step median {mv['step_ms']:.3f} ms at batch 2 (plain "
+          f"{mv['plain_step_ms']:.3f}), {mv['b14_step_ms']:.3f} ms at batch "
+          f"{MV_BATCH} (plain {mv['b14_plain_step_ms']:.3f}); at the 12 "
+          f"block calls of a batch-{MV_BATCH} step B1 "
+          f"{mvb['flagship']['B1']['ms']:.4f} ms (plain "
+          f"{mvb['flagship']['B1']['plain_ms']:.4f}), B4 "
+          f"{mvb['flagship']['B4']['ms']:.4f} ms (plain "
+          f"{mvb['flagship']['B4']['plain_ms']:.4f}); fp32 reference "
+          f"padding B1 {mvb['example']['B1']['ms']:.4f} ms, B4 "
+          f"{mvb['example']['B4']['ms']:.4f} ms; B5 at its 6 pair calls "
+          f"{mvb['B5']['ms']:.4f} ms")
 
     def paths(key):
         return {"serve": serve_launches[key],
@@ -2705,6 +3264,11 @@ def main() -> int:
                 "layouts-watch": lay["stitch"]["watch_launches"][key],
                 "students-teacher-fit": st["launches"][key],
                 "students-teacher-decoder": st["decoder_launches"][key],
+                "multi-view-fit": mv["launches"][key],
+                "multi-view-fit-b14": mv["b14_launches"][key],
+                "multi-view-pair": mv["pair_launches"][key],
+                "multi-view-mutual": mvm["launches"][key],
+                "multi-view-to-phase2": mv["phase2_launches"][key],
                 **{f"layouts-forward-{path}": got[key]
                    for path, got in lay["forward"].items()}}
 
@@ -2725,6 +3289,31 @@ def main() -> int:
                 "bound_ms": m["bound"].ms, "bound_by": m["bound"].by,
                 "max_abs_err": m["max_abs_err"], **extra}
 
+    def multi_view(m, key, path, calls, **extra):
+        return {"calls": calls, "launches": path_launches(path, key),
+                "launches_path": path, "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound"].ms,
+                "bound_by": m["bound"].by, "max_abs_err": m["max_abs_err"],
+                "library_ms": None, **extra}
+
+    def path_launches(path, key):
+        return {"multi-view-fit-b14": mv["b14_launches"],
+                "multi-view-pair": mv["pair_launches"]}[path][key]
+
+    def mv_blocks(key, **extra):
+        calls = (f"the 12 block calls of a phase-1 step at batch {MV_BATCH} "
+                 "(2 views x 3 encoder stages x no-shift/shift), flagship "
+                 "(bf16, pad_mode aligned)")
+        ex = mvb["example"][key]
+        return multi_view(mvb["flagship"][key], key, "multi-view-fit-b14",
+                          calls, example_fp32_reference={
+                              "ms": ex["ms"], "plain_ms": ex["plain_ms"],
+                              "bound_ms": ex["bound"].ms,
+                              "bound_by": ex["bound"].by,
+                              "max_abs_err": ex["max_abs_err"],
+                              **({"device_memory_calls": ex["big_calls"]}
+                                 if key == "B4" else {})}, **extra)
+
     no_library = ("no single PyTorch call: the in-kernel projections (B6) "
                   "and the multiplicative mask (shifted calls)")
     print(json.dumps({"kernels": [
@@ -2740,7 +3329,8 @@ def main() -> int:
                lay["b1"], lay["serve"]["B1@out"], "layouts-serve",
                library_ms=None,
                cluster=[i["cluster"] for i in lay["b1"]["launch"]]),
-           "students": students(b1_st, "B1", library_ms=None)},
+           "students": students(b1_st, "B1", library_ms=None),
+           "multi_view": mv_blocks("B1")},
         kernel_entry("conv3x3_fused_pair", "conv3x3_pair.cu",
                      "ops/conv_pallas.py:270", serve_launches["B2"],
                      paths("B2"), b2,
@@ -2780,7 +3370,8 @@ def main() -> int:
                library_ms=None,
                cluster=[i["cluster"] for i in lay["b4"]["launch"]]),
            "students": students(b4_st, "B4", library_ms=None,
-                                device_memory_form_ms=b4_st["big_ms"])},
+                                device_memory_form_ms=b4_st["big_ms"]),
+           "multi_view": mv_blocks("B4")},
         kernel_entry("fused_swin_pair", "fused_pair.cu",
                      "ops/fused_block.py:592", pair_launches["B5"],
                      paths("B5"), b5,
@@ -2792,7 +3383,12 @@ def main() -> int:
         | {"train": {"launches": tpair_launches["B5"],
                      "ms": b5_train["ms"], "plain_ms": b5_train["plain_ms"],
                      "bound_ms": b5_train["bound"].ms,
-                     "bound_by": b5_train["bound"].by}},
+                     "bound_by": b5_train["bound"].by},
+           "multi_view": multi_view(
+               mvb["B5"], "B5", "multi-view-pair",
+               f"the 6 pair calls of a phase-1 step at batch {MV_BATCH} (2 "
+               "views x 3 encoder pairs), flagship, dropout; launches from "
+               "the batch-2 pair step")},
         kernel_entry("window_attention_packed_qkv", "window_attention.cu",
                      "ops/window_attention_pallas.py:388",
                      unfused_launches["B6"], paths("B6"),

@@ -46,7 +46,9 @@ TRAINING_MODES = (
     "supervised_learning_all",
     "downstream",
 )
-# The students-teacher (phase-2) modes, and those with a segmentation head.
+# The multi-view (phase-1) mode, the students-teacher (phase-2) modes,
+# and those with a segmentation head.
+PHASE1_MODE = TRAINING_MODES[0]
 PHASE2_MODES = TRAINING_MODES[1:5]
 SUPERVISED_MODES = ("supervised_learning_decoder", "supervised_learning_all")
 

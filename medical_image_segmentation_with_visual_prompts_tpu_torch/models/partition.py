@@ -10,15 +10,18 @@ parameter names (the reference's torch keys).  Labels:
 * ``encoder_prompt`` / ``decoder_prompt``: the prompt tokens (the
   output layer's ``prompt_tokens.out`` are decoder ones) and the
   RelativePE token bias (``enc_token``, ``weights_token``);
+* ``head_ssl``: the phase-1 reconstruction, rotation and contrastive
+  heads;
 * ``head_segmentation``: the supervised phase-2 segmentation head;
 * ``head_downstream``: the downstream segmentation head.
 
 Downstream training updates the prompts of the active prompt sets and
-the downstream head (:func:`downstream_labels`); phase 2 updates the
-decoder (``_decoder`` modes) or everything (``_all`` modes) with the
-active prompt sets (:func:`trainable_labels`, the JAX group builders,
-including their edge case: the encoder prompts stay frozen in the
-``_decoder`` modes).  :func:`set_trainable` freezes everything else with
+the downstream head (:func:`downstream_labels`); phase 1 updates the
+encoder, its heads and, with encoder prompting, the encoder prompts;
+phase 2 updates the decoder (``_decoder`` modes) or everything (``_all``
+modes) with the active prompt sets (:func:`trainable_labels`, the JAX
+group builders, including their edge case: the encoder prompts stay
+frozen in the ``_decoder`` modes).  :func:`set_trainable` freezes everything else with
 ``requires_grad_(False)``.
 """
 
@@ -28,12 +31,14 @@ from typing import List, Set, Tuple
 
 from torch import nn
 
-from ..config import SUPERVISED_MODES
+from ..config import PHASE1_MODE, SUPERVISED_MODES
 
 _ENCODER_PREFIXES = ("input_layer", "encoder_blocks")
 _DECODER_PREFIXES = ("bottleneck", "residual_blocks", "decoder_blocks",
                      "output_layer")
 _PE_TOKEN = ("enc_token", "weights_token")
+_SSL_HEADS = tuple(f"extra_heads.{h}." for h in (
+    "reconstruction", "rotation_prediction", "contrastive_coding"))
 
 
 def label_of(name: str) -> str:
@@ -46,6 +51,8 @@ def label_of(name: str) -> str:
         return "head_downstream"
     if name.startswith("extra_heads.segmentation"):
         return "head_segmentation"
+    if name.startswith(_SSL_HEADS):
+        return "head_ssl"
     if name.startswith(_ENCODER_PREFIXES):
         side = "encoder"
     elif name.startswith(_DECODER_PREFIXES):
@@ -71,11 +78,13 @@ def downstream_labels(conf) -> Set[str]:
 
 
 def encoder_labels(conf, include_prompt_tokens: bool = False) -> Set[str]:
-    """The encoder's labels (the reference's ``named_parameters_encoder``;
-    the phase-1 heads, not built in the port yet, are left out)."""
+    """The encoder's labels (the reference's ``named_parameters_encoder``),
+    with the proxy heads in the phase-1 mode."""
     labels = {"encoder_body", "encoder_bias_content"}
     if include_prompt_tokens and conf.use_encoder_prompting:
         labels.add("encoder_prompt")
+    if conf.training_mode == PHASE1_MODE:
+        labels.add("head_ssl")
     return labels
 
 
@@ -93,6 +102,8 @@ def decoder_labels(conf, include_prompt_tokens: bool = False) -> Set[str]:
 def trainable_labels(conf) -> Set[str]:
     """Labels updated in each training mode the port trains."""
     mode = conf.training_mode
+    if mode == PHASE1_MODE:
+        return encoder_labels(conf, include_prompt_tokens=True)
     if mode in ("self_supervised_learning_decoder",
                 "supervised_learning_decoder"):
         return decoder_labels(conf, include_prompt_tokens=True)

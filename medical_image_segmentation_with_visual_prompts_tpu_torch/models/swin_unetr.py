@@ -1,10 +1,8 @@
-"""SwinUnetR: serving, prompt tuning and phase-2 pretraining.
+"""SwinUnetR: serving, prompt tuning and pretraining (phases 1 and 2).
 
-Counterpart of the JAX package's ``models/swin_unetr.py`` in the
-``downstream`` mode and the four phase-2 modes
-(``{self_,}supervised_learning_{decoder,all}``), in every decoder layout
-(``unetr_res_block`` none | simple | full x ``unetr_up_block`` swin |
-unetr):
+Counterpart of the JAX package's ``models/swin_unetr.py`` in all six
+training modes, in every decoder layout (``unetr_res_block`` none |
+simple | full x ``unetr_up_block`` swin | unetr):
 
 * patch embed: Conv3d with stride = patch, then BatchNorm (eps 1e-6);
 * ``depth_unet`` encoder stages of Swin block pairs + PatchMerging
@@ -29,8 +27,32 @@ unetr):
 ``forward`` returns the downstream logits tensor in the downstream mode,
 and in the phase-2 modes the dict ``{"latent_outputs": fp32 decoder
 output [B, H, W, D, C0]}`` plus ``"seg_pred"`` (the head's fp32 logits)
-in the supervised ones.  The phase-1 mode
-(``self_supervised_learning_encoder``) is not built yet.
+in the supervised ones.
+
+The phase-1 mode (``self_supervised_learning_encoder``) builds no
+decoder (no bottleneck, skips, up blocks or decoder prompts) and, each
+under its flag, the proxy heads in ``extra_heads``:
+
+* ``reconstruction`` (``use_reconstruction`` or ``use_mutual_learning``):
+  ``depth_unet + 1`` stages of a 3x3x3 conv halving the channels (the
+  last keeps them), an instance norm without affine (eps 1e-5),
+  LeakyReLU(0.01) and a trilinear upsample (``align_corners=True``) by
+  (2, 2, 1) for the first ``depth_unet - 1`` stages and (2, 2, 2) after,
+  then a 1x1x1 ``conv_out`` to the input channels; in fp32, as flax
+  computes it (no dtype: the promotion of the input and fp32 kernels).
+  Its modules sit at the reference's ``Sequential`` indices (conv ``i``
+  at ``4 * i``, ``conv_out`` at ``4 * (depth_unet + 1)``);
+* ``rotation_prediction`` (``use_rotation_prediction``): a linear layer
+  to the 4 rotation classes; ``contrastive_coding``
+  (``use_contrastive_learning``): a linear layer to
+  ``contrastive_coding_dim``; both on the fp32 spatial mean of the
+  encoder's last output.
+
+Its ``forward`` returns ``{"reconstruction": fp32 [B, H', W', D',
+C_in], "rotation_prediction", "contrastive_coding", "out_vit": the
+encoder outputs deepest first, the input last}`` (the heads that are
+built); :meth:`SwinUnetR.reconstruction_shape` gives ``H', W', D'`` for
+an input shape without running anything.
 
 Prompt tokens are ``[tokens, C]`` parameters, two per stage (window and
 shifted block) for encoder and decoder, and two (``prompt_tokens.out``)
@@ -64,31 +86,34 @@ serving and in training; the unfused block wins over both.
 from __future__ import annotations
 
 import os
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..config import SUPERVISED_MODES, ModelConfig
+from ..config import PHASE1_MODE, SUPERVISED_MODES, ModelConfig
 from ..ops.resize import upsample_trilinear
 from .swin_block import ConsecutiveSwinBlocks
 from .unet_blocks import (SwinUpBlock, UnetrBasicBlock, UnetrUpBlock,
-                          batch_norm, conv3d, same_conv)
+                          batch_norm, conv3d, instance_norm, same_conv)
 
 
 def _env_flag(name: str) -> bool:
     return os.environ.get(name, "0") not in ("0", "")
 
 
+def _rec_scales(depth: int):
+    """The reconstruction head's upsample scale per stage."""
+    return [(2, 2, 1 if i < depth - 1 else 2) for i in range(depth + 1)]
+
+
 class SwinUnetR(nn.Module):
     def __init__(self, conf: ModelConfig, dropout_seed: int = 0):
         super().__init__()
-        if conf.training_mode == "self_supervised_learning_encoder":
-            raise NotImplementedError(
-                "the PyTorch port does not build the phase-1 mode "
-                "self_supervised_learning_encoder yet (ROADMAP queue A "
-                "item 8)")
         self.conf = conf
+        phase1 = conf.training_mode == PHASE1_MODE
         depth = conf.depth_unet
         hc = conf.hidden_channels
         dt = conf.dtype
@@ -113,12 +138,57 @@ class SwinUnetR(nn.Module):
                 nn.Parameter(torch.empty(conf.tokens_per_prompt_encoder,
                                          hc[i // 2]))
                 for i in range(2 * depth)])
-        if conf.use_decoder_prompting:
+        if conf.use_decoder_prompting and not phase1:
             self.prompt_tokens.dec = nn.ParameterList([
                 nn.Parameter(torch.empty(conf.tokens_per_prompt_decoder,
                                          hc[-(i + 1) // 2 - 1]))
                 for i in range(2 * depth)])
+        if phase1:
+            self.head_name = None
+            self.extra_heads = nn.ModuleDict(self._ssl_heads(conf))
+        else:
+            self._build_decoder(conf)
+        self.use_checkpoint = conf.use_checkpoint
+        # Dropout seeds of every block call come from this generator.
+        self.dropout_generator = torch.Generator().manual_seed(dropout_seed)
+        for m in self.modules():
+            if hasattr(m, "set_dropout_generator"):
+                m.set_dropout_generator(self.dropout_generator)
+        self.set_fused_block(not _env_flag("MIVP_NO_FUSED_BLOCK"))
+        self.set_pair_kernel(_env_flag("MIVP_PAIR_KERNEL")
+                             and not _env_flag("MIVP_NO_PAIR_KERNEL"))
 
+    @staticmethod
+    def _ssl_heads(conf: ModelConfig) -> dict:
+        """The phase-1 proxy heads that ``conf`` turns on."""
+        depth, top = conf.depth_unet, conf.hidden_channels[-1]
+        heads = {}
+        if conf.use_reconstruction or conf.use_mutual_learning:
+            chs = [top // 2 ** i for i in range(depth + 1)] \
+                + [top // 2 ** depth]
+            # The reference's Sequential, for its state-dict indices;
+            # _ssl_outputs applies it channels-last.
+            layers = []
+            for i, scale in enumerate(_rec_scales(depth)):
+                layers += [same_conv(chs[i], chs[i + 1]),
+                           nn.InstanceNorm3d(chs[i + 1], eps=1e-5),
+                           nn.LeakyReLU(0.01),
+                           nn.Upsample(scale_factor=scale, mode="trilinear",
+                                       align_corners=True)]
+            layers.append(nn.Conv3d(chs[-1], conf.input_channels, 1))
+            heads["reconstruction"] = nn.Sequential(*layers)
+        if conf.use_rotation_prediction:
+            heads["rotation_prediction"] = nn.Linear(top, 4)
+        if conf.use_contrastive_learning:
+            heads["contrastive_coding"] = nn.Linear(
+                top, conf.contrastive_coding_dim)
+        return heads
+
+    def _build_decoder(self, conf: ModelConfig) -> None:
+        depth = conf.depth_unet
+        hc = conf.hidden_channels
+        dt = conf.dtype
+        ws = tuple(conf.attn_window_size)
         in_chs = [hc[i] for i in range(depth)][::-1]
         out_chs = [hc[i + 1] for i in range(depth)][::-1]
         res, swin = conf.unetr_res_block, conf.unetr_up_block == "swin"
@@ -169,15 +239,6 @@ class SwinUnetR(nn.Module):
             self.head_name: nn.Sequential(
                 nn.BatchNorm3d(hc[0], eps=1e-5, momentum=0.1),
                 same_conv(hc[0], classes))})
-        self.use_checkpoint = conf.use_checkpoint
-        # Dropout seeds of every block call come from this generator.
-        self.dropout_generator = torch.Generator().manual_seed(dropout_seed)
-        for m in self.modules():
-            if hasattr(m, "set_dropout_generator"):
-                m.set_dropout_generator(self.dropout_generator)
-        self.set_fused_block(not _env_flag("MIVP_NO_FUSED_BLOCK"))
-        self.set_pair_kernel(_env_flag("MIVP_PAIR_KERNEL")
-                             and not _env_flag("MIVP_NO_PAIR_KERNEL"))
 
     def set_kernels(self, enabled: bool) -> "SwinUnetR":
         """Route the blocks and the decoder convs through the CUDA kernel
@@ -226,9 +287,25 @@ class SwinUnetR(nn.Module):
             return conv3d(c.to(self.conf.dtype), block)
         return block(c)
 
+    def reconstruction_shape(self, spatial: Sequence[int]
+                             ) -> Tuple[int, int, int]:
+        """``[H, W, D]`` of the phase-1 reconstruction of an input of
+        ``spatial`` shape: the patch embedding (floor), each stage's merge
+        (every odd axis padded by one, then H and W halved, and D at stage
+        0 only), the head's upsamples (floor)."""
+        conf = self.conf
+        shape = [s // p for s, p in zip(spatial, conf.input_patch_size)]
+        for i in range(conf.depth_unet):
+            shape = [(s + s % 2) // (2 if a < 2 or i < 1 else 1)
+                     for a, s in enumerate(shape)]
+        for scale in _rec_scales(conf.depth_unet):
+            shape = [int(s * f) for s, f in zip(shape, scale)]
+        return tuple(shape)
+
     def forward(self, x: torch.Tensor):
         """x: ``[B, H, W, D, C_in]`` -> the downstream logits ``[B, H, W,
-        D, classes]`` (fp32), or the phase-2 dict (module docstring)."""
+        D, classes]`` (fp32), or the phase-1 or phase-2 dict (module
+        docstring)."""
         conf = self.conf
         enc = batch_norm(conv3d(x.to(conf.dtype), self.input_layer[0]),
                          self.input_layer[1]).to(conf.dtype)
@@ -237,6 +314,8 @@ class SwinUnetR(nn.Module):
             enc = stage(enc, (self._tokens("enc", 2 * j),
                               self._tokens("enc", 2 * j + 1)))
             feats.insert(0, enc)
+        if conf.training_mode == PHASE1_MODE:
+            return self._ssl_outputs(feats)
         if conf.unetr_res_block == "full":
             dec = self.bottleneck(feats[0]) + feats[0]
         else:
@@ -262,3 +341,20 @@ class SwinUnetR(nn.Module):
         head = self.extra_heads[self.head_name]
         out = batch_norm(out.float(), head[0]).to(self.conf.dtype)
         return conv3d(out, head[1]).float()
+
+    def _ssl_outputs(self, out_vit: list) -> dict:
+        heads, outputs = self.extra_heads, {}
+        top = out_vit[0].float()
+        if "reconstruction" in heads:
+            rec, layers = top, list(heads["reconstruction"])
+            for i, scale in enumerate(_rec_scales(self.conf.depth_unet)):
+                rec = F.leaky_relu(instance_norm(conv3d(rec, layers[4 * i])),
+                                   0.01)
+                rec = upsample_trilinear(rec, scale, align_corners=True)
+            outputs["reconstruction"] = conv3d(rec, layers[-1])
+        pooled = top.mean(dim=(1, 2, 3))
+        for name in ("rotation_prediction", "contrastive_coding"):
+            if name in heads:
+                outputs[name] = heads[name](pooled)
+        outputs["out_vit"] = out_vit
+        return outputs

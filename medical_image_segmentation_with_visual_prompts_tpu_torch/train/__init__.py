@@ -1,4 +1,6 @@
+from .multi_view import MultiViewTrainer
 from .segmentation import SegmentationTrainer
 from .students_teacher import StudentsTeacherTrainer
 
-__all__ = ["SegmentationTrainer", "StudentsTeacherTrainer"]
+__all__ = ["MultiViewTrainer", "SegmentationTrainer",
+           "StudentsTeacherTrainer"]

@@ -13,9 +13,10 @@ trainable subtree, ``[count, lr, weight_decay, adam count, mu..., nu...]``
 with one ``mu`` and one ``nu`` per trainable flax leaf in the tree's leaf
 order (``utils/torch_import.py::flax_paths``).
 
-The phase-2 trainer's optimizer is :func:`grouped_adamw`: one torch
+The pretraining trainers' optimizer is :func:`grouped_adamw`: one torch
 param group per optax group of the JAX trainer's ``optax.multi_transform``
-of schedule-driven ``adamw``s (``"base"`` and ``"prompt"``), its ``lr``
+of schedule-driven ``adamw``s (phase 2: ``"base"`` and ``"prompt"``;
+phase 1: ``"body"`` and, with encoder prompting, ``"prompt"``), its ``lr``
 set from the group's schedule at the step count before each step, as
 optax evaluates it.  :func:`grouped_adamw_leaves` /
 :func:`load_grouped_adamw_leaves` carry its state as that
@@ -146,7 +147,7 @@ def _group_layout(optimizer, model):
 def grouped_adamw_leaves(optimizer: torch.optim.AdamW, model, step: int
                          ) -> List[np.ndarray]:
     """The :func:`grouped_adamw` state after ``step`` steps as the JAX
-    phase-2 trainer's optax leaf list."""
+    pretraining trainer's optax leaf list."""
     taken = {float(optimizer.state[p]["step"]) for g in optimizer.param_groups
              for p in g["params"] if optimizer.state.get(p)}
     if taken - {float(step)}:
@@ -167,7 +168,7 @@ def _grouped_leaves(optimizer, model, step: int) -> List[np.ndarray]:
 def load_grouped_adamw_leaves(optimizer: torch.optim.AdamW, model, state
                               ) -> int:
     """Set the :func:`grouped_adamw` state from an optax leaf list (a
-    phase-2 checkpoint's ``optimizer_state_dict``); returns the step
+    pretraining checkpoint's ``optimizer_state_dict``); returns the step
     count."""
     leaves = restore_like(_grouped_leaves(optimizer, model, 0), state)
     counts, i = set(), 0

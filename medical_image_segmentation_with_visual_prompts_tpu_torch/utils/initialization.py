@@ -2,37 +2,28 @@
 
 Counterpart of the JAX package's ``utils/initialization.py``, including
 its quirk that test mode passes the downstream test loader in the train
-loader's slot.  The port trains the downstream mode
-(``SegmentationTrainer``) and the four phase-2 modes
-(``StudentsTeacherTrainer`` on the pretrain loaders); the phase-1 mode
-raises NotImplementedError naming the ROADMAP queue A item that ports
-it.
+loader's slot.  The port trains all six modes: ``downstream``
+(``SegmentationTrainer``), phase 1 (``MultiViewTrainer``) and the four
+phase-2 modes (``StudentsTeacherTrainer``), the pretraining modes on the
+pretrain loaders.
 """
 
 from __future__ import annotations
 
-from ..config import PHASE2_MODES
+from ..config import PHASE1_MODE, PHASE2_MODES, TRAINING_MODES
 from ..data import (get_fit_loader_downstream,
                     get_fit_loader_self_supervised_learning,
                     get_fit_loader_supervised_learning,
                     get_test_loader_downstream)
 from ..models import SwinUnetR
-from ..train import SegmentationTrainer, StudentsTeacherTrainer
+from ..train import (MultiViewTrainer, SegmentationTrainer,
+                     StudentsTeacherTrainer)
 from .loggers import SummaryWriter, get_logger
-
-# Training mode -> the ROADMAP queue A item that ports its trainer.
-NOT_PORTED = {
-    "self_supervised_learning_encoder": "item 8 (phase-1 trainer)",
-}
 
 
 def _check_mode(hparams) -> None:
     mode = hparams.training_mode
-    if mode in NOT_PORTED:
-        raise NotImplementedError(
-            f"training mode {mode} is not ported to the PyTorch package yet "
-            f"(ROADMAP queue A {NOT_PORTED[mode]})")
-    if mode != "downstream" and mode not in PHASE2_MODES:
+    if mode not in TRAINING_MODES:
         raise NotImplementedError(f"Training mode {mode} not available!")
 
 
@@ -61,8 +52,10 @@ def select_backbone(hparams):
 def select_trainer(hparams, backbone, train_loader, val_loader, logger,
                    writer, device=None):
     _check_mode(hparams)
-    trainer = StudentsTeacherTrainer if hparams.training_mode in \
-        PHASE2_MODES else SegmentationTrainer
+    mode = hparams.training_mode
+    trainer = MultiViewTrainer if mode == PHASE1_MODE else \
+        StudentsTeacherTrainer if mode in PHASE2_MODES else \
+        SegmentationTrainer
     return trainer(hparams, backbone, train_loader, val_loader, logger,
                    writer, device=device)
 

@@ -50,7 +50,11 @@ _INVERSE = {
 }
 
 
-def _swin_block_rules(prefix: str, ours: str, max_prompts: int):
+def _swin_block_rules(prefix: str, ours: str, max_prompts: int,
+                      tokens: bool):
+    """One Swin block's rules.  Without ``tokens`` (its side's prompting
+    off) the flax block builds no positional token bias, so the port's
+    ``pe.weights_token`` / ``pe.enc_token.*`` map to no leaf (None)."""
     rules = {
         f"{prefix}.attn_norm.weight": ("params", f"{ours}/attn_norm/scale",
                                        _ident),
@@ -80,10 +84,11 @@ def _swin_block_rules(prefix: str, ours: str, max_prompts: int):
             "params", f"{ours}/pe/weights_content_{axis}", _ident)
         rules[f"{prefix}.pe.relative_dist_{axis}"] = None   # derived buffer
     rules[f"{prefix}.pe.weights_token"] = (
-        "params", f"{ours}/pe/weights_token", _ident)
+        "params", f"{ours}/pe/weights_token", _ident) if tokens else None
     for k in range(max_prompts):
         rules[f"{prefix}.pe.enc_token.{k}"] = (
-            "params", f"{ours}/pe/enc_token", ("stack", k))
+            "params", f"{ours}/pe/enc_token", ("stack", k)) \
+            if tokens else None
     return rules
 
 
@@ -128,8 +133,10 @@ def _basic_block_rules(prefix: str, ours: str, res_block: bool,
 
 def build_key_rules(conf) -> Dict[str, Tuple]:
     """torch state-dict key -> (collection, 'a/b/c' flax path, transform
-    or ``("stack", k)``), or None for a buffer with no flax leaf; every
-    training mode and decoder layout of the JAX package.
+    or ``("stack", k)``), or None for a tensor with no flax leaf (a derived
+    buffer; the positional token bias of a block whose side has prompting
+    off, which the flax model does not build); every training mode and
+    decoder layout of the JAX package.
 
     The UNETR blocks' rules follow the flax tree the JAX model builds,
     where the JAX package's own table does not: an up block's
@@ -147,7 +154,8 @@ def build_key_rules(conf) -> Dict[str, Tuple]:
         for j in range(2):
             rules.update(_swin_block_rules(
                 f"encoder_blocks.{i}.swin_blocks.{j}",
-                f"encoder_blocks_{i}/swin_blocks_{j}", mp))
+                f"encoder_blocks_{i}/swin_blocks_{j}", mp,
+                conf.use_encoder_prompting))
         rules.update({
             f"encoder_blocks.{i}.merge.norm.weight": (
                 "params", f"encoder_blocks_{i}/merge/norm/scale", _ident),
@@ -227,7 +235,8 @@ def build_key_rules(conf) -> Dict[str, Tuple]:
                 for j in range(2):
                     rules.update(_swin_block_rules(
                         f"{tprefix}.swin_layer.swin_blocks.{j}",
-                        f"{oprefix}/swin_layer/swin_blocks_{j}", mp))
+                        f"{oprefix}/swin_layer/swin_blocks_{j}", mp,
+                        conf.use_decoder_prompting))
             else:
                 rules.update({
                     f"{tprefix}.transp_conv.conv.weight": (
@@ -336,12 +345,13 @@ def to_flax_variables(model) -> dict:
 def load_flax_variables(model, variables: dict) -> None:
     """Copy a flax variables tree into the model in place (every rule's
     leaf must be there, with the model's shapes).  BatchNorm
-    ``num_batches_tracked`` counters, which flax does not keep, stay."""
+    ``num_batches_tracked`` counters, which flax does not keep, and the
+    tensors whose rule is None stay."""
     rules = build_key_rules(model.conf)
     flat = {c: _flatten(variables.get(c, {}))
             for c in ("params", "batch_stats")}
     own = model.state_dict()
-    extra = [k for k in own if not rules.get(k)
+    extra = [k for k in own if k not in rules
              and not k.endswith("num_batches_tracked")]
     if extra:
         raise KeyError(f"no flax leaf maps to {extra[:5]}")

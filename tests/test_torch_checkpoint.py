@@ -32,6 +32,20 @@
   file resumes the port's trainer bit for bit (epoch, step, both models,
   optimizer); a checkpoint without a teacher merges into the student,
   which the teacher then copies.
+* Phase 1: the trainable labels are the JAX ones; the multi-view
+  trainer's checkpoints (model, the ``body``/``prompt`` optax leaves,
+  ``{"step": n}``) cross both ways: the port's file resumes the JAX
+  ``MultiViewTrainer`` (its ``self_supervised_learning()`` restores the
+  model leaf for leaf) and restores into its ``tx.init`` state, and the
+  JAX trainer's file resumes the port's trainer bit for bit; a phase-1
+  checkpoint from either package enters both packages' phase-2 trainers
+  through the backbone-only merge with equal students (encoder and
+  encoder prompts from the file, the proxy heads ignored), the teacher a
+  copy of the student.
+* With a side's prompting off the flax model builds no positional token
+  bias there; the port keeps those tensors (frozen, unread) and its name
+  map gives them no leaf, so the port's tree is the JAX model's
+  (``jax.eval_shape``) in every mode.
 """
 
 from argparse import Namespace
@@ -50,6 +64,8 @@ from medical_image_segmentation_with_visual_prompts_tpu.models import \
     partition as jax_partition
 from medical_image_segmentation_with_visual_prompts_tpu.train.common import \
     adamw as jax_adamw
+from medical_image_segmentation_with_visual_prompts_tpu.train \
+    .multi_view import MultiViewTrainer as JaxMultiView
 from medical_image_segmentation_with_visual_prompts_tpu.train \
     .students_teacher import StudentsTeacherTrainer as JaxStudentsTeacher
 from medical_image_segmentation_with_visual_prompts_tpu.utils import \
@@ -73,7 +89,7 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
 from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
     partition
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train import \
-    SegmentationTrainer, StudentsTeacherTrainer
+    MultiViewTrainer, SegmentationTrainer, StudentsTeacherTrainer
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train.common \
     import adamw_leaves, grouped_adamw_leaves, load_adamw_leaves
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
@@ -588,6 +604,178 @@ def test_phase2_backbone_checkpoint_merges_into_student_and_teacher(
                        fresh.model.state_dict()[head])
     assert not torch.equal(tr.model.state_dict()["bottleneck.weight"],
                            fresh.model.state_dict()["bottleneck.weight"])
+    sd = tr.model.state_dict()
+    for k, v in tr.teacher.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+
+
+# --------------------------------------------------------------- phase 1
+
+PHASE1 = "self_supervised_learning_encoder"
+
+
+@pytest.mark.parametrize("prompting", [True, False])
+def test_phase1_trainable_labels_are_the_jax_ones(prompting):
+    raw = tiny_conf(training_mode=PHASE1, use_encoder_prompting=prompting)
+    labels = partition.trainable_labels(ModelConfig.from_mapping(raw))
+    assert labels == jax_partition.trainable_labels(
+        JaxModelConfig.from_namespace(Namespace(**raw)))
+    assert "head_ssl" in labels and ("encoder_prompt" in labels) == prompting
+
+
+@pytest.mark.parametrize("mode", ["downstream", PHASE1,
+                                  "supervised_learning_all"])
+def test_name_map_follows_the_flax_tree_without_prompts(mode):
+    """Fault C8: with prompting off the JAX blocks build no ``enc_token``
+    / ``weights_token``; the port's map gives them no leaf (they stay in
+    the model, frozen), so its tree is the JAX model's leaf for leaf and
+    loads back."""
+    raw = tiny_conf(training_mode=mode, use_encoder_prompting=False,
+                    use_decoder_prompting=False)
+    model = SwinUnetR(ModelConfig.from_mapping(raw))
+    tree = torch_import.to_flax_variables(model)
+    leaves = {f"{c}/{'/'.join(k)}" for c in tree
+              for k in traverse_util.flatten_dict(tree[c])}
+    assert leaves == flax_leaves(raw)
+    assert not any("token" in leaf for leaf in leaves)
+    other = SwinUnetR(ModelConfig.from_mapping(raw))
+    torch_import.load_flax_variables(other, tree)
+    assert_trees_equal(torch_import.to_flax_variables(other), tree)
+    frozen = {n for n, _ in set_trainable_all(other)}
+    assert not any(n.endswith(("weights_token", "enc_token.0"))
+                   for n in frozen)
+
+
+def set_trainable_all(model):
+    return partition.set_trainable(
+        model, partition.trainable_labels(model.conf))
+
+
+def _phase1_trainer(conf, **kw):
+    return MultiViewTrainer(Namespace(**conf, **kw), SwinUnetR, None, None,
+                            _Null(), _Null(), device="cpu")
+
+
+def _phase1_jax_state(conf):
+    """The JAX phase-1 trainer, zero templates of its variables (shapes
+    from ``jax.eval_shape``), its trainable subtree and optimizer."""
+    jtr = JaxMultiView(Namespace(**conf), JaxSwinUnetR, _Null(), _Null(),
+                       _Null(), _Null())
+    x = jax.ShapeDtypeStruct((1, *conf["roi_size"], 1), np.float32)
+    shapes = jax.eval_shape(lambda x: jtr.model.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        x, deterministic=True), x)
+    variables = jax.tree_util.tree_map(
+        lambda a: np.zeros(a.shape, a.dtype), shapes)
+    labels = jax_partition.trainable_labels(jtr.model_conf)
+    trainable, _ = jax_partition.split_params(variables["params"], labels)
+    tx, _ = jtr.configure_optimizers(trainable)
+    return jtr, variables, trainable, tx
+
+
+def _port_phase1_file(tmp_path, conf) -> "Path":
+    """The port's trainer after two steps, saved as ``0001.ckpt``."""
+    ours = _phase1_trainer(conf, save_ckpt_backbone=True,
+                           save_ckpt_backbone_path=str(tmp_path / "port"))
+    ours.prepare_fit()
+    ours.model.train()
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        ours.train_step({"image": rng.normal(
+            0.4, 0.2, (2, 16, 16, 8, 1)).astype(np.float32)})
+    ours._save(0)
+    return ours, tmp_path / "port" / "0001.ckpt"
+
+
+@pytest.mark.parametrize("prompting", [True, False])
+def test_phase1_checkpoints_cross_both_ways(tmp_path, prompting):
+    conf = tiny_conf(training_mode=PHASE1, seed=0,
+                     use_encoder_prompting=prompting)
+    jtr, variables, trainable, tx = _phase1_jax_state(conf)
+    ours, path = _port_phase1_file(tmp_path, conf)
+    got = jax_ckpt.load_checkpoint(path)
+    assert got["current_epoch"] == 1 and int(
+        got["scheduler_state_dict"]["step"]) == 2
+    state = jax_ckpt.restore_like(variables, got["model_state_dict"])
+    assert_trees_equal(jax.tree_util.tree_map(np.asarray, state),
+                       torch_import.to_flax_variables(ours.model))
+    opt = jax_ckpt.restore_like(tx.init(trainable),
+                                got["optimizer_state_dict"])
+    assert_trees_equal([np.asarray(x) for x in jax.tree_util.tree_leaves(
+        opt)], grouped_adamw_leaves(ours.optimizer, ours.model, 2))
+    assert sorted(opt.inner_states) == (["body", "prompt"] if prompting
+                                        else ["body"])
+    assert all(int(g.inner_state[0].count) == 2
+               for g in opt.inner_states.values())
+    # The JAX trainer resumes the port's file: it restores the epoch
+    # (1, past max_epochs_multi_view 0: nothing trains) and the model.
+    jres = JaxMultiView(Namespace(**conf, load_ckpt_backbone=True,
+                                  load_ckpt_backbone_path=str(path),
+                                  summary_dir=str(tmp_path)),
+                        JaxSwinUnetR, _Null(), _Null(), _Null(), _Null())
+    jres.self_supervised_learning()
+    assert_trees_equal(jax.tree_util.tree_map(np.asarray, jres.final_state),
+                       torch_import.to_flax_variables(ours.model))
+
+    # The JAX trainer writes (its state after one update); the port
+    # resumes it bit for bit.
+    jvars = torch_import.to_flax_variables(_phase1_trainer(conf).model)
+    jtrain, _ = jax_partition.split_params(
+        jvars["params"], jax_partition.trainable_labels(jtr.model_conf))
+    grads = jax.tree_util.tree_map(lambda a: np.full_like(a, 0.25), jtrain)
+    _, jstate = jax.jit(tx.update)(grads, tx.init(jtrain), jtrain)
+    jpath = jax_ckpt.save_checkpoint(tmp_path / "jax", 11, jvars, jstate,
+                                     {"step": 1})
+    resumed = _phase1_trainer(conf, load_ckpt_backbone=True,
+                              load_ckpt_backbone_path=str(jpath))
+    assert resumed.prepare_fit() == 11 and resumed.step_count == 1
+    assert_trees_equal(torch_import.to_flax_variables(resumed.model), jvars)
+    assert_trees_equal(
+        grouped_adamw_leaves(resumed.optimizer, resumed.model, 1),
+        [np.asarray(x) for x in jax.tree_util.tree_leaves(jstate)])
+
+
+@pytest.mark.parametrize("src", ["jax", "port"])
+def test_phase1_checkpoint_enters_both_phase2_trainers(tmp_path, src):
+    """The pipeline hand-off: a phase-1 file merges into a phase-2
+    student by the backbone-only branch of each package (the JAX one's
+    ``merge_state`` and partition round trip, on the same template), and
+    the port's teacher copies its student."""
+    p1 = tiny_conf(training_mode=PHASE1, seed=0)
+    if src == "port":
+        _, path = _port_phase1_file(tmp_path, p1)
+    else:
+        _, _, jvars = jax_model(p1, seed=4)
+        path = jax_ckpt.save_checkpoint(tmp_path / "jax", 1, jvars, None,
+                                        {"step": 0})
+    saved = jax_ckpt.load_checkpoint(path)["model_state_dict"]
+    conf = tiny_conf(training_mode="self_supervised_learning_all", seed=0)
+    fresh = _phase2_trainer(conf)
+    tr = _phase2_trainer(conf, load_ckpt_backbone=True,
+                         load_ckpt_backbone_path=str(path))
+    assert tr.prepare_fit() == 0 and tr.step_count == 0
+    template = torch_import.to_flax_variables(fresh.model)
+    labels = jax_partition.trainable_labels(
+        JaxModelConfig.from_namespace(Namespace(**conf)))
+    merged = jax_ckpt.merge_state(template, saved)
+    trainable, frozen = jax_partition.split_params(merged["params"], labels)
+    jax_student = {"params": jax_partition.merge_params(trainable, frozen),
+                   "batch_stats": merged["batch_stats"]}
+    student = torch_import.to_flax_variables(tr.model)
+    assert_trees_equal(jax.tree_util.tree_map(np.asarray, jax_student),
+                       student)
+    flat_saved = {"/".join(k): v for k, v in
+                  traverse_util.flatten_dict(saved["params"]).items()}
+    flat_student = {"/".join(k): v for k, v in
+                    traverse_util.flatten_dict(student["params"]).items()}
+    taken = [k for k in flat_student if k in flat_saved]
+    assert any(k.startswith("encoder_blocks_1") for k in taken)
+    assert any(k.startswith("prompt_tokens_enc") for k in taken)
+    assert not any(k.startswith(("head_", "decoder", "bottleneck"))
+                   for k in taken)
+    for k in taken:
+        assert np.array_equal(flat_student[k], flat_saved[k]), k
+    assert any(k.startswith("head_reconstruction") for k in flat_saved)
     sd = tr.model.state_dict()
     for k, v in tr.teacher.state_dict().items():
         assert torch.equal(v, sd[k]), k

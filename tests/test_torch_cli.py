@@ -22,8 +22,10 @@ volumes, on the CPU.
 * Phase 2: ``main --mode fit --training-mode supervised_learning_all``
   and ``self_supervised_learning_decoder`` on the CPU fit one epoch on
   synthetic volumes through their loaders and save the epoch-0 backbone
-  checkpoint with its teacher; the phase-1 mode still raises naming its
-  queue item.
+  checkpoint with its teacher.
+* Phase 1: ``main --mode fit --training-mode
+  self_supervised_learning_encoder`` on the CPU fits one epoch, saves the
+  epoch-0 backbone checkpoint, and the port resumes it bit for bit.
 * A non-flagship layout (``unetr_res_block: full``, the Swin output layer
   with its two prompt tokens): the JAX trainer's checkpoint serves
   through the port's ``infer --ckpt`` (the same 99.9%) and resumes in the
@@ -66,7 +68,7 @@ from medical_image_segmentation_with_visual_prompts_tpu_torch import (
 from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
     partition
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train import \
-    StudentsTeacherTrainer
+    MultiViewTrainer, StudentsTeacherTrainer
 from medical_image_segmentation_with_visual_prompts_tpu_torch.train.common \
     import adamw_leaves
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
@@ -178,12 +180,19 @@ def test_get_full_configs_raises_as_jax_does(roots, args, error):
 
 
 def test_other_training_modes_name_their_roadmap_item(roots):
-    """The phase-1 mode raises naming its queue item; the four phase-2
-    modes build the students-teacher trainer; ``view`` raises."""
+    """The phase-1 mode builds the multi-view trainer (its model with the
+    three proxy heads); the four phase-2 modes build the students-teacher
+    trainer; ``view`` raises naming its queue item; an unknown mode
+    raises."""
     hp = config.get_full_configs(cli_args(
         training_mode="self_supervised_learning_encoder"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        initialization.setup_fitting(hp, "cpu")
+    tr = initialization.select_trainer(
+        hp, initialization.select_backbone(hp), None, None, None, None,
+        "cpu")
+    assert isinstance(tr, MultiViewTrainer)
+    assert sorted(tr.model.extra_heads) == [
+        "contrastive_coding", "reconstruction", "rotation_prediction"]
+    assert tr.loss_names == ["rec", "rot", "con", "tot"]
     for mode in initialization.PHASE2_MODES:
         hp = config.get_full_configs(cli_args(training_mode=mode))
         tr = initialization.select_trainer(
@@ -191,13 +200,17 @@ def test_other_training_modes_name_their_roadmap_item(roots):
             "cpu")
         assert isinstance(tr, StudentsTeacherTrainer)
         assert tr.supervised == mode.startswith("supervised")
-    for mode in ("downstream", "supervised_learning_decoder"):
+    for mode in ("downstream", "supervised_learning_decoder",
+                 "self_supervised_learning_encoder"):
         hp = config.get_full_configs(cli_args(training_mode=mode))
         hp.view = True
         with pytest.raises(NotImplementedError, match="item 9"):
             initialization.select_trainer(
                 hp, initialization.select_backbone(hp), None, None, None,
                 None, "cpu")
+    hp = config.get_full_configs(cli_args(training_mode="phase_three"))
+    with pytest.raises(NotImplementedError, match="not available"):
+        initialization.setup_fitting(hp, "cpu")
 
 
 @pytest.mark.parametrize("mode", ["supervised_learning_all",
@@ -236,6 +249,60 @@ def test_phase2_fit_runs_one_epoch_through_main(roots, mode):
     log = (Path(tr.hparams.log_dir) / "log.txt").read_text()
     assert "Learning rate in step 0 epoch 0: 0.00025." in log
     assert "Contrastive training loss in step 0 epoch 0" in log
+
+
+def test_phase1_fit_runs_one_epoch_through_main(roots):
+    """``main --mode fit --training-mode self_supervised_learning_encoder
+    --device cpu`` fits epoch 0 on synthetic volumes through the
+    self-supervised loaders, saves ``0001.ckpt`` (no teacher), and the
+    port resumes it bit for bit (model, optimizer, step, epoch)."""
+    root = roots
+    _volumes(root, "pre", [(20 + k, 18, 9) for k in range(3)], 3)
+    conf = tiny_conf(image_dir_pretrain=str(root / "pre_img"),
+                     attn_drop=0.1, proj_drop=0.1)
+    for key in ("training_mode", "use_encoder_prompting",
+                "use_decoder_prompting"):
+        conf.pop(key)
+    (root / "phase1.yml").write_text(yaml.safe_dump(conf))
+    args = cli_args(training_mode="self_supervised_learning_encoder",
+                    configs=str(root / "phase1.yml"), run_name="p1",
+                    use_decoder_prompting=False, save_ckpt_backbone=True)
+    parsed = main.build_parser().parse_args(argv(args))
+    tr = main.main(parsed.mode, config.get_full_configs(parsed),
+                   parsed.device)
+    # 3 volumes split 0.8: 2 train x 2 crops = 2 steps, 1 val = 1 step.
+    assert isinstance(tr, MultiViewTrainer)
+    assert len(tr.losses) == tr.step_count == 2 and len(tr.val_losses) == 1
+    names = ["con", "rec", "rot", "tot"]
+    assert all(sorted(p) == names and all(np.isfinite(list(p.values())))
+               for p in tr.losses + tr.val_losses)
+    saved = ckpt.load_checkpoint(tr.save_ckpt_path / "0001.ckpt")
+    assert "teacher_state_dict" not in saved
+    assert int(saved["scheduler_state_dict"]["step"]) == 2
+    assert_trees_equal(saved["model_state_dict"],
+                       to_flax_variables(tr.model))
+    tags = {r["tag"] for r in _scalars(tr.hparams.summary_dir)}
+    assert {f"{k}_loss/{n}" for k in ("train", "val") for n in names} | \
+        {"perf/step_ms"} <= tags
+    log = (Path(tr.hparams.log_dir) / "log.txt").read_text()
+    assert "Learning rate in step 0 epoch 0: 0.00025." in log
+    assert "Rotation prediction training loss in step 0 epoch 0" in log
+    resume = config.get_full_configs(main.build_parser().parse_args(argv(
+        cli_args(training_mode="self_supervised_learning_encoder",
+                 configs=str(root / "phase1.yml"), run_name="p1r",
+                 use_decoder_prompting=False, load_ckpt_backbone=True,
+                 load_ckpt_backbone_path=str(tr.save_ckpt_path
+                                             / "0001.ckpt")))))
+    again = initialization.select_trainer(
+        resume, initialization.select_backbone(resume), None, None, None,
+        None, "cpu")
+    assert again.prepare_fit() == 1 and again.step_count == 2
+    assert_trees_equal(to_flax_variables(again.model),
+                       saved["model_state_dict"])
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.train \
+        .common import grouped_adamw_leaves
+    assert_trees_equal(grouped_adamw_leaves(again.optimizer, again.model, 2),
+                       saved["optimizer_state_dict"]["__flat_leaves__"])
 
 
 # ------------------------------------------------- the two CLIs end to end

@@ -7,7 +7,9 @@ the same affine; loaded volumes are bit-equal; the host windowing agrees
 to 1 fp32 ulp at 1.0 (the JAX side may take a native single-pass loop).
 The random intensity and coarse transforms give the JAX outputs bit for
 bit from the same generator state; the pretrain transform and both
-pretrain loaders give the JAX samples and batches at the same seed:
+pretrain loaders (the self-supervised one in phase 1 too, with the
+multi-view crop count and batch) give the JAX samples and batches at the
+same seed:
 masks and coordinates bit for bit, images to 1e-6 of their largest
 magnitude (the windowing's ulp carried through the augmentations).
 """
@@ -231,3 +233,23 @@ def test_pretrain_loaders_give_the_jax_batches(tmp_path, supervised):
             for x, y in zip(got, want):
                 _same_sample(x, y)
                 assert x["image_st_0"].shape == (2, 12, 12, 8, 1)
+
+
+def test_phase1_loader_gives_the_jax_batches(tmp_path):
+    """``self_supervised_learning_encoder``: the self-supervised loaders
+    serve phase 1 with ``num_samples_multi_view`` crops per volume in
+    batches of ``batch_size_multi_view``, images only."""
+    conf = _pretrain_conf(_pretrain_set(tmp_path, n=5),
+                          "self_supervised_learning_encoder",
+                          num_samples_multi_view=3, batch_size_multi_view=2)
+    ours = get_fit_loader_self_supervised_learning(conf)
+    theirs = jax_datasets.get_fit_loader_self_supervised_learning(conf)
+    for a, b in zip(ours, theirs):
+        assert a.drop_last and len(a) == len(b)
+        for epoch in range(2):
+            got, want = list(a), list(b)
+            assert len(got) == len(want) == len(a) > 0, epoch
+            for x, y in zip(got, want):
+                _same_sample(x, y)
+                assert sorted(x) == ["image", "name"]
+                assert x["image"].shape == (2, 16, 16, 8, 1)

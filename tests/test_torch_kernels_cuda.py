@@ -575,6 +575,77 @@ def test_block_backward_student_geometries(dev, c, heads, dims, shift):
     _assert_grads_close(_flat_grads(dx, grads), ref)
 
 
+# The phase-1 encoder's stages (roi 128x128x8, window 8x8x4, 64 prompt
+# tokens) at batch 14 (2 volumes x 7 crops).  ``pad_mode: aligned`` (the
+# flagship) pad-folds the depth-2 stages (M 128, N 193): 64, 16 and 4
+# windows per image at C 48, 96 and 192.  ``reference`` (the example
+# config) pads every axis of those stages (40x40x4, 24x24x4: 25 and 9
+# windows, M 256, N 320), where B4 takes its device-memory form at C 192.
+PHASE1_BLOCKS = [(48, 4, (64, 64, 4)), (96, 8, (32, 32, 2)),
+                 (192, 16, (16, 16, 2))]
+PHASE1_MODES = [("aligned", torch.bfloat16), ("reference", torch.float32)]
+PHASE1_WINDOWS = {"aligned": {48: 64, 96: 16, 192: 4},
+                  "reference": {48: 64, 96: 25, 192: 9}}
+
+
+def _phase1_block(dev, c, heads, dims, shift, pad_mode, dtype, seed=17):
+    g = torch.Generator().manual_seed(seed)
+    blk = SwinTransformerBlock(c, (8, 8, 4), 64, heads, 1, 64,
+                               shift_size=shift, pad_mode=pad_mode,
+                               dtype=torch.bfloat16)
+    blk = init_weights(blk, g).to(dev)
+    x = torch.randn((14, *dims, c), generator=g).to(dev, dtype)
+    tok = (0.5 * torch.randn((64, c), generator=g)).to(dev)
+    with torch.no_grad():
+        x_win, ops, labels, _ = blk.windows(x, tok)
+    return x_win, ops, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", PHASE1_BLOCKS)
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("pad_mode,dtype", PHASE1_MODES)
+def test_fused_swin_block_phase1_geometries(dev, c, heads, dims, shift,
+                                            pad_mode, dtype):
+    """B1 with dropout at the phase-1 step's block calls (batch 14)."""
+    x, ops, labels = _phase1_block(dev, c, heads, dims, shift, pad_mode,
+                                   dtype)
+    assert x.shape[0] * x.shape[1] == 14 * PHASE1_WINDOWS[pad_mode][c]
+    with torch.inference_mode():
+        ref = fb.block_reference(x, ops, labels, DROP)
+        got = fb.fused_swin_block(x, ops, labels, DROP)
+        torch.cuda.synchronize()
+    assert got.dtype == dtype
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims", PHASE1_BLOCKS)
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 4, 2)])
+@pytest.mark.parametrize("pad_mode,dtype", PHASE1_MODES)
+def test_block_backward_phase1_geometries(dev, c, heads, dims, shift,
+                                          pad_mode, dtype):
+    """B4 with dropout at the phase-1 step's training calls (batch 14):
+    each gradient within GRAD_TOL of its largest magnitude, two runs
+    with the same bits; the reference padding's C 192 calls (M 256) in
+    the device-memory form."""
+    x, ops, labels = _phase1_block(dev, c, heads, dims, shift, pad_mode,
+                                   dtype)
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        18)).to(dev, dtype)
+    ref = _flat_grads(*fbb.block_backward_reference(x, dout, ops, labels,
+                                                    DROP))
+    got = _flat_grads(*fbb.block_backward(x, dout, ops, labels, DROP))
+    again = _flat_grads(*fbb.block_backward(x, dout, ops, labels, DROP))
+    torch.cuda.synchronize()
+    _assert_grads_close(got, ref)
+    for name in GRAD_NAMES:
+        if got[name] is not None:
+            assert torch.equal(got[name], again[name]), name
+    info = fbb.launch_info(x, ops, labels, DROP)
+    assert info["big"] == (c == 192 and pad_mode == "reference"), info
+
+
 # The students' decoder pair convs that no serving path gives B2:
 # 10x10x2, 12x12x2, 20x20x2 and 40x40x4 grids at batch 2.
 STUDENT_CONVS = [((2, 10, 10, 2), 384, 192, 192),

@@ -30,7 +30,8 @@ def test_every_port_module_imports_without_jax():
                     "ops.fused_block_bwd", "ops.fused_pair",
                     "ops.window_attention",
                     "ops.conv_fused", "models.window_attention",
-                    "ops.augment", "losses.dice",
+                    "ops.augment", "ops.similarity", "losses.dice",
+                    "losses.contrastive_pair", "train.multi_view",
                     "losses.clustered_prototype", "train.students_teacher",
                     "utils.metrics", "utils.schedules", "utils.device",
                     "models.partition", "data.datasets", "train.common",

@@ -248,8 +248,9 @@ def test_layout_logits_match_jax_fp32(layout):
 def test_unported_layouts_raise():
     """Every decoder layout builds, and so do the four phase-2 modes
     (with the segmentation head in the supervised ones, no head in the
-    others); the phase-1 mode raises naming the queue item that ports
-    it.  An unknown layout value is refused."""
+    others) and the phase-1 mode (its three proxy heads, no decoder and
+    no decoder prompts, in any layout).  An unknown layout value is
+    refused."""
     for layout in LAYOUTS:
         SwinUnetR(ModelConfig.from_mapping(tiny_conf(
             unetr_res_block=layout[0], unetr_up_block=layout[1])))
@@ -258,9 +259,16 @@ def test_unported_layouts_raise():
             training_mode=mode)))
         assert list(model.extra_heads) == (
             ["segmentation"] if mode.startswith("supervised") else [])
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        SwinUnetR(ModelConfig.from_mapping(tiny_conf(
-            training_mode="self_supervised_learning_encoder")))
+    for layout in (("none", "swin"), ("full", "unetr")):
+        model = SwinUnetR(ModelConfig.from_mapping(tiny_conf(
+            training_mode="self_supervised_learning_encoder",
+            unetr_res_block=layout[0], unetr_up_block=layout[1])))
+        assert sorted(model.extra_heads) == [
+            "contrastive_coding", "reconstruction", "rotation_prediction"]
+        assert not any(n.startswith(("bottleneck", "residual_blocks",
+                                     "decoder_blocks", "output_layer",
+                                     "prompt_tokens.dec", "prompt_tokens.out"))
+                       for n, _ in model.named_parameters())
     with pytest.raises(ValueError, match="unetr_res_block"):
         ModelConfig.from_mapping(tiny_conf(unetr_res_block="partial"))
 
