@@ -100,7 +100,25 @@ the port's paths:
   checkpoint (the encoder the checkpoint's, the teacher the student);
   and mutual learning at the flagship roi: one step at the H-W swap (18
   B1 + 18 B4, against plain) and a ``ValueError`` before any launch at
-  the two swaps whose reconstruction is not the roi's shape.
+  the two swaps whose reconstruction is not the roi's shape;
+* training through the unfused blocks (phases ``unfused-grads``,
+  ``train-unfused`` and ``pretrain-unfused``): the autograd Functions of
+  B6/B8 (kernel forward, the JAX package's fp32 recompute as backward,
+  plain torch) at the 12 calls of a flagship training step at batch 2
+  (and B7 at one C 96 call), gradients against autograd of the fp32
+  plain version within 2^-10, the forward bit for bit the serving
+  call's, the backward timed; ``SegmentationTrainer.train()`` through
+  the unfused blocks at attention dropout 0 (8 B6 + 4 B8 per step) and
+  at 0.1/0.1 with ``use_checkpoint`` (the JAX XLA attention, no kernel;
+  the dropped share; checkpointed gradients against unchecked ones),
+  with validation (8 B6 + 4 B8 + 3 B2 per forward), kernels vs plain,
+  profiled beside the fused step; and ``main --mode fit`` of
+  ``self_supervised_learning_all`` and
+  ``self_supervised_learning_encoder`` under ``MIVP_NO_FUSED_BLOCK=1``;
+* the single-card CLI rest: ``view: true`` in the three trainers (phase
+  ``view``: the PNGs decoded by this script's own reader) and the two
+  checkpoint converter CLIs on the flagship's weights (phase
+  ``convert``: msgpack -> ``.pt`` -> msgpack bit for bit).
 
 B2 and B3 are timed beside one cuDNN ``conv3d`` on the same shapes
 without the prologue (bf16, channels-last), and each B2 launch reports
@@ -122,10 +140,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from argparse import Namespace
 from pathlib import Path
 
@@ -1214,9 +1235,9 @@ def train_hparams(root: Path, **model) -> Namespace:
     ``root``."""
     from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
         import flagship_conf
-    conf = dataclasses.asdict(flagship_conf(
-        use_checkpoint=True, attn_drop=DROP_RATE, proj_drop=DROP_RATE,
-        **model))
+    conf = dataclasses.asdict(flagship_conf(**{
+        "use_checkpoint": True, "attn_drop": DROP_RATE,
+        "proj_drop": DROP_RATE, **model}))
     conf.update(
         seed=SEED, lr_downstream=5e-4, weight_decay_downstream=0.1,
         active_labels_downstream=[0, 1], include_background=True,
@@ -1235,10 +1256,12 @@ class _Quiet:
         pass
 
 
-def run_trainer(hp, kernels: bool, pair: bool = False):
+def run_trainer(hp, kernels: bool, pair: bool = False, fused: bool = True,
+                validate: bool = False):
     """``SegmentationTrainer.train()`` on the card (block pairs as one
-    call if ``pair``); returns the trainer, the launches of the run and
-    its wall time."""
+    call if ``pair``, the unfused blocks unless ``fused``, with the
+    validation loader if ``validate``); returns the trainer, the
+    launches of the run and its wall time."""
     import torch
     from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
         import get_fit_loader_downstream
@@ -1246,9 +1269,11 @@ def run_trainer(hp, kernels: bool, pair: bool = False):
         import SwinUnetR
     from medical_image_segmentation_with_visual_prompts_tpu_torch.train \
         import SegmentationTrainer
-    train_loader, _ = get_fit_loader_downstream(hp)
-    tr = SegmentationTrainer(hp, SwinUnetR, train_loader, None, _Quiet())
+    train_loader, val_loader = get_fit_loader_downstream(hp)
+    tr = SegmentationTrainer(hp, SwinUnetR, train_loader,
+                             val_loader if validate else None, _Quiet())
     tr.model.set_kernels(kernels).set_pair_kernel(pair)
+    tr.model.set_fused_block(fused)
     torch.cuda.synchronize()
     reset_counters()
     t0 = time.perf_counter()
@@ -1257,10 +1282,11 @@ def run_trainer(hp, kernels: bool, pair: bool = False):
     return tr, read_counters(), time.perf_counter() - t0
 
 
-def profile_steps(tr, hp, steps: int = 2, loaders=None) -> None:
+def profile_steps(tr, hp, steps: int = 2, loaders=None):
     """Device time of ``steps`` training steps by kernel bucket
     (``torch.profiler``), and the device's idle share over them; the
-    batches from ``loaders(hp)`` (default: the downstream fit loaders)."""
+    batches from ``loaders(hp)`` (default: the downstream fit loaders).
+    Returns (busy ms per step, idle share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
@@ -1277,12 +1303,13 @@ def profile_steps(tr, hp, steps: int = 2, loaders=None) -> None:
         for batch in batches:
             tr.train_step(batch)
         torch.cuda.synchronize()
-    print_profile(prof, steps, "kernel steps", "step")
+    return print_profile(prof, steps, "kernel steps", "step")
 
 
-def print_profile(prof, steps: int, what: str, unit: str) -> None:
+def print_profile(prof, steps: int, what: str, unit: str):
     """Device time of a ``torch.profiler`` window of ``steps`` repeats by
-    kernel bucket, the busiest kernels, and the device's idle share."""
+    kernel bucket, the busiest kernels, and the device's idle share;
+    returns (busy ms per repeat, idle share)."""
     import torch
     buckets = (("B1 fused_swin_block_kernel", ("fused_swin_block_kernel",)),
                ("B5 fused_swin_pair_kernel", ("fused_swin_pair_kernel",)),
@@ -1311,7 +1338,7 @@ def print_profile(prof, steps: int, what: str, unit: str) -> None:
                 break
     if not spans:
         print("  profiler: no device events recorded")
-        return
+        return None, None
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -1331,6 +1358,12 @@ def print_profile(prof, steps: int, what: str, unit: str) -> None:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     for name, us in top:
         print(f"      {us / 1e3 / steps:8.3f} ms  {name[:110]}")
+    return busy / 1e3 / steps, 1 - busy / window
+
+
+# (step median ms, device busy ms per step, idle share) of each profiled
+# phase_train run, by phase name.
+TRAIN_PROFILE = {}
 
 
 def phase_train(card: str, pair: bool = False, two_launch=None,
@@ -1420,7 +1453,7 @@ def phase_train(card: str, pair: bool = False, two_launch=None,
             raise RuntimeError(f"phase {name} failed: " + "; ".join(failures))
         del plain
         if not fp32:
-            profile_steps(tr, hp)
+            TRAIN_PROFILE[name] = (k_ms, *profile_steps(tr, hp))
     return launches, list(tr.losses), k_ms, p_ms
 
 
@@ -2263,12 +2296,12 @@ def write_pretrain_set(root: Path, volumes: int, seed: int) -> None:
                    mask.astype(np.int16))
 
 
-def pretrain_config(root: Path) -> str:
+def pretrain_config(root: Path, **over) -> str:
     """``configurations/example_configs.yml`` with the flagship model
     (bf16 trunk, ``pad_mode: aligned``; its widths, window, prompts and
     dropout are the example's), the data of ``root``, and epoch 0 only
     (``max_epochs_students_teacher: 0``: the YAML wins over the command
-    line).  The phase-2 section as published."""
+    line), and ``over``.  The phase-2 section as published otherwise."""
     from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
         import load_conf
     conf = load_conf("example_configs.yml")
@@ -2276,7 +2309,7 @@ def pretrain_config(root: Path) -> str:
                 image_dir_pretrain=str(root / "img"),
                 image_dir_supervised=str(root / "img"),
                 mask_dir_supervised=str(root / "msk"),
-                max_epochs_students_teacher=0)
+                max_epochs_students_teacher=0, **over)
     path = root / "pretrain.yml"
     path.write_text(json.dumps(conf))
     return str(path)
@@ -3093,6 +3126,624 @@ def phase_multi_view_mutual(card: str):
     return out
 
 
+# ------------------------------------------------ training, unfused blocks
+# The unfused flagship model in training: with attention dropout off, per
+# step 8 B6 + 4 B8 (forwards; their backward is the JAX package's fp32
+# recompute in plain torch and launches nothing); with it on, the JAX XLA
+# attention and no kernel; per eval forward 8 B6 + 4 B8 + 3 B2.
+UNFUSED_STEP = {"B6": 8, "B8": 4}
+UNFUSED_VAL = {"B6": 8, "B8": 4, "B2": 3}
+# Phase 2 validates the 2 students and the teacher; phase 1 the encoder
+# on 2 views.
+UNFUSED_PHASE2_VAL = {"B6": 24, "B8": 12, "B2": 9}
+UNFUSED_PHASE1_VAL = {"B6": 8, "B8": 4}
+# The Functions' backward (fp32 recompute) against torch autograd of the
+# plain version at fp32, TF32 off: float reassociation only.
+ATTN_GRAD_TOL = 2.0 ** -10
+DROP_SHARE_TOL = 0.005
+# One step's gradients with use_checkpoint on against off, same seeds.
+REMAT_TOL = 2.0 ** -10
+
+
+def phase_unfused_grads(gen_seed: int = SEED + 19):
+    """The autograd Functions of B6 and B8 at the 12 unfused block calls
+    of a flagship downstream training step at batch 2 (64+64 prompt
+    tokens, shifted and unshifted), called as the unfused block calls
+    them (B6 with the prompt rows apart, the bias as its factor tables),
+    and of B7 at one C 96 call: the forward with autograd bit for bit the
+    serving call's, and within KERNEL_TOL of the bf16 plain version on
+    the same inputs; every gradient (y or q/k/v, the prompt rows, the
+    weights, the dense bias) within ATTN_GRAD_TOL of its largest
+    magnitude of torch autograd through the plain version at fp32 (the
+    bf16 activations widened to fp32 for both); the backward (the
+    recompute, at the call's bf16 activations) timed with CUDA events
+    beside autograd's backward through the bf16 plain version, and the
+    forward kernel timed beside the bf16 plain version and its bound at
+    these shapes.  The unshifted B7/B8 calls are also timed as one
+    ``scaled_dot_product_attention`` call, as in phase B6-B8."""
+    import torch
+    import torch.nn.functional as F
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        .window_attention import linear
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import window_attention as wa
+    print("phase unfused-grads: B6/B7/B8 autograd Functions (kernel forward, "
+          "fp32 recompute backward) vs autograd of the plain versions, the "
+          "12 flagship training calls at batch 2")
+    failures = []
+    res = {k: {"max_rel_err": 0.0, "bwd_ms": 0.0, "plain_bwd_ms": 0.0,
+               "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound": Bound(), "calls": 0, "library_ms": 0.0,
+               "ms_unshifted": 0.0, "unshifted_calls": 0}
+           for k in ("B6", "B7", "B8")}
+    g = torch.Generator().manual_seed(gen_seed)
+
+    def grads(fn, inputs, gout, keep=False):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        got = torch.autograd.grad(out, leaves, gout.to(out.dtype),
+                                  retain_graph=keep)
+        return out, leaves, got
+
+    def run(key, tag, fn, plain, inputs, names, work, library=None):
+        r = res[key]
+        with torch.inference_mode():
+            served = fn(*inputs, None)
+            torch.cuda.synchronize()
+            r["max_abs_err"] = max(r["max_abs_err"], check_close(
+                f"{key} {tag} forward", served,
+                plain(*inputs, torch.bfloat16), failures))
+            t_fwd = cuda_ms(lambda: fn(*inputs, None))
+            t_plain_fwd = cuda_ms(lambda: plain(*inputs, torch.bfloat16), 3)
+            t_lib = None if library is None else cuda_ms(library)
+        trained = fn(*[t.detach().clone().requires_grad_() for t in inputs],
+                     None)
+        if not torch.equal(trained.detach(), served):
+            failures.append(f"{key} {tag}: the forward with autograd is not "
+                            "the serving call's")
+        gout = torch.randn(served.shape, generator=g).cuda()
+        wide = [t.detach().float() for t in inputs]
+        _, _, got = grads(lambda *t: fn(*t, None), wide, gout)
+        _, _, want = grads(lambda *t: plain(*t, torch.float32), wide, gout)
+        worst = 0.0
+        for name, a, b in zip(names, got, want):
+            big = b.abs().max().item()
+            rel = (a - b).abs().max().item() / big if big else float("inf")
+            worst = max(worst, rel)
+            if not (bool(a.isfinite().all()) and rel <= ATTN_GRAD_TOL):
+                failures.append(f"{key} {tag} d{name}: rel err {rel}")
+        out, leaves, _ = grads(lambda *t: fn(*t, None), inputs, gout, True)
+        gk = gout.to(out.dtype)
+        t_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, gk, retain_graph=True), 5)
+        pout, pleaves, _ = grads(lambda *t: plain(*t, torch.bfloat16),
+                                 inputs, gout, True)
+        gp = gout.to(pout.dtype)
+        t_plain = cuda_ms(lambda: torch.autograd.grad(
+            pout, pleaves, gp, retain_graph=True), 3)
+        del out, leaves, pout, pleaves
+        r["bound"].add(*work)
+        print(f"  {key} {tag}: gradients {', '.join(names)} max rel err "
+              f"{worst:.3g} (tol {ATTN_GRAD_TOL:.3g}); backward {t_bwd:.4f} "
+              f"ms (plain autograd {t_plain:.4f} ms); forward {t_fwd:.4f} ms "
+              f"(plain {t_plain_fwd:.4f} ms"
+              + ("" if t_lib is None else
+                 f", scaled_dot_product_attention {t_lib:.4f} ms") + ")")
+        if t_lib is not None:
+            r["library_ms"] += t_lib
+            r["ms_unshifted"] += t_fwd
+            r["unshifted_calls"] += 1
+        r["max_rel_err"] = max(r["max_rel_err"], worst)
+        r["ms"] += t_fwd
+        r["plain_ms"] += t_plain_fwd
+        r["bwd_ms"] += t_bwd
+        r["plain_bwd_ms"] += t_plain
+        r["calls"] += 1
+
+    b7_done = False
+    for name, c, heads, dims in BLOCK_GEOMETRIES:
+        for shift in ((0, 0, 0), (4, 4, 2)):
+            blk = make_block(c, heads, shift, g)
+            blk.fused_block = False
+            x = torch.randn((TRAIN_BATCH, *dims, c), generator=g).to(
+                "cuda", torch.bfloat16)
+            tok = (0.5 * torch.randn((64, c), generator=g)).cuda()
+            at = blk.attn
+            scale = (c // heads) ** -0.5
+            with torch.inference_mode():
+                x_win, ops, labels, _ = blk.windows(x, tok)
+                y = blk.attn_input(x_win, tok)
+            # Autograd saves y, the bias and the labels: normal tensors.
+            y = y.clone()
+            bias, tables = ops.bias.clone(), ops.factors
+            labels = None if labels is None else labels.clone()
+            b, pw, n = y.shape[:3]
+            m = x_win.shape[2]
+            tag = (f"{name} C{c} h{heads} BP{b * pw} M{m} N{n} "
+                   f"{'shift' if labels is not None else 'noshift'}")
+            ws = [lin.weight.detach().t().clone()
+                  for lin in (at.to_q, at.to_k, at.to_v)]
+            wqkv = at.kernel_weight()
+            if c <= 128:
+                def b6(yc, yp, wq, wk, wv, bias, _dt):
+                    return wa.fused_window_attention_packed_qkv_prompts(
+                        yc, yp, wq, wk, wv, bias, labels, scale, heads,
+                        wqkv=wqkv, factors=tables)
+
+                def b6_plain(yc, yp, wq, wk, wv, bias, dt):
+                    full = torch.cat([yc, yp.expand(b, pw, -1, c)], 2)
+                    return wa.fused_window_attention_packed_qkv_reference(
+                        full, wq, wk, wv, m, bias, labels, scale, heads, dt)
+
+                run("B6", tag, b6, b6_plain,
+                    [y[:, :, :m].contiguous(), y[0, 0, m:].contiguous(),
+                     *ws, bias], ("y", "y_prompt", "wq", "wk", "wv", "bias"),
+                    attention_work(b * pw, m, n, c, heads, labels, True,
+                                   tables))
+            work = attention_work(b * pw, m, n, c, heads, labels, False,
+                                  tables)
+            with torch.no_grad():
+                q = linear(y[:, :, :m], at.to_q).contiguous()
+                k = linear(y, at.to_k).contiguous()
+                v = linear(y, at.to_v).contiguous()
+            lib = None
+            if labels is None:
+                sp = lambda t: t.view(b * pw, t.shape[2], heads, -1) \
+                    .transpose(1, 2)  # noqa: E731
+                qs, ks, vs = sp(q), sp(k), sp(v)
+                bias16 = bias.to(torch.bfloat16)[None]
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qs, ks, vs, attn_mask=bias16, scale=scale)
+
+            def attn_plain(q, k, v, bias, dt):
+                return wa.fused_window_attention_packed_reference(
+                    q, k, v, bias, labels, scale, heads, dt)
+
+            if c == 96 and not b7_done:
+                b7_done = True
+
+                def b7(q, k, v, bias, _dt):
+                    return wa.fused_window_attention_packed(
+                        q, k, v, bias, labels, scale, heads, factors=tables)
+
+                run("B7", tag, b7, attn_plain, [q, k, v, bias],
+                    ("q", "k", "v", "bias"), work, lib)
+            if c > 128:
+                def b8(q, k, v, bias, _dt):
+                    hs = lambda t: t.view(b, pw, t.shape[2], heads, -1)  # noqa
+                    return wa.fused_window_attention(
+                        hs(q), hs(k), hs(v), bias, labels, scale,
+                        factors=tables).reshape(b, pw, m, c)
+
+                run("B8", tag, b8, attn_plain, [q, k, v, bias],
+                    ("q", "k", "v", "bias"), work, lib)
+    if failures:
+        raise RuntimeError("phase unfused-grads failed: "
+                           + "; ".join(failures))
+    for key, r in res.items():
+        print(f"  {key}: {r['calls']} calls, forward {r['ms']:.4f} ms per "
+              f"step (plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound'].ms:.4f} ({r['bound'].by})), backward "
+              f"{r['bwd_ms']:.4f} ms (plain autograd "
+              f"{r['plain_bwd_ms']:.4f}), max rel gradient error "
+              f"{r['max_rel_err']:.3g}, forward max_abs_err "
+              f"{r['max_abs_err']:.4g}"
+              + (f"; {r['unshifted_calls']} unshifted calls "
+                 f"{r['ms_unshifted']:.4f} ms vs scaled_dot_product_attention "
+                 f"{r['library_ms']:.4f} ms" if r["unshifted_calls"] else ""))
+    return res
+
+
+def _unfused_gates(tr, plain, launches, plain_launches, per_step, per_val,
+                   n_val, failures, name):
+    """A downstream unfused run against its plain twin: exact launches
+    (``per_step`` per training step, ``per_val`` per validation forward,
+    ``n_val`` of them per epoch), no launch in the plain run, each step's
+    loss within TRAIN_LOSS_RTOL, every trainable gradient finite and
+    non-zero."""
+    import numpy as np
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import partition
+    steps = len(tr.losses)
+    want = expect(per_step, steps)
+    for k, v in per_val.items():
+        want[k] += v * n_val
+    print(f"  {name}: {steps} steps + {n_val} validation forwards, launches "
+          f"{launches} (expected {per_step} per step, {per_val} per "
+          f"validation forward); plain run {plain_launches}")
+    if steps < 5:
+        failures.append(f"{name}: only {steps} training steps")
+    if launches != want:
+        failures.append(f"{name}: launches {launches}, expected {want}")
+    if any(plain_launches.values()):
+        failures.append(f"{name}: plain run launched {plain_launches}")
+    for i, (lk, lp) in enumerate(zip(tr.losses, plain.losses)):
+        rel = abs(lk - lp) / max(abs(lp), 1e-12)
+        print(f"    step {i}: loss {lk:.6f} (kernels) vs {lp:.6f} (plain), "
+              f"rel {rel:.3g} (tol {TRAIN_LOSS_RTOL})")
+        if not (np.isfinite(lk) and rel <= TRAIN_LOSS_RTOL):
+            failures.append(f"{name} step {i} loss {lk} vs {lp}")
+    labels = partition.downstream_labels(tr.model_conf)
+    n = 0
+    for pname, p in tr.model.named_parameters():
+        if partition.label_of(pname) not in labels:
+            continue
+        n += 1
+        gr = p.grad
+        if gr is None or not bool(gr.isfinite().all()) or \
+                not float(gr.abs().sum()) > 0:
+            failures.append(f"{name} trainable {pname}: gradient "
+                            f"{'missing' if gr is None else 'bad'}")
+    print(f"    {n} trainable tensors, each with a finite non-zero "
+          "gradient" if not failures else f"    failures: {failures}")
+
+
+def phase_train_unfused(card: str):
+    """``SegmentationTrainer.train()`` at the flagship training config
+    through the unfused blocks (``set_fused_block(False)``), with a
+    validation loader, kernels against plain versions from the same
+    seeds, in two arms: (a) attention dropout 0, projection dropout 0.1,
+    ``use_checkpoint`` off (the recompute would launch each forward
+    kernel again): 8 B6 + 4 B8 per step; the unfused step's loss at
+    dropout 0/0 against the fused step's from the same weights and batch;
+    (b) dropout 0.1/0.1 and ``use_checkpoint`` as published: no B6/B8 in
+    training steps (the JAX XLA attention), the share of dropped
+    attention probabilities of one step, one step's gradients with
+    ``use_checkpoint`` against the same step without it.  Both arms: 8
+    B6 + 4 B8 + 3 B2 per validation forward, step median, device busy
+    and idle share over 2 profiled steps, beside the fused step's."""
+    import numpy as np
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import get_fit_loader_downstream
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.losses \
+        import dice_focal_loss
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import window_attention as wam
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.train \
+        import SegmentationTrainer
+    print(f"phase train-unfused: SegmentationTrainer.train(), flagship, "
+          f"unfused blocks, bf16 trunk, batch {TRAIN_BATCH} of 128x128x8")
+    failures, out = [], {}
+
+    def trainer(hp, fused: bool):
+        tr = SegmentationTrainer(hp, SwinUnetR, None, None, _Quiet())
+        tr.model.set_fused_block(fused)
+        tr.configure_optimizers()
+        tr.model.train()
+        return tr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_train_set(root)
+        arms = (("a", "attention dropout 0, projection dropout "
+                 f"{DROP_RATE}, use_checkpoint off",
+                 {"attn_drop": 0.0, "use_checkpoint": False}, UNFUSED_STEP),
+                ("b", f"dropout {DROP_RATE}/{DROP_RATE}, use_checkpoint on "
+                 "(as published)", {}, {}))
+        for arm, what, model, per_step in arms:
+            print(f"  arm ({arm}): {what}")
+            hp = train_hparams(root, **model)
+            n_val = len(get_fit_loader_downstream(hp)[1])
+            plain, plain_launches, _ = run_trainer(hp, False, fused=False,
+                                                   validate=True)
+            tr, launches, wall = run_trainer(hp, True, fused=False,
+                                             validate=True)
+            _unfused_gates(tr, plain, launches, plain_launches, per_step,
+                           UNFUSED_VAL, n_val, failures, f"arm ({arm})")
+            k_ms = float(np.median(tr.step_ms))
+            p_ms = float(np.median(plain.step_ms))
+            print(f"    median step ms: kernels {k_ms:.3f}, plain {p_ms:.3f} "
+                  f"(host clock around each step, ending in its loss read) "
+                  f"on {card}; steps ms {[round(v, 3) for v in tr.step_ms]}")
+            del plain
+            batch = next(iter(get_fit_loader_downstream(hp)[0]))
+            tr.model.train()             # validation left it in eval mode
+            if arm == "b":
+                # The share of dropped attention probabilities in one step.
+                counts = [0, 0]
+                inner = wam.dropout
+
+                def recording(x, rate, seed):
+                    y = inner(x, rate, seed)
+                    if x.dim() == 5:
+                        counts[0] += int((y == 0).sum())
+                        counts[1] += y.numel()
+                    return y
+
+                wam.dropout = recording
+                try:
+                    tr.train_step(batch)
+                finally:
+                    wam.dropout = inner
+                share = counts[0] / max(counts[1], 1)
+                print(f"    dropped attention probabilities in one step: "
+                      f"{counts[0]} of {counts[1]} = {share:.6f} (rate "
+                      f"{DROP_RATE}, tol {DROP_SHARE_TOL})")
+                if not abs(share - DROP_RATE) <= DROP_SHARE_TOL:
+                    failures.append(f"dropped share {share}")
+                out["drop_share"] = share
+                # use_checkpoint on vs off: one step's gradients.
+                ck = trainer(hp, False)
+                image, seg_true = ck._batch(batch)
+                state = ck.model.dropout_generator.get_state()
+                grads = []
+                for on in (True, False):
+                    for blk in ck.model.modules():
+                        if hasattr(blk, "use_checkpoint"):
+                            blk.use_checkpoint = on
+                    ck.model.dropout_generator.set_state(state)
+                    ck.model.zero_grad(set_to_none=True)
+                    dice_focal_loss(ck.model(image), seg_true, gamma=4.0,
+                                    include_background=True).backward()
+                    grads.append({n: p.grad.clone() for n, p in
+                                  ck.model.named_parameters()
+                                  if p.grad is not None})
+                worst = 0.0
+                for n_, gon in grads[0].items():
+                    goff = grads[1][n_]
+                    big = goff.abs().max().item()
+                    rel = (gon - goff).abs().max().item() / big if big \
+                        else float((gon - goff).abs().max().item() > 0)
+                    worst = max(worst, rel)
+                    if not (bool(gon.isfinite().all()) and rel <= REMAT_TOL):
+                        failures.append(f"use_checkpoint {n_}: rel {rel}")
+                print(f"    use_checkpoint on vs off, one step from the same "
+                      f"generator state: {len(grads[0])} gradients, max rel "
+                      f"err {worst:.3g} (tol {REMAT_TOL:.3g})")
+                out["remat_rel_err"] = worst
+                del ck
+            else:
+                # Dropout 0/0: the unfused step's loss vs the fused step's.
+                hp0 = train_hparams(root, attn_drop=0.0, proj_drop=0.0,
+                                    use_checkpoint=False)
+                lf = float(trainer(hp0, True).train_step(batch)[0])
+                lu = float(trainer(hp0, False).train_step(batch)[0])
+                rel = abs(lu - lf) / max(abs(lf), 1e-12)
+                print(f"    dropout 0/0, same weights and batch: unfused "
+                      f"step loss {lu:.6f} vs fused {lf:.6f}, rel {rel:.3g} "
+                      f"(tol {TRAIN_LOSS_RTOL})")
+                if not rel <= TRAIN_LOSS_RTOL:
+                    failures.append(f"unfused loss {lu} vs fused {lf}")
+            busy, idle = profile_steps(tr, hp)
+            fused = TRAIN_PROFILE.get("train", (None, None, None))
+            print(f"    arm ({arm}): step median {k_ms:.3f} ms, device busy "
+                  f"{busy:.3f} ms per step, idle share {idle:.4f}; fused "
+                  f"step (phase train) {fused[0]:.3f} ms, busy "
+                  f"{fused[1]:.3f}, idle {fused[2]:.4f} on {card}")
+            out[arm] = {"launches": launches, "step_ms": k_ms,
+                        "plain_step_ms": p_ms, "busy_ms": busy,
+                        "idle": idle, "wall_s": wall}
+            del tr
+    if failures:
+        raise RuntimeError("phase train-unfused failed: "
+                           + "; ".join(failures))
+    return out
+
+
+def phase_pretrain_unfused(card: str):
+    """With ``MIVP_NO_FUSED_BLOCK=1`` (read when each model is built): one
+    epoch of ``main --mode fit`` in ``self_supervised_learning_all``
+    (the example config's phase-2 section) and in
+    ``self_supervised_learning_encoder`` (its multi-view section, 2 crops
+    per volume) at the flagship model on seeded volumes, kernels against
+    plain versions: the example's dropout 0.1/0.1 puts every training
+    step on the JAX XLA attention (no kernel); each validation step runs
+    the unfused kernels (phase 2: 3 model forwards, 24 B6 + 12 B8 + 9 B2;
+    phase 1: the encoder on 2 views, 8 B6 + 4 B8); launches exact, losses
+    finite and within TRAIN_LOSS_RTOL of the plain run's."""
+    import numpy as np
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        config
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    print("phase pretrain-unfused: MIVP_NO_FUSED_BLOCK=1, main --mode fit "
+          "self_supervised_learning_all and self_supervised_learning_encoder"
+          ", flagship model, example_configs.yml sections")
+    failures, out = [], {}
+    before = os.environ.get("MIVP_NO_FUSED_BLOCK")
+    os.environ["MIVP_NO_FUSED_BLOCK"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            config.DEFAULT_ROOT_LOG_DIR = root / "logs"
+            write_pretrain_set(root, PHASE2_VOLUMES, SEED + 20)
+            runs = (("self_supervised_learning_all", pretrain_args(
+                        pretrain_config(root), "self_supervised_learning_all",
+                        "pu-all"), UNFUSED_PHASE2_VAL),
+                    (PHASE1, mv_args(multi_view_config(
+                        root, "mv_unfused", num_samples_multi_view=2),
+                        "pu-enc"), UNFUSED_PHASE1_VAL))
+            for mode, argv, per_val in runs:
+                hp = config.get_full_configs(
+                    cli_main.build_parser().parse_args(argv))
+                plain, plain_launches, _ = run_fit(hp, False)
+                tr, launches, wall = run_fit(hp, True)
+                steps, n_val = len(tr.losses), len(tr.val_losses)
+                want = expect({}, steps)
+                for k, v in per_val.items():
+                    want[k] += v * n_val
+                fused = {b.fused_block for b in tr.model.modules()
+                         if hasattr(b, "fused_block")}
+                print(f"  {mode}: {steps} steps + {n_val} validation steps "
+                      f"in {wall:.3f} s, launches {launches} (expected none "
+                      f"per step, {per_val} per validation step); plain "
+                      f"{plain_launches}; blocks fused: {fused}")
+                if fused != {False} or steps < 2 or n_val < 1:
+                    failures.append(f"{mode}: fused {fused}, {steps} steps, "
+                                    f"{n_val} validation steps")
+                if launches != want:
+                    failures.append(f"{mode}: launches {launches}, expected "
+                                    f"{want}")
+                if any(plain_launches.values()):
+                    failures.append(f"{mode}: plain run launched "
+                                    f"{plain_launches}")
+                for i, (lk, lp) in enumerate(zip(
+                        tr.losses + tr.val_losses,
+                        plain.losses + plain.val_losses)):
+                    kind = "step" if i < steps else "validation step"
+                    print(f"    {kind} {i}: " + loss_gate(
+                        f"{mode} {kind} {i}", lk, lp, failures)
+                        + f" (kernels vs plain, tol {TRAIN_LOSS_RTOL})")
+                k_ms = float(np.median(tr.step_ms))
+                print(f"    median step ms {k_ms:.3f} (plain "
+                      f"{float(np.median(plain.step_ms)):.3f}) on {card}")
+                out[mode] = {"launches": launches, "step_ms": k_ms}
+                del tr, plain
+    finally:
+        if before is None:
+            os.environ.pop("MIVP_NO_FUSED_BLOCK", None)
+        else:
+            os.environ["MIVP_NO_FUSED_BLOCK"] = before
+    if failures:
+        raise RuntimeError("phase pretrain-unfused failed: "
+                           + "; ".join(failures))
+    return out
+
+
+def read_png(path: Path):
+    """This script's own decoder of an 8-bit grey, non-interlaced PNG
+    whose rows are unfiltered (what the port writes): ``[H, W]`` uint8."""
+    import numpy as np
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: no PNG signature")
+    pos, header, idat = 8, None, b""
+    while pos < len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc, = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h, depth, color, _, _, interlace = header
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if (depth, color, interlace) != (8, 0, 0) or rows[:, 0].any():
+        raise ValueError(f"{path}: not unfiltered 8-bit grey")
+    return rows[:, 1:]
+
+
+def phase_view(card: str):
+    """``view: true`` in each trainer, one epoch into a temporary
+    ``MIVP_VIEW_DIR``: ``SegmentationTrainer.train()`` at the flagship
+    training config, ``main --mode fit`` in ``supervised_learning_all``
+    and in ``self_supervised_learning_encoder`` (2 crops per volume) at
+    the example config's sections; every 5th step writes a panel.  Prints
+    the PNGs' names and count; each decodes with :func:`read_png` to its
+    panel's shape (rows of 4 slices of 128x128)."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        config
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    print("phase view: view: true in the three trainers, one epoch each")
+    failures, names = [], []
+    before = os.environ.get("MIVP_VIEW_DIR")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            views = root / "views"
+            os.environ["MIVP_VIEW_DIR"] = str(views)
+            config.DEFAULT_ROOT_LOG_DIR = root / "logs"
+            (root / "down").mkdir()
+            write_train_set(root / "down", 3)
+            hp = train_hparams(root / "down")
+            hp.view = True
+            tr, _, _ = run_trainer(hp, True)
+            rows = {"seg_new": 2, "rec": 2}
+            (root / "pre").mkdir()
+            write_pretrain_set(root / "pre", PHASE2_VOLUMES, SEED + 21)
+            for argv in (pretrain_args(pretrain_config(root / "pre",
+                                                       view=True),
+                                       "supervised_learning_all", "view-st"),
+                         mv_args(multi_view_config(
+                             root / "pre", "mv_view", view=True,
+                             num_samples_multi_view=2), "view-mv")):
+                tr = cli_main.main("fit", config.get_full_configs(
+                    cli_main.build_parser().parse_args(argv)))
+                if hasattr(tr, "n_students"):
+                    rows["prt"] = 2 * (1 + tr.n_students)
+            for sub, n_rows in sorted(rows.items()):
+                pngs = sorted((views / sub).glob("*.png"))
+                if not pngs:
+                    failures.append(f"no PNG under {sub}/")
+                for png in pngs:
+                    shape = read_png(png).shape
+                    names.append(f"{sub}/{png.name}")
+                    print(f"  {sub}/{png.name}: {shape[0]}x{shape[1]}")
+                    if shape != (n_rows * 128, 4 * 128):
+                        failures.append(f"{png.name}: shape {shape}")
+    finally:
+        if before is None:
+            os.environ.pop("MIVP_VIEW_DIR", None)
+        else:
+            os.environ["MIVP_VIEW_DIR"] = before
+    print(f"  {len(names)} PNGs")
+    if failures:
+        raise RuntimeError("phase view failed: " + "; ".join(failures))
+    return names
+
+
+def phase_convert(card: str):
+    """The two checkpoint converter CLIs on the flagship's seeded weights:
+    its msgpack checkpoint through ``utils.torch_export`` to a
+    reference-named ``.pt`` and back through ``utils.torch_import`` gives
+    the variables bit for bit; the ``.pt`` loads through
+    ``load_reference_checkpoint`` into a new model strictly, with the
+    state dict bit for bit."""
+    import numpy as np
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import load_reference_checkpoint, torch_export, torch_import
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .checkpoint import load_checkpoint, save_checkpoint, tree_leaves
+    print("phase convert: torch_export and torch_import CLIs, flagship "
+          "weights")
+    failures = []
+    model = flagship_model()
+    conf = {k: list(v) if isinstance(v, tuple) else v
+            for k, v in dataclasses.asdict(model.conf).items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        yml = root / "flagship.yml"
+        yml.write_text(json.dumps(conf))
+        want = torch_import.to_flax_variables(model)
+        save_checkpoint(root / "flagship.ckpt", 0, want)
+        t0 = time.perf_counter()
+        torch_export.main([str(root / "flagship.ckpt"),
+                           str(root / "flagship.pt"), "--configs", str(yml)])
+        t1 = time.perf_counter()
+        torch_import.main([str(root / "flagship.pt"), str(root / "back.ckpt"),
+                           "--configs", str(yml), "--strict"])
+        t2 = time.perf_counter()
+        back = load_checkpoint(root / "back.ckpt")["model_state_dict"]
+        a, b = tree_leaves(want), tree_leaves(back)
+        same = len(a) == len(b) and all(
+            x.dtype == np.asarray(y).dtype and np.array_equal(x, y)
+            for x, y in zip(a, b))
+        sd = load_reference_checkpoint(root / "flagship.pt")
+        other = SwinUnetR(model.conf)
+        other.load_state_dict(sd, strict=True)
+        own = model.state_dict()
+        equal = all(torch.equal(t.cpu(), own[k].cpu())
+                    for k, t in other.state_dict().items())
+    print(f"  export {t1 - t0:.3f} s ({len(sd)} tensors), import "
+          f"{t2 - t1:.3f} s; variables back bit for bit: {same} ({len(a)} "
+          f"leaves); the .pt loaded strictly, state dict equal: {equal}")
+    if not (same and equal):
+        failures.append(f"round trip {same}, .pt load {equal}")
+    if failures:
+        raise RuntimeError("phase convert failed: " + "; ".join(failures))
+    return {"leaves": len(a), "tensors": len(sd)}
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, **extra):
     bound = m["bound"]
     return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -3182,6 +3833,15 @@ def main() -> int:
     mv = phase_multi_view(card)
     mvm = phase_multi_view_mutual(card)
     clock("multi-view, multi-view-mutual done")
+    ugrad = phase_unfused_grads()
+    clock("unfused-grads done")
+    tu = phase_train_unfused(card)
+    clock("train-unfused done")
+    pu = phase_pretrain_unfused(card)
+    clock("pretrain-unfused done")
+    views = phase_view(card)
+    conv = phase_convert(card)
+    clock("view, convert done")
 
     print("serve-path times are per 27-window flagship forward, train-path "
           "times per training step of batch 2 (sums over the path's calls), "
@@ -3245,6 +3905,23 @@ def main() -> int:
           f"{mvb['example']['B4']['ms']:.4f} ms; B5 at its 6 pair calls "
           f"{mvb['B5']['ms']:.4f} ms")
 
+    fused_train = TRAIN_PROFILE["train"]
+    print(f"unfused training (flagship, batch {TRAIN_BATCH}): arm (a) "
+          f"attention dropout 0: step median {tu['a']['step_ms']:.3f} ms, "
+          f"busy {tu['a']['busy_ms']:.3f} ms, idle {tu['a']['idle']:.4f}; "
+          f"arm (b) dropout {DROP_RATE}/{DROP_RATE} + use_checkpoint: "
+          f"{tu['b']['step_ms']:.3f} ms, busy {tu['b']['busy_ms']:.3f} ms, "
+          f"idle {tu['b']['idle']:.4f}; fused step {fused_train[0]:.3f} ms, "
+          f"busy {fused_train[1]:.3f} ms, idle {fused_train[2]:.4f}; B6/B8 "
+          f"recompute backward {ugrad['B6']['bwd_ms']:.4f} + "
+          f"{ugrad['B8']['bwd_ms']:.4f} ms per step (plain autograd "
+          f"{ugrad['B6']['plain_bwd_ms']:.4f} + "
+          f"{ugrad['B8']['plain_bwd_ms']:.4f}); dropped attention share "
+          f"{tu['drop_share']:.6f}; pretraining unfused step medians "
+          f"{pu['self_supervised_learning_all']['step_ms']:.3f} (phase 2) / "
+          f"{pu[PHASE1]['step_ms']:.3f} ms (phase 1); {len(views)} view "
+          f"PNGs; converters round-tripped {conv['leaves']} leaves")
+
     def paths(key):
         return {"serve": serve_launches[key],
                 "serve_unfused": unfused_launches[key],
@@ -3269,6 +3946,11 @@ def main() -> int:
                 "multi-view-pair": mv["pair_launches"][key],
                 "multi-view-mutual": mvm["launches"][key],
                 "multi-view-to-phase2": mv["phase2_launches"][key],
+                "train-unfused": tu["a"]["launches"][key],
+                "train-unfused-dropout": tu["b"]["launches"][key],
+                "pretrain-unfused-ssl-all": pu[
+                    "self_supervised_learning_all"]["launches"][key],
+                "pretrain-unfused-ssl-encoder": pu[PHASE1]["launches"][key],
                 **{f"layouts-forward-{path}": got[key]
                    for path, got in lay["forward"].items()}}
 
@@ -3313,6 +3995,34 @@ def main() -> int:
                               "max_abs_err": ex["max_abs_err"],
                               **({"device_memory_calls": ex["big_calls"]}
                                  if key == "B4" else {})}, **extra)
+
+    def backward(key):
+        r = ugrad[key]
+        return {"calls": f"{r['calls']} training calls at batch "
+                f"{TRAIN_BATCH} (phase unfused-grads)",
+                "route": "plain torch: the JAX package's fp32 recompute "
+                "(its custom VJP is XLA, not a kernel)",
+                "ms": r["bwd_ms"], "plain_autograd_ms": r["plain_bwd_ms"],
+                "max_rel_grad_err": r["max_rel_err"]}
+
+    def train_unfused(key):
+        r = ugrad[key]
+        lib = ({"library_ms": r["library_ms"],
+                "ms_unshifted": r["ms_unshifted"],
+                "library_scope": "scaled_dot_product_attention of the "
+                f"{r['unshifted_calls']} unshifted calls only (the shifted "
+                "calls' multiplicative mask has none)"}
+               if r["unshifted_calls"] else
+               {"library_ms": None, "library_null_reason": no_library})
+        return {"calls": f"the {r['calls']} calls of a training step at "
+                f"batch {TRAIN_BATCH} (forward)",
+                "launches": tu["a"]["launches"][key],
+                "launches_path": "train-unfused",
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"].ms,
+                "bound_by": r["bound"].by, **lib,
+                "step_ms": tu["a"]["step_ms"], "busy_ms": tu["a"]["busy_ms"],
+                "idle_share": tu["a"]["idle"]}
 
     no_library = ("no single PyTorch call: the in-kernel projections (B6) "
                   "and the multiplicative mask (shifted calls)")
@@ -3394,6 +4104,8 @@ def main() -> int:
                      unfused_launches["B6"], paths("B6"),
                      attn["B6"] | {"library_ms": None},
                      library_null_reason=no_library,
+                     backward=backward("B6"),
+                     train_unfused=train_unfused("B6"),
                      output_layer=output_layer(
                          lay["b6"], lay["forward"]["full-swin-unfused"][
                              "B6@out"], "layouts-forward-full-swin-unfused",
@@ -3402,6 +4114,7 @@ def main() -> int:
         kernel_entry("window_attention_packed", "window_attention.cu",
                      "ops/window_attention_pallas.py:195", 0, paths("B7"),
                      attn["B7"], ms_unshifted=attn["B7"]["ms_unshifted"],
+                     backward=backward("B7"),
                      library_scope="scaled_dot_product_attention of the "
                      "unshifted calls only (the shifted calls' "
                      "multiplicative mask has none); no model calls B7"),
@@ -3409,6 +4122,8 @@ def main() -> int:
                      "ops/window_attention_pallas.py:39",
                      unfused_launches["B8"], paths("B8"), attn["B8"],
                      ms_unshifted=attn["B8"]["ms_unshifted"],
+                     backward=backward("B8"),
+                     train_unfused=train_unfused("B8"),
                      library_scope="scaled_dot_product_attention of the "
                      "unshifted calls only"),
     ]}))

@@ -49,8 +49,17 @@ the seeds) and recomputes the rest in the backward kernel, which is what
 the JAX package's per-block remat buys; the gathers around it save
 indices only.  So a training step runs the forward kernel once and the
 backward kernel once per block (the JAX package's remat runs its forward
-kernel twice).  The unfused block has no dropout and its kernels no
-backward: it serves.
+kernel twice).
+
+Training (unfused block): the attention kernels' autograd Functions
+(``ops/window_attention.py``) carry the JAX package's recompute as their
+backward; with attention dropout on, the attention is the JAX XLA
+branch instead (``models/window_attention.py``), with the block call's
+seeds.  With ``use_checkpoint`` (set by ``SwinUnetR`` from its config)
+in train mode, the unfused body runs under ``torch.utils.checkpoint``
+(non-reentrant), as the JAX block runs under ``nn.remat``: its forward
+is recomputed in the backward, kernels included, and the dropout seeds,
+drawn before it, give the recompute the same masks.
 
 The trunk is fp32 or bf16 (``dtype``); the block's matmul operands are
 bf16 on the card, where the kernels compute, and the trunk's dtype on the
@@ -65,6 +74,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.fused_block import (FOLD_COUNT, FOLD_KEY, FOLD_NONE, NO_DROPOUT,
@@ -127,6 +137,8 @@ class SwinTransformerBlock(nn.Module):
         self.use_kernels = True
         # False: the unfused body (SwinUnetR.set_fused_block).
         self.fused_block = True
+        # True: the unfused body is recomputed in the backward (training).
+        self.use_checkpoint = False
         self.pe = RelativePE(pos_bias_embed_dim, num_heads, self.window_size,
                              self.window_size, max_prompts,
                              tokens_per_prompt)
@@ -204,7 +216,13 @@ class SwinTransformerBlock(nn.Module):
         """x: ``[B, H, W, D, C]``; tokens: ``[I, C]`` prompt tokens or None."""
         x_win, ops, labels, undo = self.windows(x, tokens)
         if not self.fused_block:
-            return undo(self.unfused_body(x_win, tokens, ops, labels))
+            drop = self.dropout()
+            if self.use_checkpoint and self.training and \
+                    torch.is_grad_enabled():
+                return undo(torch.utils.checkpoint.checkpoint(
+                    self.unfused_body, x_win, tokens, ops, labels, drop,
+                    use_reentrant=False, preserve_rng_state=False))
+            return undo(self.unfused_body(x_win, tokens, ops, labels, drop))
         fn = fused_swin_block if self.use_kernels else block_reference
         return undo(fn(x_win, ops, labels, self.dropout()))
 
@@ -223,26 +241,24 @@ class SwinTransformerBlock(nn.Module):
         return layer_norm(x.float(), norm.weight, norm.bias).to(x.dtype)
 
     def unfused_body(self, x_win: torch.Tensor, tokens: Optional[torch.Tensor],
-                     ops: UnfusedOperands, labels: Optional[torch.Tensor]
-                     ) -> torch.Tensor:
+                     ops: UnfusedOperands, labels: Optional[torch.Tensor],
+                     drop: Dropout = NO_DROPOUT) -> torch.Tensor:
         """The unfused block on windows ``[B, P, M, C]``: LN1 over content
-        and prompt rows, attention of the content queries, residual, LN2,
-        MLP, residual (JAX ``swin_block.py:459-471``).  The attention
-        kernels take the bias as its factors; LN1 of the prompt tokens is
-        computed once and goes to the attention apart from the content
-        rows (every window shares it)."""
-        if self.training and (self.attn_drop or self.proj_drop):
-            raise NotImplementedError(
-                "SwinTransformerBlock: the unfused block path serves; it has "
-                "no dropout (train with the fused block)")
+        and prompt rows, attention of the content queries (with the call's
+        dropout ``drop``), residual, LN2, MLP, residual (JAX
+        ``swin_block.py:459-471``).  The attention kernels take the bias
+        as its factors; LN1 of the prompt tokens is computed once and goes
+        to the attention apart from the content rows (every window shares
+        it)."""
         if tokens is None:
             y = self.attn_input(x_win, None)
-            a = self.attn(y, y, y, ops.bias, labels, factors=ops.factors)
+            a = self.attn(y, y, y, ops.bias, labels, factors=ops.factors,
+                          drop=drop)
         else:
             a = self.attn.forward_prompts(
                 self._norm(x_win, self.attn_norm),
                 self._norm(tokens.to(x_win.dtype), self.attn_norm),
-                ops.bias, labels, factors=ops.factors)
+                ops.bias, labels, factors=ops.factors, drop=drop)
         x1 = x_win + a
         return x1 + linear(self._norm(x1, self.mlp_norm), self.mlp)
 

@@ -68,14 +68,17 @@ kernel.  ``train()`` (the default of a new module, as in torch): batch
 statistics with the running-statistic update, counter-based dropout at
 the config's ``attn_drop``/``proj_drop`` with seeds drawn from
 :attr:`dropout_generator`, and the JAX package's training decoder path.
-``use_checkpoint`` is read and needs no extra work (``swin_block.py``).
+``use_checkpoint`` needs no extra work in the fused blocks; the unfused
+blocks' body runs under ``torch.utils.checkpoint`` (``swin_block.py``).
 Layout: channels-last ``[B, H, W, D, C]``.
 
 The Swin blocks run the fused block (B1) unless ``MIVP_NO_FUSED_BLOCK``
 is set to anything but ``0`` when the model is built (read once, as the
 JAX package reads it) or :meth:`set_fused_block` says otherwise: then the
-unfused block with its attention kernels B6/B8.  Nothing falls back from
-one to the other: a kernel that fails to build or launch raises.
+unfused block with its attention kernels B6/B8, which serves and trains
+(with attention dropout on, the attention of the JAX XLA branch).
+Nothing falls back from one to the other: a kernel that fails to build
+or launch raises.
 
 ``MIVP_PAIR_KERNEL=1`` at build (``MIVP_NO_PAIR_KERNEL=1`` wins over it, as
 in the JAX package) or :meth:`set_pair_kernel` runs each Swin block pair
@@ -154,6 +157,7 @@ class SwinUnetR(nn.Module):
         for m in self.modules():
             if hasattr(m, "set_dropout_generator"):
                 m.set_dropout_generator(self.dropout_generator)
+                m.use_checkpoint = conf.use_checkpoint
         self.set_fused_block(not _env_flag("MIVP_NO_FUSED_BLOCK"))
         self.set_pair_kernel(_env_flag("MIVP_PAIR_KERNEL")
                              and not _env_flag("MIVP_NO_PAIR_KERNEL"))

@@ -55,6 +55,19 @@ whichever of its two functions launched it), ``.factor_launches``
 those that built the bias from its factors, and B6's
 ``.launches_by_shape`` its launches by the per-sample content shape
 ``(P, M, C)``.
+
+Training: each public function is a ``torch.autograd.Function``
+(:class:`PackedQKVFunction` for B6, :class:`AttentionFunction` for B7
+and B8) whose forward is the kernel on a CUDA tensor and the plain
+version on a CPU tensor, and whose backward is the JAX package's
+recompute (``_fused_bwd``, ``_fused_packed_bwd``,
+``_fused_packed_qkv_bwd``): the plain version at fp32, recomputed from
+the saved inputs and differentiated by autograd (B6 projects q/k/v
+again in fp32, not the kernel's bf16 operands).  It returns the
+gradients of y (and of the prompt rows, summed over every window), of
+the weights or q/k/v, and of the dense ``[H, M, N]`` bias, summed over
+windows; the bias keeps its graph to the positional-bias parameters
+while the kernel reads its factors.  The backward launches no kernel and is not counted.
 """
 
 from __future__ import annotations
@@ -203,6 +216,81 @@ def fused_window_attention_reference(
     return out.reshape(b, p, m, h, dh)
 
 
+def _recompute(plain, inputs, needs, g):
+    """The JAX custom VJPs' backward (``_fused_bwd``,
+    ``_fused_packed_bwd``, ``_fused_packed_qkv_bwd``): ``plain``, a plain
+    version at fp32, recomputed from the saved ``inputs`` and
+    differentiated by autograd for the output gradient ``g``.  Returns
+    the gradients of the inputs that ``needs`` flags (None elsewhere) in
+    the inputs' dtypes."""
+    leaves = [None if t is None else t.detach().float().requires_grad_(n)
+              for t, n in zip(inputs, needs)]
+    with torch.enable_grad():
+        out = plain(*leaves)
+    got = iter(torch.autograd.grad(
+        out, [t for t, n in zip(leaves, needs) if n], g.float()))
+    return [next(got).to(t.dtype) if n else None
+            for t, n in zip(inputs, needs)]
+
+
+class AttentionFunction(torch.autograd.Function):
+    """B7 (and B8, on the same memory) with the JAX ``_fused_packed_bwd``:
+    ``forward(fwd, q [B, P, M, C], k/v [B, P, N, C], bias [H, M, N],
+    labels, scale, num_heads)`` returns ``fwd()``, the kernel or plain
+    call on those tensors."""
+
+    @staticmethod
+    def forward(ctx, fwd, q, k, v, bias, labels, scale, num_heads):
+        ctx.save_for_backward(q, k, v, bias, labels)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        return fwd()
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, labels = ctx.saved_tensors
+
+        def plain(q, k, v, bias):
+            return fused_window_attention_packed_reference(
+                q, k, v, bias, labels, ctx.scale, ctx.num_heads,
+                torch.float32)
+
+        return (None, *_recompute(plain, (q, k, v, bias),
+                                  ctx.needs_input_grad[1:5], g),
+                None, None, None)
+
+
+class PackedQKVFunction(torch.autograd.Function):
+    """B6 with the JAX ``_fused_packed_qkv_bwd``: ``forward(fwd, y, y_prompt,
+    wq, wk, wv, bias [H, M, N], labels, m_len, scale, num_heads)`` returns
+    ``fwd()``.  ``y [B, P, N, C]`` with ``y_prompt`` None, or the content
+    rows ``y [B, P, M, C]`` and the prompt rows ``y_prompt [E, C]`` that
+    follow them in every window (their gradient summed over the
+    windows)."""
+
+    @staticmethod
+    def forward(ctx, fwd, y, y_prompt, wq, wk, wv, bias, labels, m_len,
+                scale, num_heads):
+        ctx.save_for_backward(y, y_prompt, wq, wk, wv, bias, labels)
+        ctx.m, ctx.scale, ctx.num_heads = m_len, scale, num_heads
+        return fwd()
+
+    @staticmethod
+    def backward(ctx, g):
+        y, y_prompt, wq, wk, wv, bias, labels = ctx.saved_tensors
+
+        def plain(y, y_prompt, wq, wk, wv, bias):
+            if y_prompt is not None:
+                b, p, _, c = y.shape
+                y = torch.cat([y, y_prompt.expand(b, p, -1, c)], 2)
+            return fused_window_attention_packed_qkv_reference(
+                y, wq, wk, wv, ctx.m, bias, labels, ctx.scale,
+                ctx.num_heads, torch.float32)
+
+        return (None, *_recompute(plain, (y, y_prompt, wq, wk, wv, bias),
+                                  ctx.needs_input_grad[1:7], g),
+                None, None, None, None)
+
+
 def _pad16(v: int) -> int:
     return -(-v // 16) * 16
 
@@ -306,13 +394,10 @@ def _launch(name, inputs, y, wqkv, q, k, v, dims, pos_bias, labels, scale,
             y_prompt=None) -> torch.Tensor:
     """Check what ``csrc/window_attention.cu`` takes, raising with the
     argument's name, and launch it once.  ``inputs``: every tensor the
-    call reads or differentiates; ``dims``: ``(B, P, M, N, C)``;
+    call reads (the first sets the device); ``dims``: ``(B, P, M, N, C)``;
     ``y_prompt``: B6's prompt rows ``[N - M, C]``, given apart from y's
     content rows.  Returns ``[B, P, M, C]``."""
     b, pw, m, n, c = dims
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise ValueError(f"{name}: the inputs require grad; the kernel has "
-                         "no backward")
     if matmul_dtype != torch.bfloat16:
         raise ValueError(f"{name}: the kernel computes with bf16 operands, "
                          f"asked for {matmul_dtype}")
@@ -409,6 +494,13 @@ def _weights(name, wq, wk, wv, wqkv, num_heads, c):
     return wqkv
 
 
+def _count_b6(p: int, m: int, c: int, factors) -> None:
+    fn = fused_window_attention_packed_qkv
+    fn.launches += 1
+    fn.factor_launches += factors is not None
+    fn.launches_by_shape[(p, m, c)] += 1
+
+
 def fused_window_attention_packed_qkv(
         y: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         wv: torch.Tensor, m_len: int, pos_bias: torch.Tensor,
@@ -418,26 +510,31 @@ def fused_window_attention_packed_qkv(
         factors: Optional[BiasTables] = None) -> torch.Tensor:
     """B6: attention of the first ``m_len`` rows of ``y [B, P, N, C]``
     over all N, with q/k/v projected by ``w* [C, C]`` (in, out) inside the
-    kernel.  Returns ``[B, P, m_len, C]`` (pre-proj).
+    kernel.  Returns ``[B, P, m_len, C]`` (pre-proj); differentiable in
+    y, the weights and the bias (:class:`PackedQKVFunction`).
 
     CUDA only: ``wqkv``, the cached
     :func:`~.fused_block.qkv_kernel_weight` of the three weights;
     ``factors``, the :class:`BiasTables` of ``pos_bias``."""
     name = "fused_window_attention_packed_qkv"
     _check_shapes(name, y, y, m_len, num_heads, pos_bias, labels)
-    if not y.is_cuda:
-        return fused_window_attention_packed_qkv_reference(
-            y, wq, wk, wv, m_len, pos_bias, labels, scale, num_heads,
-            matmul_dtype)
     b, p, n, c = y.shape
-    out = _launch(name, (y, wq, wk, wv), y,
-                  _weights(name, wq, wk, wv, wqkv, num_heads, c), None, None,
-                  None, (b, p, m_len, n, c), pos_bias, labels, scale,
-                  num_heads, matmul_dtype, factors)
-    fused_window_attention_packed_qkv.launches += 1
-    fused_window_attention_packed_qkv.factor_launches += factors is not None
-    fused_window_attention_packed_qkv.launches_by_shape[(p, m_len, c)] += 1
-    return out
+    bias = pos_bias.reshape(num_heads, m_len, n)
+
+    def fwd():
+        if not y.is_cuda:
+            return fused_window_attention_packed_qkv_reference(
+                y, wq, wk, wv, m_len, bias, labels, scale, num_heads,
+                matmul_dtype)
+        out = _launch(name, (y, wq, wk, wv), y,
+                      _weights(name, wq, wk, wv, wqkv, num_heads, c), None,
+                      None, None, (b, p, m_len, n, c), bias, labels, scale,
+                      num_heads, matmul_dtype, factors)
+        _count_b6(p, m_len, c, factors)
+        return out
+
+    return PackedQKVFunction.apply(fwd, y, None, wq, wk, wv, bias, labels,
+                                   m_len, scale, num_heads)
 
 
 fused_window_attention_packed_qkv.launches = 0
@@ -458,9 +555,10 @@ def fused_window_attention_packed_qkv_prompts(
     appended to each window (N = M + E keys, the M content rows the
     queries), with the same bits.  The kernel projects the prompt rows'
     K/V once per call and stages only the content rows per window.
-    Returns ``[B, P, M, C]`` (pre-proj); ``wqkv`` and ``factors`` as for
-    :func:`fused_window_attention_packed_qkv`, whose counters count the
-    launch."""
+    Returns ``[B, P, M, C]`` (pre-proj), differentiable also in
+    ``y_prompt`` (its gradient summed over the windows); ``wqkv`` and
+    ``factors`` as for :func:`fused_window_attention_packed_qkv`, whose
+    counters count the launch."""
     name = "fused_window_attention_packed_qkv_prompts"
     if y.dim() != 4 or y_prompt.dim() != 2 or y_prompt.shape[0] < 1 \
             or y_prompt.shape[1] != y.shape[-1]:
@@ -469,21 +567,26 @@ def fused_window_attention_packed_qkv_prompts(
                          f"{tuple(y_prompt.shape)}")
     b, p, m, c = y.shape
     n = m + y_prompt.shape[0]
-    if not y.is_cuda:
-        full = torch.cat([y, y_prompt.to(y.dtype).expand(b, p, -1, c)], 2)
-        return fused_window_attention_packed_qkv(
-            full, wq, wk, wv, m, pos_bias, labels, scale, num_heads,
-            matmul_dtype, wqkv, factors)
     whole = y[:, :, :1].expand(b, p, n, c)   # the whole windows' shape
     _check_shapes(name, whole, whole, m, num_heads, pos_bias, labels)
-    out = _launch(name, (y, y_prompt, wq, wk, wv), y,
-                  _weights(name, wq, wk, wv, wqkv, num_heads, c), None, None,
-                  None, (b, p, m, n, c), pos_bias, labels, scale, num_heads,
-                  matmul_dtype, factors, y_prompt)
-    fused_window_attention_packed_qkv.launches += 1
-    fused_window_attention_packed_qkv.factor_launches += factors is not None
-    fused_window_attention_packed_qkv.launches_by_shape[(p, m, c)] += 1
-    return out
+    bias = pos_bias.reshape(num_heads, m, n)
+
+    def fwd():
+        if not y.is_cuda:
+            full = torch.cat([y, y_prompt.to(y.dtype).expand(b, p, -1, c)],
+                             2)
+            return fused_window_attention_packed_qkv_reference(
+                full, wq, wk, wv, m, bias, labels, scale, num_heads,
+                matmul_dtype)
+        out = _launch(name, (y, y_prompt, wq, wk, wv), y,
+                      _weights(name, wq, wk, wv, wqkv, num_heads, c), None,
+                      None, None, (b, p, m, n, c), bias, labels, scale,
+                      num_heads, matmul_dtype, factors, y_prompt)
+        _count_b6(p, m, c, factors)
+        return out
+
+    return PackedQKVFunction.apply(fwd, y, y_prompt, wq, wk, wv, bias,
+                                   labels, m, scale, num_heads)
 
 
 def fused_window_attention_packed(
@@ -493,23 +596,31 @@ def fused_window_attention_packed(
         matmul_dtype: torch.dtype = torch.bfloat16,
         factors: Optional[BiasTables] = None) -> torch.Tensor:
     """B7: attention of ``q [B, P, M, C]`` over ``k/v [B, P, N, C]`` with
-    the heads not split.  Returns ``[B, P, M, C]``.  CUDA only:
+    the heads not split.  Returns ``[B, P, M, C]``; differentiable in
+    q/k/v and the bias (:class:`AttentionFunction`).  CUDA only:
     ``factors`` as for B6."""
     name = "fused_window_attention_packed"
     _check_shapes(name, q, k, q.shape[2], num_heads, pos_bias, labels)
     if k.shape != v.shape:
         raise ValueError(f"{name}: k and v differ: {tuple(k.shape)} and "
                          f"{tuple(v.shape)}")
-    if not q.is_cuda:
-        return fused_window_attention_packed_reference(
-            q, k, v, pos_bias, labels, scale, num_heads, matmul_dtype)
     b, p, m, c = q.shape
-    out = _launch(name, (q, k, v), None, None, q, k, v,
-                  (b, p, m, k.shape[2], c), pos_bias, labels, scale,
-                  num_heads, matmul_dtype, factors)
-    fused_window_attention_packed.launches += 1
-    fused_window_attention_packed.factor_launches += factors is not None
-    return out
+    n = k.shape[2]
+    bias = pos_bias.reshape(num_heads, m, n)
+
+    def fwd():
+        if not q.is_cuda:
+            return fused_window_attention_packed_reference(
+                q, k, v, bias, labels, scale, num_heads, matmul_dtype)
+        out = _launch(name, (q, k, v), None, None, q, k, v,
+                      (b, p, m, n, c), bias, labels, scale, num_heads,
+                      matmul_dtype, factors)
+        fused_window_attention_packed.launches += 1
+        fused_window_attention_packed.factor_launches += factors is not None
+        return out
+
+    return AttentionFunction.apply(fwd, q, k, v, bias, labels, scale,
+                                   num_heads)
 
 
 fused_window_attention_packed.launches = 0
@@ -522,9 +633,9 @@ def fused_window_attention(
         scale: float, matmul_dtype: torch.dtype = torch.bfloat16,
         factors: Optional[BiasTables] = None) -> torch.Tensor:
     """B8: per-head attention of ``qh [B, P, M, H, Dh]`` over ``kh/vh
-    [B, P, N, H, Dh]``.  Returns ``[B, P, M, H, Dh]``.  The kernel is
-    B7's: ``[.., H, Dh]`` is ``[.., C]`` in memory.  CUDA only:
-    ``factors`` as for B7."""
+    [B, P, N, H, Dh]``.  Returns ``[B, P, M, H, Dh]``; differentiable as
+    B7.  The kernel is B7's: ``[.., H, Dh]`` is ``[.., C]`` in memory.
+    CUDA only: ``factors`` as for B7."""
     name = "fused_window_attention"
     if qh.dim() != 5 or kh.shape != vh.shape or kh.dim() != 5 \
             or qh.shape[3:] != kh.shape[3:]:
@@ -532,17 +643,24 @@ def fused_window_attention(
                          f"[B, P, N, H, Dh]; got {tuple(qh.shape)}, "
                          f"{tuple(kh.shape)}, {tuple(vh.shape)}")
     b, p, m, h, dh = qh.shape
+    n = kh.shape[2]
     flat = lambda t: t.reshape(b, p, t.shape[2], h * dh)  # noqa: E731
     _check_shapes(name, flat(qh), flat(kh), m, h, pos_bias, labels)
-    if not qh.is_cuda:
-        return fused_window_attention_reference(
-            qh, kh, vh, pos_bias, labels, scale, matmul_dtype)
-    out = _launch(name, (qh, kh, vh), None, None, qh, kh, vh,
-                  (b, p, m, kh.shape[2], h * dh), pos_bias, labels, scale, h,
-                  matmul_dtype, factors)
-    fused_window_attention.launches += 1
-    fused_window_attention.factor_launches += factors is not None
-    return out.reshape(b, p, m, h, dh)
+    bias = pos_bias.reshape(h, m, n)
+
+    def fwd():
+        if not qh.is_cuda:
+            return flat(fused_window_attention_reference(
+                qh, kh, vh, bias, labels, scale, matmul_dtype))
+        out = _launch(name, (qh, kh, vh), None, None, qh, kh, vh,
+                      (b, p, m, n, h * dh), bias, labels, scale, h,
+                      matmul_dtype, factors)
+        fused_window_attention.launches += 1
+        fused_window_attention.factor_launches += factors is not None
+        return out
+
+    return AttentionFunction.apply(fwd, flat(qh), flat(kh), flat(vh), bias,
+                                   labels, scale, h).reshape(b, p, m, h, dh)
 
 
 fused_window_attention.launches = 0

@@ -34,10 +34,14 @@ Counterpart of the JAX package's ``train/multi_view.py``
 * ``save_ckpt_backbone``: every 10 epochs (file ``epoch + 1``) the
   model's variables, the optimizer state as the JAX trainer's optax
   ``multi_transform`` leaves and ``{"step": n}``; ``load_ckpt_backbone``
-  resumes all of it (epoch, model, optimizer, step).
+  resumes all of it (epoch, model, optimizer, step);
+* ``view: true`` (with ``use_reconstruction``): every 5th step, view i
+  and its reconstruction on the kept voxels, batch element 0
+  (``utils/visualization.py::view_reconstruction``).
 
 The model runs its kernels on the card: B1 forwards and B4 backwards of
-the 6 encoder blocks per view.
+the 6 encoder blocks per view (with ``set_fused_block(False)``, B6/B8
+forwards and their recompute backward).
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from ..utils.device import resolve_device
 from ..utils.schedules import warmup_cosine
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
+from ..utils.visualization import view_reconstruction
 from .common import (AvgLosses, fill_missing_grads, grouped_adamw,
                      grouped_adamw_leaves, load_grouped_adamw_leaves,
                      set_scheduled_lr)
@@ -89,11 +94,13 @@ class MultiViewTrainer:
 
     def __init__(self, hparams, backbone, train_loader, val_loader,
                  logger=None, writer=None, device=None):
-        if getattr(hparams, "view", False):
-            raise NotImplementedError(
-                "view: true (visualization) is not ported to the PyTorch "
-                "trainer yet (ROADMAP queue A item 9)")
         self.hparams = hparams
+        # view (with the reconstruction head): view i and its
+        # reconstruction, masked, of every 5th step
+        # (utils/visualization.py).
+        self.view = bool(getattr(hparams, "view", False)
+                         and hparams.use_reconstruction)
+        self.view_data = None
         self.logger = logger or logging.getLogger(__name__)
         self.writer = writer
         self.device = resolve_device(device)
@@ -233,6 +240,9 @@ class MultiViewTrainer:
                              out_j["reconstruction"] * mj])
             parts["rec"] = torch.mean((rec - img) ** 2) / (1 - self.ratio)
             total = total + float(conf.weight_rec) * parts["rec"]
+            if self.view:
+                self.view_data = ((x_i * mi).detach(),
+                                  (out_i["reconstruction"] * mi).detach())
         if conf.use_rotation_prediction:
             logits = torch.cat([out_i["rotation_prediction"],
                                 out_j["rotation_prediction"]])
@@ -318,6 +328,11 @@ class MultiViewTrainer:
                 self.losses.append(parts)
                 for name, val in parts.items():
                     avg.append(name, val)
+                if self.view and step % 5 == 0:
+                    view_reconstruction(
+                        name=batch["name"], n_slices=4,
+                        ori_img=self.view_data[0],
+                        rec_img=self.view_data[1], epoch=epoch, step=step)
                 if step % 5 == 0:
                     self.logger.info(
                         f"Learning rate in step {step} epoch {epoch}: "

@@ -12,7 +12,10 @@ Counterpart of the JAX package's ``train/segmentation.py``
   accumulates per epoch; validation runs in eval mode when a loader is
   given.  The model runs in train mode: BatchNorm on batch statistics and
   counter-based dropout at the config's rates, through the fused block's
-  forward and backward kernels on the card.
+  forward and backward kernels on the card (with
+  ``set_fused_block(False)``, the unfused block's B6/B8 forwards and
+  their recompute backward, or the JAX XLA attention with attention
+  dropout on).
 * Checkpoints are the JAX package's msgpack family
   (``utils/checkpoint.py``), so either package resumes or tests the
   other's.  ``load_ckpt_backbone`` merges a backbone checkpoint (a
@@ -31,6 +34,10 @@ Counterpart of the JAX package's ``train/segmentation.py``
   {mean} +/- {std}."`` over the volumes and return the per-volume values.
   ``_test_windows`` and ``_test_gaussian`` yield each volume's name,
   statistics and labels.
+* ``view: true``: ``utils/visualization.py::view_segmentation`` panels
+  of every 5th training step (its logits and labels) and of the first
+  chunk of each test volume under the per-window protocol (logits,
+  labels, image), batch element 0, as the JAX trainer draws them.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from ..utils.metrics import DiceCoefficient, MeanIoU, seg_stats
 from ..utils.schedules import step_decay
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
+from ..utils.visualization import view_segmentation
 from .common import (AvgLosses, adamw, adamw_leaves, fill_missing_grads,
                      load_adamw_leaves)
 
@@ -68,11 +76,11 @@ class SegmentationTrainer:
 
     def __init__(self, hparams, backbone, train_loader, val_loader,
                  logger=None, writer=None, device=None):
-        if getattr(hparams, "view", False):
-            raise NotImplementedError(
-                "view: true (visualization) is not ported to the PyTorch "
-                "trainer yet (ROADMAP queue A item 9)")
         self.hparams = hparams
+        # view: PNG panels of every 5th step and of each test volume's
+        # first chunk (utils/visualization.py).
+        self.view = bool(getattr(hparams, "view", False))
+        self.view_data = None        # the last train step's (logits, labels)
         self.logger = logger or logging.getLogger(__name__)
         self.device = resolve_device(device)
         self.model_conf = ModelConfig.from_mapping(hparams)
@@ -171,6 +179,8 @@ class SegmentationTrainer:
         loss.backward()
         fill_missing_grads(self.optimizer)
         self.optimizer.step()
+        if self.view:
+            self.view_data = (logits.detach(), seg_true)
         return loss.detach(), seg_stats(logits.detach(), seg_true,
                                         self.num_classes)
 
@@ -212,6 +222,12 @@ class SegmentationTrainer:
                 avg.append("seg", loss)
                 avg.append("tot", loss)
                 metrics.update_stats(*(t.cpu().numpy() for t in stats))
+                if self.view and step % 5 == 0:
+                    view_segmentation(
+                        name=batch["name"], n_slices=4,
+                        seg_pred=self.view_data[0],
+                        seg_target=self.view_data[1],
+                        n_classes=self.num_classes, epoch=epoch, step=step)
                 if step % 5 == 0:
                     self.logger.info(
                         f"Learning rate in step {step} epoch {epoch}: "
@@ -319,7 +335,7 @@ class SegmentationTrainer:
         windows, uint8 labels of its windows ``[n, *roi]`` on the
         device)."""
         wh, ww, wd = roi = tuple(self.hparams.roi_size)
-        for name, x, m in self._volumes():
+        for step, (name, x, m) in enumerate(self._volumes()):
             slc, grid, _ = window_starts(x.shape[:3], roi)   # stride roi / 2
             x = torch.from_numpy(np.ascontiguousarray(x[slc])).to(
                 self.device)
@@ -335,7 +351,15 @@ class SegmentationTrainer:
                 pad = TEST_CHUNK - len(part)     # one program shape
                 if pad:
                     xs = torch.cat([xs, xs.new_zeros((pad, *xs.shape[1:]))])
-                pred = self.model(xs)[:len(part)].argmax(-1)
+                logits = self.model(xs)
+                if self.view and lo == 0:
+                    view_segmentation(
+                        name=name, n_slices=4, seg_pred=logits,
+                        seg_target=map_label_indices(ms, tuple(
+                            self.hparams.active_labels_downstream)),
+                        img=xs, n_classes=self.num_classes, epoch=0,
+                        step=step)
+                pred = logits[:len(part)].argmax(-1)
                 stats = self._volume_stats(pred, ms)
                 totals = stats if totals is None else \
                     tuple(a + b for a, b in zip(totals, stats))

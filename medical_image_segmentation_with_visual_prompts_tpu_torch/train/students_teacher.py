@@ -33,10 +33,16 @@ Counterpart of the JAX package's ``train/students_teacher.py``
   trainer's optax leaves and ``{"step": n}``; ``load_ckpt_backbone``: a
   checkpoint with a teacher resumes everything (epoch, student, teacher,
   optimizer, step), any other msgpack checkpoint is merged into the
-  student by the tolerant rule and then copied into the teacher.
+  student by the tolerant rule and then copied into the teacher;
+* ``view: true`` (with ``use_prototype_assignment``): every 5th step,
+  the teacher's and each student's image over the argmax of its latent
+  map, batch element 0
+  (``utils/visualization.py::view_prototype_students_teacher``).
 
 The model runs its kernels on the card (B1 forwards, B4 backwards of the
-students' trainable blocks; B2 in the eval-mode decoders).
+students' trainable blocks; B2 in the eval-mode decoders; with
+``set_fused_block(False)``, B6/B8 forwards and their recompute
+backward).
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from ..utils.metrics import MeanIoU, seg_stats
 from ..utils.schedules import warmup_cosine
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
+from ..utils.visualization import view_prototype_students_teacher
 from .common import (AvgLosses, ema_update, fill_missing_grads,
                      grouped_adamw, grouped_adamw_leaves,
                      load_grouped_adamw_leaves, set_scheduled_lr)
@@ -73,11 +80,12 @@ class StudentsTeacherTrainer:
 
     def __init__(self, hparams, backbone, train_loader, val_loader,
                  logger=None, writer=None, device=None):
-        if getattr(hparams, "view", False):
-            raise NotImplementedError(
-                "view: true (visualization) is not ported to the PyTorch "
-                "trainer yet (ROADMAP queue A item 9)")
         self.hparams = hparams
+        # view (with the prototype loss): the teacher's and the students'
+        # latent maps of every 5th step (utils/visualization.py).
+        self.view = bool(getattr(hparams, "view", False)
+                         and hparams.use_prototype_assignment)
+        self.view_data = None
         self.logger = logger or logging.getLogger(__name__)
         self.writer = writer
         self.device = resolve_device(device)
@@ -232,6 +240,11 @@ class StudentsTeacherTrainer:
         ema_update(self.teacher, self.model, float(self.hparams.tau))
         outs, teacher = self._forwards(batch)
         parts, stats = self._losses(outs, teacher, batch, jitters)
+        if self.view:
+            self.view_data = (
+                teacher["latent_outputs"], batch["image"],
+                [o["latent_outputs"].detach() for o in outs],
+                [batch[f"image_st_{i}"] for i in range(self.n_students)])
         self.optimizer.zero_grad(set_to_none=True)
         parts["tot"].backward()
         fill_missing_grads(self.optimizer)
@@ -283,6 +296,13 @@ class StudentsTeacherTrainer:
                     avg.append(name, val)
                 if stats is not None:
                     metrics.update_stats(*(t.cpu().numpy() for t in stats))
+                if self.view and step % 5 == 0:
+                    tch, img, sts, imgs = self.view_data
+                    view_prototype_students_teacher(
+                        name=batch["name"], n_slices=4,
+                        chs=conf.hidden_channels[0], prt_tch=tch,
+                        img_tch=img, prt_sts=sts, img_sts=imgs,
+                        epoch=epoch, step=step)
                 if step % 5 == 0:
                     self.logger.info(
                         f"Learning rate in step {step} epoch {epoch}: "

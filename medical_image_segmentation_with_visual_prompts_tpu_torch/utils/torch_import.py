@@ -14,6 +14,11 @@ two directions from it:
 Both are exact (transposes, flips and stacks of float32).  Checkpoints of
 the JAX package's msgpack family (``utils/checkpoint.py``) cross with
 them; the optimizer state maps through :func:`flax_paths`.
+
+:func:`main` is the JAX package's ``torch_import`` CLI (a reference
+``.pt`` -> a msgpack checkpoint, through the port's model): ``python -m
+medical_image_segmentation_with_visual_prompts_tpu_torch.utils.torch_import
+<src.pt> <dst.ckpt> --configs <yml> [--training-mode MODE] [--strict]``.
 """
 
 from __future__ import annotations
@@ -369,3 +374,55 @@ def load_flax_variables(model, variables: dict) -> None:
                              f"{tuple(value.shape)} != "
                              f"{tuple(own[key].shape)}")
         own[key].copy_(torch.from_numpy(np.array(value, np.float32)))
+
+
+def main(argv=None) -> None:
+    """CLI: a reference ``.pt`` -> a msgpack checkpoint (the port's codec,
+    the JAX package's format): ``src dst --configs <yml>
+    [--training-mode MODE] [--strict]``.  The tensors that have a flax
+    leaf load into the seeded port model, whose :func:`to_flax_variables`
+    is written; the report counts as the JAX package's CLI does."""
+    import argparse
+
+    from ..config import ModelConfig, load_conf
+    from ..models import SwinUnetR
+    from .checkpoint import save_checkpoint
+    from .weights import init_weights, load_reference_checkpoint
+
+    ap = argparse.ArgumentParser(
+        description="Convert a reference PyTorch checkpoint to the msgpack "
+                    "checkpoint format.")
+    ap.add_argument("src", help="reference .pt/.pth checkpoint")
+    ap.add_argument("dst", help="output checkpoint directory/file")
+    ap.add_argument("--configs", required=True, help="model config YAML")
+    ap.add_argument("--training-mode", default=None)
+    ap.add_argument("--strict", action="store_true",
+                    help="fail when torch keys are unmatched")
+    args = ap.parse_args(argv)
+
+    conf = load_conf(args.configs)
+    if args.training_mode:
+        conf["training_mode"] = args.training_mode
+    model = SwinUnetR(ModelConfig.from_mapping(conf))
+    init_weights(model, torch.Generator().manual_seed(0))
+    rules = build_key_rules(model.conf)
+    sd = load_reference_checkpoint(args.src, derived=True)
+    imported = {k: v for k, v in sd.items() if rules.get(k)}
+    skipped = [k for k in sd if k in rules and rules[k] is None]
+    unmatched = [k for k in sd if k not in rules]
+    leaves = lambda keys: {rules[k][:2] for k in keys if rules[k]}  # noqa
+    unfilled = leaves(rules) - leaves(imported)
+    print(f"imported {len(imported)} tensors; skipped {len(skipped)} "
+          f"buffers; {len(unmatched)} unmatched torch keys; "
+          f"{len(unfilled)} params left at init")
+    for k in unmatched:
+        print("  unmatched:", k)
+    if args.strict and unmatched:
+        raise SystemExit(1)
+    model.load_state_dict(imported, strict=False)
+    save_checkpoint(args.dst, 0, to_flax_variables(model), None,
+                    {"epoch": 0})
+    print(f"wrote {args.dst}")
+
+if __name__ == "__main__":
+    main()

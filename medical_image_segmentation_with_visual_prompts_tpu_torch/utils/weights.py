@@ -62,12 +62,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def load_reference_checkpoint(path: Union[str, Path]
+def load_reference_checkpoint(path: Union[str, Path], derived: bool = False
                               ) -> Dict[str, torch.Tensor]:
     """State dict of a reference-schema ``.pt`` (a bare state dict or
     ``{"model_state_dict": ...}``), without the derived
-    ``pe.relative_dist_*`` buffers."""
+    ``pe.relative_dist_*`` buffers unless ``derived``."""
     ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt)
     return {k: v for k, v in sd.items()
-            if ".pe.relative_dist_" not in k}
+            if derived or ".pe.relative_dist_" not in k}

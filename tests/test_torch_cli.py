@@ -44,6 +44,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import yaml
+from PIL import Image
 
 from medical_image_segmentation_with_visual_prompts_tpu import \
     infer as jax_infer
@@ -179,11 +180,11 @@ def test_get_full_configs_raises_as_jax_does(roots, args, error):
     assert str(ours.value) == str(theirs.value)
 
 
-def test_other_training_modes_name_their_roadmap_item(roots):
+def test_other_training_modes_name_their_roadmap_item(roots, monkeypatch):
     """The phase-1 mode builds the multi-view trainer (its model with the
     three proxy heads); the four phase-2 modes build the students-teacher
-    trainer; ``view`` raises naming its queue item; an unknown mode
-    raises."""
+    trainer; with ``view: true`` a one-epoch fit of each trainer writes
+    its PNG panels (under ``MIVP_VIEW_DIR``); an unknown mode raises."""
     hp = config.get_full_configs(cli_args(
         training_mode="self_supervised_learning_encoder"))
     tr = initialization.select_trainer(
@@ -200,14 +201,36 @@ def test_other_training_modes_name_their_roadmap_item(roots):
             "cpu")
         assert isinstance(tr, StudentsTeacherTrainer)
         assert tr.supervised == mode.startswith("supervised")
-    for mode in ("downstream", "supervised_learning_decoder",
-                 "self_supervised_learning_encoder"):
-        hp = config.get_full_configs(cli_args(training_mode=mode))
-        hp.view = True
-        with pytest.raises(NotImplementedError, match="item 9"):
-            initialization.select_trainer(
-                hp, initialization.select_backbone(hp), None, None, None,
-                None, "cpu")
+    root = roots
+    views = root / "views"
+    monkeypatch.setenv("MIVP_VIEW_DIR", str(views))
+    _volumes(root, "view", [(20 + k, 18, 9) for k in range(3)], 4)
+    data = {f"{kind}_dir_{use}": str(root / f"view_{short}")
+            for kind, short in (("image", "img"), ("mask", "msk"))
+            for use in ("pretrain", "supervised", "downstream")}
+    conf = tiny_conf(view=True, active_labels_downstream=[0, 2], **data)
+    for key in ("training_mode", "use_encoder_prompting",
+                "use_decoder_prompting"):
+        conf.pop(key)
+    (root / "view.yml").write_text(yaml.safe_dump(conf))
+    phase1 = "self_supervised_learning_encoder"
+    for mode, sub, kind in (("downstream", "seg_new", "seg"),
+                            ("supervised_learning_decoder", "prt", "prt"),
+                            (phase1, "rec", "rec")):
+        args = cli_args(training_mode=mode, configs=str(root / "view.yml"),
+                        use_decoder_prompting=mode != phase1)
+        parsed = main.build_parser().parse_args(argv(args))
+        tr = main.main(parsed.mode, config.get_full_configs(parsed),
+                       parsed.device)
+        # 3 volumes split 0.8: 2 train x 2 crops = 2 steps; step 0 drawn,
+        # 2 rows (per model for prt) of 4 slices of 128x128.
+        pngs = list((views / sub).glob("*.png"))
+        assert tr.view and len(pngs) == 1
+        assert pngs[0].name.startswith("epoch0_step0_case")
+        assert pngs[0].name.endswith(f".nii_{kind}.png")
+        rows = 2 * (1 + tr.n_students) if kind == "prt" else 2
+        with Image.open(pngs[0]) as png:
+            assert png.size == (512, rows * 128)
     hp = config.get_full_configs(cli_args(training_mode="phase_three"))
     with pytest.raises(NotImplementedError, match="not available"):
         initialization.setup_fitting(hp, "cpu")

@@ -1247,3 +1247,123 @@ def test_pair_kernel_rejects_bad_calls(dev):
     cpu_plan = plan._replace(src=plan.src.cpu())
     with pytest.raises(ValueError, match="plan.src must be"):
         fp.fused_swin_pair(x_win, ops0, ops1, labels, cpu_plan)
+
+
+# The backward of B6/B7/B8 is the JAX package's fp32 recompute in plain
+# torch: against autograd of the plain version at fp32 (TF32 off) it
+# differs by float reassociation only.
+ATTN_GRAD_TOL = 2.0 ** -10
+
+
+def _grads_of(fn, inputs, g):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out.backward(g)
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(48, 4), (96, 8), (96, 4), (192, 16),
+                                     (192, 4)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_function_gradients_match_plain(dev, c, heads,
+                                                         masked):
+    """At the flagship unfused calls' window (M 256, 64 prompt rows, the
+    factor form): B6 with the prompt rows apart (C <= 128) or B8 (C 192),
+    and B7 at C 96, through their autograd Functions: the forward equals
+    the inference call bit for bit, and every gradient (y or q/k/v, the
+    prompt rows, the weights, the bias) is within ATTN_GRAD_TOL of the
+    largest magnitude of autograd's through the fp32 plain version."""
+    m, n_tok = 256, 64
+    y, ws, (q, k, v), bias, tables, labels = _factor_attn_case(
+        dev, c, heads, m, n_tok, masked, torch.bfloat16, seed=21)
+    scale = (c // heads) ** -0.5
+    gen = torch.Generator().manual_seed(22)
+    g = torch.randn((2, 3, m, c), generator=gen).to(dev)
+    calls = []
+    if c <= 128:
+        yc, yp = y[:, :, :m].contiguous(), y[0, 0, m:].contiguous()
+
+        def b6(yc, yp, wq, wk, wv, bias):
+            return wa.fused_window_attention_packed_qkv_prompts(
+                yc, yp, wq, wk, wv, bias, labels, scale, heads,
+                factors=tables)
+
+        def b6_plain(yc, yp, wq, wk, wv, bias):
+            full = torch.cat([yc, yp.expand(2, 3, -1, c)], 2)
+            return wa.fused_window_attention_packed_qkv_reference(
+                full, wq, wk, wv, m, bias, labels, scale, heads,
+                torch.float32)
+
+        calls.append((b6, b6_plain, [yc, yp, *ws, bias]))
+    if c == 96 or c > 128:
+        split = lambda t: t.view(2, 3, t.shape[2], heads, -1)  # noqa: E731
+
+        def b7(q, k, v, bias):
+            return wa.fused_window_attention_packed(
+                q, k, v, bias, labels, scale, heads, factors=tables)
+
+        def b8(q, k, v, bias):
+            return wa.fused_window_attention(
+                split(q), split(k), split(v), bias, labels, scale,
+                factors=tables).reshape(2, 3, m, c)
+
+        def attn_plain(q, k, v, bias):
+            return wa.fused_window_attention_packed_reference(
+                q, k, v, bias, labels, scale, heads, torch.float32)
+
+        calls.append((b7 if c == 96 else b8, attn_plain, [q, k, v, bias]))
+    for fn, plain, inputs in calls:
+        with torch.inference_mode():
+            served = fn(*inputs)
+        out, got = _grads_of(fn, inputs, g.to(served.dtype))
+        assert torch.equal(out, served)
+        assert all(a.dtype == t.dtype for a, t in zip(got, inputs))
+        # The gradients at fp32 (the bf16 values widened; the kernel
+        # rounds its operands to bf16 as before): a bf16 gradient's last
+        # rounding alone may exceed ATTN_GRAD_TOL.
+        wide = [t.float() for t in inputs]
+        _, got = _grads_of(fn, wide, g)
+        _, want = _grads_of(plain, wide, g)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.isfinite(a).all(), i
+            scale_i = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            assert scale_i > 0 and err <= ATTN_GRAD_TOL * scale_i, \
+                (fn.__name__, i, err, scale_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_drop", [0.0, 0.1])
+@pytest.mark.parametrize("use_checkpoint", [False, True])
+def test_unfused_training_step_launches(dev, attn_drop, use_checkpoint):
+    """One step of the flagship model (batch 2 of 128x128x8) through the
+    unfused blocks in train mode, projection dropout 0.1: 8 B6 + 4 B8
+    launches with attention dropout 0 (16 + 8 with ``use_checkpoint``:
+    the recompute launches each forward kernel again), none with
+    attention dropout 0.1 (the JAX XLA branch); no B1/B4/B5; every
+    trainable gradient finite."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import flagship_conf
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    model = SwinUnetR(flagship_conf(attn_drop=attn_drop, proj_drop=0.1,
+                                    use_checkpoint=use_checkpoint))
+    init_weights(model, torch.Generator().manual_seed(23))
+    model = model.to(dev).set_fused_block(False).train()
+    x = torch.randn((2, 128, 128, 8, 1),
+                    generator=torch.Generator().manual_seed(24)).to(dev)
+    fns = {"B6": wa.fused_window_attention_packed_qkv,
+           "B7": wa.fused_window_attention_packed,
+           "B8": wa.fused_window_attention, "B1": fb.fused_swin_block,
+           "B4": fbb.block_backward, "B5": fp.fused_swin_pair}
+    before = {k: f.launches for k, f in fns.items()}
+    (model(x).float() ** 2).mean().backward()
+    torch.cuda.synchronize()
+    got = {k: f.launches - before[k] for k, f in fns.items()}
+    per = 0 if attn_drop else (2 if use_checkpoint else 1)
+    assert got == {"B6": 8 * per, "B7": 0, "B8": 4 * per, "B1": 0,
+                   "B4": 0, "B5": 0}, got
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    assert grads and all(torch.isfinite(t).all() for t in grads)

@@ -1,6 +1,6 @@
-"""PyTorch port: imports neither JAX, flax, msgpack, optax nor the JAX
-package, and its chip check refuses to run on a machine without a CUDA
-card."""
+"""PyTorch port: imports neither JAX, flax, msgpack, optax, PIL nor the
+JAX package, and its chip check refuses to run on a machine without a
+CUDA card."""
 
 import ast
 import subprocess
@@ -21,6 +21,7 @@ def test_every_port_module_imports_without_jax():
         sys.modules["{JAX_PKG}"] = None
         sys.modules["msgpack"] = None
         sys.modules["optax"] = None
+        sys.modules["PIL"] = None
         import {PKG} as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                        pkg.__name__ + ".")]
@@ -37,7 +38,8 @@ def test_every_port_module_imports_without_jax():
                     "models.partition", "data.datasets", "train.common",
                     "train.segmentation", "main", "utils.checkpoint",
                     "utils.torch_import", "utils.loggers", "utils.tb_events",
-                    "utils.initialization", "utils.summary"):
+                    "utils.initialization", "utils.summary",
+                    "utils.visualization", "utils.torch_export"):
             assert "{PKG}." + mod in names, mod
         import pathlib, tempfile
         import numpy as np
@@ -49,7 +51,7 @@ def test_every_port_module_imports_without_jax():
         assert checkpoint.load_checkpoint(path)["current_epoch"] == 1
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
-                                      "optax")
+                                      "optax", "PIL")
                and sys.modules[m] is not None]
         assert not bad, bad
         print(len(names))
@@ -73,8 +75,8 @@ def test_chip_smoke_imports_only_the_port():
     roots = {n.split(".")[0] for n in names}
     assert PKG in roots
     assert roots <= {PKG, "torch", "numpy", "__future__", "argparse",
-                     "dataclasses", "json", "subprocess", "sys", "tempfile",
-                     "time", "pathlib"}, roots
+                     "dataclasses", "json", "os", "struct", "subprocess",
+                     "sys", "tempfile", "time", "pathlib", "zlib"}, roots
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

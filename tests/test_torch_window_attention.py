@@ -364,7 +364,18 @@ def test_fused_block_switch_is_read_once_at_build(monkeypatch):
 
 
 def test_unfused_block_refuses_dropout_in_training():
+    """The unfused block trains with dropout, its seeds drawn from the
+    block's generator: without one it refuses; with one it runs, and two
+    calls draw different masks."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import init_weights
     blk = SwinTransformerBlock(8, (4, 4, 4), 8, 2, 1, 3, attn_drop=0.1).train()
+    init_weights(blk, torch.Generator().manual_seed(2))
     blk.fused_block = False
-    with pytest.raises(NotImplementedError, match="no dropout"):
-        blk(torch.zeros(1, 4, 4, 4, 8))
+    x = torch.randn(1, 4, 4, 4, 8, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="set_dropout_generator"):
+        blk(x)
+    blk.set_dropout_generator(torch.Generator().manual_seed(1))
+    a, b = blk(x), blk(x)
+    assert torch.isfinite(a).all() and not torch.equal(a, b)
+    assert torch.equal(blk.eval()(x), blk(x))          # no dropout in eval
