@@ -118,7 +118,17 @@ the port's paths:
 * the single-card CLI rest: ``view: true`` in the three trainers (phase
   ``view``: the PNGs decoded by this script's own reader) and the two
   checkpoint converter CLIs on the flagship's weights (phase
-  ``convert``: msgpack -> ``.pt`` -> msgpack bit for bit).
+  ``convert``: msgpack -> ``.pt`` -> msgpack bit for bit);
+* data parallel (phases ``dp-kernels``, ``dp-nccl`` and
+  ``dp-two-ranks``): B1, B5 and B4 with dropout on one rank's rows of a
+  batch of 4 at their ``win_base`` against the whole call's rows (bit for
+  bit) and their plain versions; ``main.main`` over a real NCCL process
+  group of one rank (``distributed: true``; the flagship fit, 6 steps,
+  and a Gaussian test) against no group; and two processes of this
+  script (``--dp-rank R --dp-port P --dp-root DIR``) as a gloo group
+  over CUDA tensors on the one card: the flagship fit at ``mesh_data: 2``
+  and global batch 4 against the one-process fit, each rank's launches,
+  and DP serving of the 320x320x24 volume against one-process serving.
 
 B2 and B3 are timed beside one cuDNN ``conv3d`` on the same shapes
 without the prologue (bf16, channels-last), and each B2 launch reports
@@ -3744,6 +3754,499 @@ def phase_convert(card: str):
     return {"leaves": len(a), "tensors": len(sd)}
 
 
+DP_BATCH = 4        # the global batch of the data-parallel phases
+DP_STEPS = 3        # 6 train volumes x 2 crops / DP_BATCH
+DP_RANK_TIMEOUT = 900
+# dp-nccl: a process group of one rank against no group, same seeds and
+# crops: the same arithmetic (a one-rank group takes the one-process
+# moments and means; DDP's all-reduce over one rank is a copy), so the
+# losses and prompt tokens agree to float noise at most.
+DP_NCCL_RTOL = 1e-6
+
+
+def _close(got, ref, tol: float, floor: float = 1e-6):
+    """(max abs error, its limit: ``tol`` of ``max(floor, max|ref|)``)."""
+    import torch
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item() if torch.isfinite(got).all() \
+        else float("inf")
+    return err, tol * max(floor, ref.abs().max().item())
+
+
+def phase_dp_kernels(gen_seed: int = SEED + 21):
+    """B1, B5 and B4 as one rank of a data-parallel batch runs them: with
+    dropout 0.1/0.1 at the 6 flagship training geometries (no-shift and
+    shift) at the global batch DP_BATCH, each on samples [2:] (rank 1 of
+    2) with ``win_base`` = the global index of its first window, against
+    rows [2:] of the whole call bit for bit (B4: its dx; its operand
+    gradients as the two ranks' sum, within GRAD_TOL) and against its
+    plain version at the same base (KERNEL_TOL; GRAD_TOL for B4, run
+    twice with the same bits); samples [:2] at base 0 (rank 0) bit for
+    bit rows [:2] of the whole call.  Timed at rank 1's call."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block import (PARAM_KEYS, Dropout, block_reference,
+                             fused_swin_block)
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_block_bwd import block_backward, block_backward_reference
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .fused_pair import fused_swin_pair, pair_reference
+    print(f"phase dp-kernels: B1, B5 and B4 with dropout {DROP_RATE}/"
+          f"{DROP_RATE} on one rank's rows of a batch of {DP_BATCH} at its "
+          "window base, vs rows of the whole call and vs plain at the base")
+    failures = []
+    res = {k: {"ms": 0.0, "plain_ms": 0.0, "bound": Bound(), "errs": []}
+           for k in ("B1", "B4", "B5")}
+    names = ("x", "bias", "ext_k", "ext_v", *PARAM_KEYS)
+    half = DP_BATCH // 2
+    g = torch.Generator().manual_seed(gen_seed)
+
+    def same(tag, got, want):
+        if not torch.equal(got, want):
+            failures.append(f"{tag}: {int((got != want).sum())} elements "
+                            "differ from the whole call's rows")
+
+    for i, (name, c, heads, dims) in enumerate(BLOCK_GEOMETRIES):
+        for j, shift in enumerate(((0, 0, 0), (4, 4, 2))):
+            blk = make_block(c, heads, shift, g, DROP_RATE)
+            x = torch.randn((DP_BATCH, *dims, c), generator=g).to(
+                "cuda", torch.bfloat16)
+            tok = (0.5 * torch.randn((64, c), generator=g)).cuda()
+            drop = Dropout((3000 + 2 * (2 * i + j), 3001 + 2 * (2 * i + j)),
+                           DROP_RATE, DROP_RATE)
+            with torch.no_grad():
+                x_win, ops, labels, _ = blk.windows(x, tok)
+            base = half * x_win.shape[1]
+            at = drop.at(base)
+            head = x_win[:half].contiguous()
+            tail = x_win[half:].contiguous()
+            dout = torch.randn(x_win.shape, generator=g).to(
+                "cuda", torch.bfloat16)
+            d0, d1 = dout[:half].contiguous(), dout[half:].contiguous()
+            tag = block_tag(name, c, heads, dims, x_win, ops, labels)
+            with torch.inference_mode():
+                whole = fused_swin_block(x_win, ops, labels, drop)
+                same(f"B1 {tag} rank 0", fused_swin_block(
+                    head, ops, labels, drop), whole[:half])
+                out = fused_swin_block(tail, ops, labels, at)
+                same(f"B1 {tag} rank 1", out, whole[half:])
+                ref = block_reference(tail, ops, labels, at)
+                torch.cuda.synchronize()
+                res["B1"]["errs"].append(check_close(
+                    f"B1 {tag} base {base}", out, ref, failures))
+                t_k = cuda_ms(lambda: fused_swin_block(tail, ops, labels, at))
+                t_p = cuda_ms(lambda: block_reference(tail, ops, labels, at),
+                              3)
+            res["B1"]["bound"].add(*block_work(tail, ops, labels))
+            res["B1"]["ms"] += t_k
+            res["B1"]["plain_ms"] += t_p
+            dx, g_all = block_backward(x_win, dout, ops, labels, drop)
+            dx0, g_0 = block_backward(head, d0, ops, labels, drop)
+            dx1, g_1 = block_backward(tail, d1, ops, labels, at)
+            dx1b, g_1b = block_backward(tail, d1, ops, labels, at)
+            rdx, r_1 = block_backward_reference(tail, d1, ops, labels, at)
+            torch.cuda.synchronize()
+            same(f"B4 {tag} rank 0 dx", dx0, dx[:half])
+            same(f"B4 {tag} rank 1 dx", dx1, dx[half:])
+            errs = []
+            for gname, got, again, want, other, full in zip(
+                    names, (dx1, *g_1), (dx1b, *g_1b), (rdx, *r_1),
+                    (None, *g_0), (None, *g_all)):
+                if want is None:
+                    continue
+                if not torch.equal(got, again):
+                    failures.append(f"B4 {tag} d{gname}: two runs differ")
+                err, limit = _close(got, want, GRAD_TOL)
+                errs.append(err)
+                if not err <= limit:
+                    failures.append(f"B4 {tag} d{gname}: {err} > {limit}")
+                if other is not None:
+                    err, limit = _close(got + other, full, GRAD_TOL)
+                    if not err <= limit:
+                        failures.append(f"B4 {tag} d{gname} summed over "
+                                        f"the ranks: {err} > {limit}")
+            res["B4"]["errs"] += errs
+            t_bk = cuda_ms(lambda: block_backward(tail, d1, ops, labels, at))
+            t_bp = cuda_ms(lambda: block_backward_reference(
+                tail, d1, ops, labels, at), 3)
+            res["B4"]["bound"].add(*block_bwd_work(tail, ops, labels))
+            res["B4"]["ms"] += t_bk
+            res["B4"]["plain_ms"] += t_bp
+            print(f"  {tag}: B1 {t_k:.4f} ms (plain {t_p:.4f}); B4 "
+                  f"{t_bk:.4f} ms (plain {t_bp:.4f}), max gradient error "
+                  f"{max(errs):.4g}")
+    for i, (name, c, heads, dims) in enumerate(BLOCK_GEOMETRIES):
+        pair = make_pair(c, heads, g, DROP_RATE)
+        x = torch.randn((DP_BATCH, *dims, c), generator=g).to(
+            "cuda", torch.bfloat16)
+        toks = tuple((0.5 * torch.randn((64, c), generator=g)).cuda()
+                     for _ in range(2))
+        d0 = Dropout((4000 + 4 * i, 4001 + 4 * i), DROP_RATE, DROP_RATE)
+        d1 = Dropout((4002 + 4 * i, 4003 + 4 * i), DROP_RATE, DROP_RATE)
+        with torch.inference_mode():
+            x_win, ops0, ops1, labels, plan, _ = pair.pair_windows(x, toks)
+            base = half * x_win.shape[1]
+            a0, a1 = d0.at(base), d1.at(base)
+            head = x_win[:half].contiguous()
+            tail = x_win[half:].contiguous()
+            tag = (f"{name} C{c} h{heads} {'x'.join(map(str, dims))} "
+                   f"BP{tail.shape[0] * tail.shape[1]} M{x_win.shape[2]}")
+            whole = fused_swin_pair(x_win, ops0, ops1, labels, plan, d0, d1)
+            same(f"B5 {tag} rank 0", fused_swin_pair(
+                head, ops0, ops1, labels, plan, d0, d1), whole[:half])
+            out = fused_swin_pair(tail, ops0, ops1, labels, plan, a0, a1)
+            same(f"B5 {tag} rank 1", out, whole[half:])
+            ref = pair_reference(tail, ops0, ops1, labels, plan, a0, a1)
+            torch.cuda.synchronize()
+            res["B5"]["errs"].append(check_close(
+                f"B5 {tag} base {base}", out, ref, failures))
+            t_k = cuda_ms(lambda: fused_swin_pair(tail, ops0, ops1, labels,
+                                                  plan, a0, a1))
+            t_p = cuda_ms(lambda: pair_reference(tail, ops0, ops1, labels,
+                                                 plan, a0, a1), 3)
+        res["B5"]["bound"].add(*pair_work(tail, ops0, ops1, labels))
+        res["B5"]["ms"] += t_k
+        res["B5"]["plain_ms"] += t_p
+        print(f"    B5 {t_k:.4f} ms (plain {t_p:.4f})")
+    if failures:
+        raise RuntimeError("phase dp-kernels failed: " + "; ".join(failures))
+    for key, r in res.items():
+        r["max_abs_err"] = max(r.pop("errs"))
+        print(f"  {key} at rank 1's calls: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound'].ms:.4f} "
+              f"({r['bound'].by}), max_abs_err {r['max_abs_err']:.6g})")
+    return res
+
+
+def dp_hparams(root: Path, name: str, **over) -> Namespace:
+    """The flagship training config over ``root`` as ``main.main`` takes
+    it (downstream mode, logs under ``root/name``), a Gaussian test over
+    the same volumes, and ``over``."""
+    hp = train_hparams(root)
+    hp.__dict__.update(
+        training_mode="downstream", backbone="swin_unetr", run_name=name,
+        log_dir=str(root / name / "log"),
+        summary_dir=str(root / name / "summary"),
+        image_dir_test=str(root / "img"), mask_dir_test=str(root / "msk"),
+        test_blending="gaussian", **over)
+    return hp
+
+
+def _tokens(model) -> dict:
+    return {n: p.detach().float().cpu().clone()
+            for n, p in model.named_parameters() if "prompt_tokens" in n}
+
+
+def _token_err(got: dict, want: dict) -> float:
+    """Largest token difference over the largest token magnitude."""
+    err = max(float((got[k] - want[k]).abs().max()) for k in want)
+    return err / max(float(v.abs().max()) for v in want.values())
+
+
+def phase_dp_nccl(card: str):
+    """A real NCCL process group of one rank, started by ``main.main``
+    from the config's ``distributed: true, num_processes: 1, process_id:
+    0`` (``mesh_data: -1``, the whole world: DDP, the loss and metric
+    all-reduces): the downstream fit at the flagship training config
+    (batch 2, 6 steps, dropout 0.1/0.1, 2 validation forwards) and a
+    Gaussian ``test()`` against the same without a process group (both
+    on cuDNN's deterministic algorithms); losses and prompt tokens within
+    DP_NCCL_RTOL, metrics equal, launches equal."""
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    print("phase dp-nccl: main.main over an NCCL process group of one rank "
+          "vs no process group (flagship training config, then Gaussian "
+          "test)")
+    failures, runs = [], {}
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    os.environ["MIVP_TENSORBOARD"] = "0"
+    # Both arms on cuDNN's deterministic algorithms: the comparison is of
+    # the two paths' arithmetic, not of atomics' summation order.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            write_train_set(root)
+            for name, over in (("single", {}), ("nccl", dict(
+                    mesh_data=-1, distributed=True,
+                    coordinator_address=f"localhost:{port}",
+                    num_processes=1, process_id=0))):
+                hp = dp_hparams(root, name, **over)
+                torch.cuda.synchronize()
+                reset_counters()
+                fit = cli_main.main("fit", hp)
+                torch.cuda.synchronize()
+                fit_launches = read_counters()
+                if name == "nccl" and not (
+                        dist.is_initialized()
+                        and dist.get_backend() == "nccl"
+                        and dist.get_world_size() == 1
+                        and fit.ddp is not fit.model):
+                    failures.append("no NCCL process group or no DDP")
+                hp.load_ckpt_prompt_tokens = False
+                reset_counters()
+                tst = cli_main.main("test", hp)
+                torch.cuda.synchronize()
+                runs[name] = {"losses": list(fit.losses),
+                              "step_ms": float(np.median(fit.step_ms)),
+                              "tokens": _tokens(fit.model),
+                              "metrics": tst.metric_vals,
+                              "launches": fit_launches,
+                              "test_launches": read_counters()}
+                del fit, tst
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        os.environ.pop("MIVP_TENSORBOARD", None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    one, nccl = runs["single"], runs["nccl"]
+    if len(one["losses"]) != 6 or len(nccl["losses"]) != 6:
+        failures.append(f"steps {len(one['losses'])} / {len(nccl['losses'])}")
+    for i, (a, b) in enumerate(zip(nccl["losses"], one["losses"])):
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        print(f"  step {i}: loss {a:.8f} (NCCL group) vs {b:.8f} (none), "
+              f"rel {rel:.3g}")
+        if not rel <= DP_NCCL_RTOL:
+            failures.append(f"step {i} loss {a} vs {b}")
+    terr = _token_err(nccl["tokens"], one["tokens"])
+    print(f"  prompt tokens: max difference {terr:.3g} of the largest")
+    if not terr <= DP_NCCL_RTOL:
+        failures.append(f"prompt tokens differ by {terr}")
+    if nccl["metrics"] != one["metrics"]:
+        failures.append(f"test metrics {nccl['metrics']} vs {one['metrics']}")
+    print(f"  test IoU {nccl['metrics']['iou']} (equal: "
+          f"{nccl['metrics'] == one['metrics']})")
+    # 6 steps of 12 B1 + 12 B4, 2 validation forwards of 12 B1 + 3 B2.
+    if nccl["launches"] != one["launches"] or nccl["launches"] != \
+            expect({"B1": 6 * 12 + 2 * 12, "B2": 2 * 3, "B4": 6 * 12}):
+        failures.append(f"fit launches {nccl['launches']} vs "
+                        f"{one['launches']}")
+    if nccl["test_launches"] != one["test_launches"]:
+        failures.append(f"test launches {nccl['test_launches']} vs "
+                        f"{one['test_launches']}")
+    print(f"  fit step median: NCCL group {nccl['step_ms']:.3f} ms, no group "
+          f"{one['step_ms']:.3f} ms (host clock, on {card})")
+    if failures:
+        raise RuntimeError("phase dp-nccl failed: " + "; ".join(failures))
+    return {"launches": nccl["launches"], "test_launches":
+            nccl["test_launches"], "step_ms": nccl["step_ms"],
+            "single_step_ms": one["step_ms"]}
+
+
+def dp_serve_conf(mesh: bool) -> dict:
+    return {"roi_size": [128, 128, 8], **({"mesh_data": 2} if mesh else {})}
+
+
+def dp_serve(conf: dict, out: Path, tag: str):
+    """The flagship model (seeded) serving :func:`serve_volume` at stride
+    0.75 through ``infer.make_runner`` (in memory: the stitched
+    probabilities, timed) and ``infer.serve_volumes`` (from disk, to
+    ``out/seg_<tag>.nii.gz``); returns (probabilities, labels, launches of
+    the in-memory forward, in-memory ms)."""
+    import numpy as np
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import save_nifti
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
+        import make_runner, serve_volumes
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.parallel \
+        import window_starts
+    model = flagship_model()
+    vol = serve_volume()
+    runner = make_runner(conf, model, stride=0.75, coverage="crop")
+    slices = window_starts(vol.shape, (128, 128, 8), runner.stride)[0]
+    crop = np.ascontiguousarray(vol[slices][..., None])
+    with torch.inference_mode():
+        runner(crop)
+        torch.cuda.synchronize()
+        reset_counters()
+        probs = runner(crop)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        ms = 1e3 * min(_wall(lambda: runner(crop)) for _ in range(3))
+    src = out / "ct.nii.gz"
+    if not src.exists():
+        save_nifti(str(src), vol)
+    done = serve_volumes(conf, model, [(src, out / f"seg_{tag}.nii.gz")],
+                         stride=0.75, coverage="crop")
+    if done != (1, 0):
+        raise RuntimeError(f"serve_volumes: {done}")
+    return probs.cpu(), probs.argmax(-1).cpu(), launches, ms
+
+
+def _wall(fn) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def dp_rank_main(rank: int, port: int, root: Path) -> int:
+    """One rank of phase ``dp-two-ranks``: a gloo group of two processes
+    over CUDA tensors on the one card, started here; the downstream fit
+    at ``mesh_data: 2`` (global batch DP_BATCH) and the DP serving."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import get_fit_loader_downstream
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.train \
+        import SegmentationTrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    hp = train_hparams(root)
+    hp.batch_size_downstream, hp.mesh_data = DP_BATCH, 2
+    train_loader, _ = get_fit_loader_downstream(hp)
+    tr = SegmentationTrainer(hp, SwinUnetR, train_loader, None, _Quiet())
+    torch.cuda.synchronize()
+    reset_counters()
+    tr.train()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    probs, labels, serve_launches, serve_ms = dp_serve(
+        dp_serve_conf(True), root, f"rank{rank}")
+    if rank == 0:
+        torch.save({"tokens": _tokens(tr.model), "probs": probs,
+                    "labels": labels}, root / "rank0.pt")
+    (root / f"rank{rank}.json").write_text(json.dumps({
+        "losses": tr.losses, "step_ms": tr.step_ms, "launches": launches,
+        "serve_launches": serve_launches, "serve_ms": serve_ms,
+        "backend": dist.get_backend(), "world": dist.get_world_size()}))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dp_two_ranks(card: str):
+    """Two processes on the one card, a gloo group over CUDA tensors
+    (NCCL takes one rank per device): the downstream fit at mesh_data: 2,
+    global batch DP_BATCH (2 rows per rank), dropout 0.1/0.1, DP_STEPS
+    steps, against the one-process fit of the same global batches (loss
+    within TRAIN_LOSS_RTOL per step, prompt tokens within GRAD_TOL of the
+    largest), each rank's launches exact; then DP serving of the
+    320x320x24 volume (each rank 14 of the 28-window chunk, the logits
+    gathered) against one-process serving (labels >= 0.999, stitched
+    probabilities within KERNEL_TOL), rank 0 alone writing the labels.
+    Two ranks on one card share it: their times measure no scaling."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import load_nifti
+    print(f"phase dp-two-ranks: mesh_data 2 over a gloo group of two "
+          f"processes on one card, downstream fit at global batch "
+          f"{DP_BATCH}, then serving")
+    if dist.is_initialized():
+        raise RuntimeError("phase dp-two-ranks: a process group is open")
+    import socket
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_train_set(root)
+        hp = train_hparams(root)
+        hp.batch_size_downstream = DP_BATCH
+        one, _, _ = run_trainer(hp, True)
+        one_probs, one_labels, _, one_serve_ms = dp_serve(
+            dp_serve_conf(False), root, "single")
+        sock = socket.socket()
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        env = {k: v for k, v in os.environ.items() if k not in (
+            "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+             str(r), "--dp-port", str(port), "--dp-root", str(root)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DP_RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"phase dp-two-ranks: rank {r} exited "
+                                   f"{p.returncode}:\n{log[-3000:]}")
+        ranks = [json.loads((root / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        got = torch.load(root / "rank0.pt")
+        written = sorted(q.name for q in root.glob("seg_*.nii.gz"))
+        vols = {q: load_nifti(str(root / q))[0] for q in written}
+    want = expect({"B1": 12, "B4": 12}, DP_STEPS)
+    for r, res in enumerate(ranks):
+        print(f"  rank {r} ({res['backend']}, world {res['world']}): "
+              f"launches {res['launches']}; serving launches "
+              f"{res['serve_launches']}")
+        if res["launches"] != want:
+            failures.append(f"rank {r} launches {res['launches']}, "
+                            f"expected {want}")
+        if res["serve_launches"] != expect({"B1": 12, "B2": 3}):
+            failures.append(f"rank {r} serving launches "
+                            f"{res['serve_launches']}")
+        if res["losses"] != ranks[0]["losses"]:
+            failures.append(f"rank {r} logged other losses")
+    if len(one.losses) != DP_STEPS:
+        failures.append(f"one process took {len(one.losses)} steps")
+    for i, (a, b) in enumerate(zip(ranks[0]["losses"], one.losses)):
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        print(f"  step {i}: loss {a:.6f} (two ranks) vs {b:.6f} (one "
+              f"process), rel {rel:.3g} (tol {TRAIN_LOSS_RTOL})")
+        if not (np.isfinite(a) and rel <= TRAIN_LOSS_RTOL):
+            failures.append(f"step {i} loss {a} vs {b}")
+    terr = _token_err(got["tokens"], _tokens(one.model))
+    print(f"  prompt tokens: max difference {terr:.4g} of the largest "
+          f"(tol {GRAD_TOL})")
+    if not terr <= GRAD_TOL:
+        failures.append(f"prompt tokens differ by {terr}")
+    perr = float((got["probs"] - one_probs).abs().max())
+    agree = float((got["labels"] == one_labels).float().mean())
+    print(f"  serving: probabilities max difference {perr:.4g} (tol "
+          f"{KERNEL_TOL}), labels agree {agree:.6f} (min "
+          f"{SERVE_MIN_LABEL_AGREEMENT}); label files written: {written}")
+    if not perr <= KERNEL_TOL:
+        failures.append(f"served probabilities differ by {perr}")
+    if not agree >= SERVE_MIN_LABEL_AGREEMENT:
+        failures.append(f"served labels agree {agree}")
+    if written != ["seg_rank0.nii.gz", "seg_single.nii.gz"]:
+        failures.append(f"label files {written}")
+    else:
+        vol_agree = float((vols["seg_rank0.nii.gz"]
+                           == vols["seg_single.nii.gz"]).mean())
+        print(f"  written label volumes agree {vol_agree:.6f}")
+        if vols["seg_rank0.nii.gz"].shape != (320, 320, 24) or \
+                not vol_agree >= SERVE_MIN_LABEL_AGREEMENT:
+            failures.append(f"written labels agree {vol_agree}")
+    step_ms = [float(np.median(r["step_ms"])) for r in ranks]
+    print(f"  two ranks sharing one card (no scaling measured): step median "
+          f"{step_ms} ms vs one process {float(np.median(one.step_ms)):.3f} "
+          f"ms at batch {DP_BATCH}; in-memory serve "
+          f"{[round(r['serve_ms'], 3) for r in ranks]} ms vs "
+          f"{one_serve_ms:.3f} ms, on {card}")
+    if failures:
+        raise RuntimeError("phase dp-two-ranks failed: " + "; ".join(failures))
+    return {"launches": [r["launches"] for r in ranks],
+            "serve_launches": [r["serve_launches"] for r in ranks],
+            "step_ms": step_ms}
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, **extra):
     bound = m["bound"]
     return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -3760,6 +4263,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if "--dp-rank" in sys.argv:          # one rank of phase dp-two-ranks
+        arg = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return dp_rank_main(int(arg["--dp-rank"]), int(arg["--dp-port"]),
+                            Path(arg["--dp-root"]))
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         import kernels
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3842,6 +4349,12 @@ def main() -> int:
     views = phase_view(card)
     conv = phase_convert(card)
     clock("view, convert done")
+    dpk = phase_dp_kernels()
+    clock("dp-kernels done")
+    dpn = phase_dp_nccl(card)
+    clock("dp-nccl done")
+    dpt = phase_dp_two_ranks(card)
+    clock("dp-two-ranks done")
 
     print("serve-path times are per 27-window flagship forward, train-path "
           "times per training step of batch 2 (sums over the path's calls), "
@@ -3922,6 +4435,13 @@ def main() -> int:
           f"{pu[PHASE1]['step_ms']:.3f} ms (phase 1); {len(views)} view "
           f"PNGs; converters round-tripped {conv['leaves']} leaves")
 
+    print(f"data parallel: B1/B4/B5 at rank 1's calls (batch {DP_BATCH}) "
+          f"{dpk['B1']['ms']:.4f} / {dpk['B4']['ms']:.4f} / "
+          f"{dpk['B5']['ms']:.4f} ms; one NCCL rank step median "
+          f"{dpn['step_ms']:.3f} ms vs no group {dpn['single_step_ms']:.3f}; "
+          f"two gloo ranks on one card (no scaling) "
+          f"{[round(v, 3) for v in dpt['step_ms']]} ms per step")
+
     def paths(key):
         return {"serve": serve_launches[key],
                 "serve_unfused": unfused_launches[key],
@@ -3951,6 +4471,12 @@ def main() -> int:
                 "pretrain-unfused-ssl-all": pu[
                     "self_supervised_learning_all"]["launches"][key],
                 "pretrain-unfused-ssl-encoder": pu[PHASE1]["launches"][key],
+                "dp-nccl-fit": dpn["launches"][key],
+                "dp-nccl-test": dpn["test_launches"][key],
+                **{f"dp-two-ranks-fit-rank{r}": got[key]
+                   for r, got in enumerate(dpt["launches"])},
+                **{f"dp-two-ranks-serve-rank{r}": got[key]
+                   for r, got in enumerate(dpt["serve_launches"])},
                 **{f"layouts-forward-{path}": got[key]
                    for path, got in lay["forward"].items()}}
 
@@ -4026,6 +4552,17 @@ def main() -> int:
 
     no_library = ("no single PyTorch call: the in-kernel projections (B6) "
                   "and the multiplicative mask (shifted calls)")
+
+    def data_parallel(key, calls):
+        m = dpk[key]
+        return {"calls": f"{calls}, rank 1 of 2 of a batch of {DP_BATCH} "
+                "(samples [2:]) at its window base, dropout 0.1/0.1 (phase "
+                "dp-kernels)", "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound"].ms, "bound_by": m["bound"].by,
+                "max_abs_err": m["max_abs_err"], "library_ms": None,
+                "launches": {f"rank{r}": got[key]
+                             for r, got in enumerate(dpt["launches"])},
+                "launches_path": "dp-two-ranks-fit"}
     print(json.dumps({"kernels": [
         kernel_entry("fused_swin_block", "fused_block.cu",
                      "ops/fused_block.py:554", train_launches["B1"],
@@ -4040,7 +4577,8 @@ def main() -> int:
                library_ms=None,
                cluster=[i["cluster"] for i in lay["b1"]["launch"]]),
            "students": students(b1_st, "B1", library_ms=None),
-           "multi_view": mv_blocks("B1")},
+           "multi_view": mv_blocks("B1"),
+           "data_parallel": data_parallel("B1", "the 12 block calls")},
         kernel_entry("conv3x3_fused_pair", "conv3x3_pair.cu",
                      "ops/conv_pallas.py:270", serve_launches["B2"],
                      paths("B2"), b2,
@@ -4081,7 +4619,8 @@ def main() -> int:
                cluster=[i["cluster"] for i in lay["b4"]["launch"]]),
            "students": students(b4_st, "B4", library_ms=None,
                                 device_memory_form_ms=b4_st["big_ms"]),
-           "multi_view": mv_blocks("B4")},
+           "multi_view": mv_blocks("B4"),
+           "data_parallel": data_parallel("B4", "the 12 block calls")},
         kernel_entry("fused_swin_pair", "fused_pair.cu",
                      "ops/fused_block.py:592", pair_launches["B5"],
                      paths("B5"), b5,
@@ -4098,7 +4637,8 @@ def main() -> int:
                mvb["B5"], "B5", "multi-view-pair",
                f"the 6 pair calls of a phase-1 step at batch {MV_BATCH} (2 "
                "views x 3 encoder pairs), flagship, dropout; launches from "
-               "the batch-2 pair step")},
+               "the batch-2 pair step"),
+           "data_parallel": data_parallel("B5", "the 6 pair calls")},
         kernel_entry("window_attention_packed_qkv", "window_attention.cu",
                      "ops/window_attention_pallas.py:388",
                      unfused_launches["B6"], paths("B6"),

@@ -143,7 +143,7 @@ extern "C" cudaError_t mivp_fused_swin_block(
     int heads, int dh, int n_ext, int p_windows, int ph, int pw, int pd,
     int fold, float scale, float pe_scale, unsigned seed_a, unsigned seed_p,
     unsigned thr_a, unsigned thr_p, float keep_a, float keep_p,
-    int drop_cols, int x_f32, void* stream) {
+    int drop_cols, unsigned win_base, int x_f32, void* stream) {
   if (m < 1 || m > 1024 || c % 16 != 0 || heads * dh != c || bp < 1 ||
       (labels != nullptr && p_windows < 1) || drop_cols < m + n_ext ||
       ph < 1 || pw < 1 || pd < 1 || ph > 255 || pw > 255 || pd > 255 ||
@@ -178,7 +178,8 @@ extern "C" cudaError_t mivp_fused_swin_block(
   a.tabw = bias_table_floats(ph, pw, pd, m, n_ext, a.fold);
   a.scale = scale;
   a.pe_scale = pe_scale;
-  a.drop = DropArgs{seed_a, seed_p, thr_a, thr_p, keep_a, keep_p, drop_cols};
+  a.drop = DropArgs{seed_a, seed_p, thr_a, thr_p, keep_a, keep_p, drop_cols,
+                    win_base};
   if (a.f32) return mivp_fused_swin_block_f32(&a, dh, bp, stream, info);
   return launch_dh<false>(a, dh, bp, static_cast<cudaStream_t>(stream),
                           info);

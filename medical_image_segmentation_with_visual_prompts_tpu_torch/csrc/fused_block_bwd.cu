@@ -460,6 +460,7 @@ __global__ void __launch_bounds__(MAXT, 1)
   bf16* sdo = reinterpret_cast<bf16*>(smem + L.dO);
   bf16* sdp = reinterpret_cast<bf16*>(smem + L.dp);
   const size_t win = blockIdx.x / KS;
+  const uint32_t dwin = (uint32_t)win + a.drop.win_base;  // dropout counters
   // big: this CTA's y and the window's dqkv (rows by window row).
   bf16* sdqkv = a.big ? a.dqkvg + win * (size_t)MP * QKS
                       : reinterpret_cast<bf16*>(smem + L.dqkv);
@@ -577,8 +578,8 @@ __global__ void __launch_bounds__(MAXT, 1)
       const int ra = t0 + g, rb = t0 + g + 8;
       const AttnDrop dr{
           a.drop.seed_a, a.drop.thr_a, a.drop.keep_a,
-          (((uint32_t)win * H + h) * M + ra) * (uint32_t)a.drop.drop_cols,
-          (((uint32_t)win * H + h) * M + rb) * (uint32_t)a.drop.drop_cols,
+          ((dwin * H + h) * M + ra) * (uint32_t)a.drop.drop_cols,
+          ((dwin * H + h) * M + rb) * (uint32_t)a.drop.drop_cols,
           M, dgap};
       float o[DTILES][4], ml[2][2];
       attend_rows<DHK, true>(o, sq, sk, DS, svt, VTS, slab, masked, bias, t0,
@@ -614,7 +615,7 @@ __global__ void __launch_bounds__(MAXT, 1)
     float p0 = v0 + __ldg(a.bproj + col);
     float p1 = v1 + __ldg(a.bproj + col + 1);
     if (a.drop.thr_p) {
-      const uint32_t base = ((uint32_t)win * M + r) * C + col;
+      const uint32_t base = (dwin * M + r) * C + col;
       p0 *= keep_value(a.drop.seed_p, base, a.drop.thr_p, a.drop.keep_p);
       p1 *= keep_value(a.drop.seed_p, base + 1, a.drop.thr_p, a.drop.keep_p);
     }
@@ -703,7 +704,7 @@ __global__ void __launch_bounds__(MAXT, 1)
       sg[lr * XS + c] = gv;
       float dp = gv;
       if (a.drop.thr_p)
-        dp *= keep_value(a.drop.seed_p, ((uint32_t)win * M + r) * C + c,
+        dp *= keep_value(a.drop.seed_p, (dwin * M + r) * C + c,
                          a.drop.thr_p, a.drop.keep_p);
       sdp[lr * CS + c] = __float2bfloat16_rn(dp);
     }
@@ -716,7 +717,7 @@ __global__ void __launch_bounds__(MAXT, 1)
     for (int lr = 0; lr < prows; ++lr) {
       float dp = sg[lr * XS + c];
       if (a.drop.thr_p)
-        dp *= keep_value(a.drop.seed_p, ((uint32_t)win * M + rbase + lr) * C + c,
+        dp *= keep_value(a.drop.seed_p, (dwin * M + rbase + lr) * C + c,
                          a.drop.thr_p, a.drop.keep_p);
       s_bp += dp;
     }
@@ -775,7 +776,7 @@ __global__ void __launch_bounds__(MAXT, 1)
     const bf16* dah = sda + hl * MP * DS;
     const float4* qrh = reinterpret_cast<const float4*>(sqr) + hl * MP;
     const float* tabh = stab + hl * a.tabw;
-    const uint32_t drow0 = ((uint32_t)win * H + h) * M;
+    const uint32_t drow0 = (dwin * H + h) * M;
 
     // E1, query-major: dS of the CTA's query rows -> the bias partial,
     // dQ = scale dS K -> dq (and the partners' dq).
@@ -1198,7 +1199,8 @@ extern "C" cudaError_t mivp_fused_block_bwd(
     int ph, int pw, int pd, int fold, int ks, int hs, int qs, int threads,
     float scale,
     float pe_scale, unsigned seed_a, unsigned seed_p, unsigned thr_a,
-    unsigned thr_p, float keep_a, float keep_p, int drop_cols, int x_f32,
+    unsigned thr_p, float keep_a, float keep_p, int drop_cols,
+    unsigned win_base, int x_f32,
     void* stream) {
   if (m < 1 || m > 1024 || c % 16 != 0 || heads * dh != c || bp < 1 ||
       (labels != nullptr && p_windows < 1) || drop_cols < m + n_ext ||
@@ -1247,7 +1249,8 @@ extern "C" cudaError_t mivp_fused_block_bwd(
   a.tabw = bias_table_floats(ph, pw, pd, m, n_ext, a.fold);
   a.scale = scale;
   a.pe_scale = pe_scale;
-  a.drop = DropArgs{seed_a, seed_p, thr_a, thr_p, keep_a, keep_p, drop_cols};
+  a.drop = DropArgs{seed_a, seed_p, thr_a, thr_p, keep_a, keep_p, drop_cols,
+                    win_base};
   a.ks = ks;
   a.hs = hs;
   a.qs = qs;

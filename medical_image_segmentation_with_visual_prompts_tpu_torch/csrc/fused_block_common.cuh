@@ -209,10 +209,15 @@ __device__ __forceinline__ float keep_value(uint32_t seed, uint32_t idx,
 // ((w*H + head)*M + row)*drop_cols + col(j), with col(j) = j for keys up
 // to the fold column (index M) and j + drop_cols - N after it: the JAX
 // kernel's alignment columns.  Projection counters are (w*M + row)*C + c.
+// w = win_base + the window's index in the call: the window's index in
+// the global batch when the call holds one rank's rows of it (data
+// parallel), as the JAX kernel's program_id is under jit.  uint32 sums
+// wrap at 2^32 as the JAX kernel's do.
 struct DropArgs {
   uint32_t seed_a, seed_p, thr_a, thr_p;
   float keep_a, keep_p;
   int drop_cols;
+  uint32_t win_base;
 };
 
 __device__ __forceinline__ uint32_t drop_col(int j, int m, int gap) {
@@ -686,7 +691,8 @@ __device__ __forceinline__ void st_cluster32(const void* local, uint32_t rank,
 //   rows    PERM: row t of the block reads and writes row rows[t] of xw
 //           and ow (M ints in shared memory: B5's in-window token roll);
 //           else row t itself;
-//   win     the window index of the dropout counters;
+//   win     the window's index in the call (the dropout counters add
+//           a.drop.win_base to it);
 //   lab     the window's [N] key labels, or null (no mask);
 //   smem    BlockSmem's regions.
 // DROP: the dropout code is compiled in only for calls with a nonzero rate.
@@ -851,8 +857,10 @@ __device__ __forceinline__ void swin_block_window(
       // exactly as the JAX kernel's).
       const AttnDrop dr{
           a.drop.seed_a, a.drop.thr_a, a.drop.keep_a,
-          (((uint32_t)win * a.heads + h) * M + ra) * (uint32_t)a.drop.drop_cols,
-          (((uint32_t)win * a.heads + h) * M + rb) * (uint32_t)a.drop.drop_cols,
+          (((win + a.drop.win_base) * a.heads + h) * M + ra) *
+              (uint32_t)a.drop.drop_cols,
+          (((win + a.drop.win_base) * a.heads + h) * M + rb) *
+              (uint32_t)a.drop.drop_cols,
           M, dgap};
       float o[DTILES][4];
       attend_rows<DHK, DROP>(o, sq, sk, QS, svt, VS, slab, masked, bias, t0,
@@ -910,7 +918,7 @@ __device__ __forceinline__ void swin_block_window(
             float p0 = acc[mt][nt][2 * hf] + __ldg(a.bproj + col);
             float p1 = acc[mt][nt][2 * hf + 1] + __ldg(a.bproj + col + 1);
             if (DROP && a.drop.thr_p) {   // projection dropout
-              const uint32_t base = ((uint32_t)win * M + r) * C + col;
+              const uint32_t base = ((win + a.drop.win_base) * M + r) * C + col;
               p0 *= keep_value(a.drop.seed_p, base, a.drop.thr_p, a.drop.keep_p);
               p1 *= keep_value(a.drop.seed_p, base + 1, a.drop.thr_p, a.drop.keep_p);
             }

@@ -168,7 +168,8 @@ extern "C" cudaError_t mivp_fused_swin_pair(
     float pe_scale, unsigned seed_a0, unsigned seed_p0, unsigned thr_a0,
     unsigned thr_p0, float keep_a0, float keep_p0, unsigned seed_a1,
     unsigned seed_p1, unsigned thr_a1, unsigned thr_p1, float keep_a1,
-    float keep_p1, int drop_cols, int x_f32, void* stream) {
+    float keep_p1, int drop_cols, unsigned win_base, int x_f32,
+    void* stream) {
   if (m < 1 || m > 1024 || c % 16 != 0 || heads * dh != c || bp < 1 ||
       p_windows < 1 || bp % p_windows != 0 || drop_cols < m + n_ext ||
       ph < 1 || pw < 1 || pd < 1 || ph > 255 || pw > 255 || pd > 255 ||
@@ -196,9 +197,9 @@ extern "C" cudaError_t mivp_fused_swin_pair(
   p.blk[0].out = out;
   p.blk[1].labels = static_cast<const int*>(labels);
   p.blk[0].drop = DropArgs{seed_a0, seed_p0, thr_a0, thr_p0, keep_a0,
-                           keep_p0, drop_cols};
+                           keep_p0, drop_cols, win_base};
   p.blk[1].drop = DropArgs{seed_a1, seed_p1, thr_a1, thr_p1, keep_a1,
-                           keep_p1, drop_cols};
+                           keep_p1, drop_cols, win_base};
   p.src = static_cast<const int*>(src);
   p.tok = static_cast<const int*>(tok);
   const bool drop = thr_a0 || thr_p0 || thr_a1 || thr_p1;

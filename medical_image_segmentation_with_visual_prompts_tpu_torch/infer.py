@@ -14,6 +14,13 @@ on the device too.
 arrives, with the model, the runner and the IO workers kept warm across
 polls (:func:`watch_directory`).
 
+``mesh_data`` (and ``distributed``) in the YAML serve data parallel, one
+process per device (``torchrun --nproc-per-node N``): each window chunk
+is split over the ranks and its logits gathered, so every rank stitches
+the same volume (``parallel/sliding_window.py``); rank 0 alone writes the
+label volumes and reports, and in watch mode decides which volumes are
+new.
+
 Usage:
   python -m medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
     --configs example_configs.yml --ckpt model.pt \
@@ -40,7 +47,9 @@ import torch
 from .config import ModelConfig, load_conf
 from .data import load_served, write_labels
 from .models import SwinUnetR
-from .parallel import BucketedInference, window_starts
+from .parallel import (BucketedInference, maybe_initialize_distributed,
+                       window_starts)
+from .parallel.mesh import mesh_of
 from .utils import load_reference_checkpoint
 from .utils.checkpoint import load_checkpoint, restore_like
 from .utils.device import resolve_device
@@ -133,6 +142,7 @@ def make_runner(conf: dict, model: SwinUnetR, chunk: Optional[int] = None,
     the host (pad value 0).  ``coverage="pad"`` segments every voxel;
     ``"crop"`` reproduces the reference's center-crop grid.  ``mode``:
     the stitcher's (``BucketedInference``); serving stitches.
+    ``mesh_data`` in ``conf``: the chunks are split over the data group.
     """
     model.eval()
     device = next(model.parameters()).device
@@ -145,7 +155,7 @@ def make_runner(conf: dict, model: SwinUnetR, chunk: Optional[int] = None,
         model.conf.output_channels_downstream, stride=stride,
         preprocess=device_scale_intensity() if device_windowing else None,
         coverage=coverage, pad_value=-1000.0 if device_windowing else 0.0,
-        device=device, mode=mode)
+        device=device, mode=mode, group=mesh_of(conf))
 
 
 def io_pool() -> ProcessPoolExecutor:
@@ -177,6 +187,8 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
                              coverage=coverage)
     pool = io_pool()
     raw_feed = runner.preprocess is not None
+    # Data parallel: every rank serves every volume; rank 0 writes.
+    writes = runner.group is None or runner.group.is_main
     to_write: "queue.Queue" = queue.Queue(maxsize=2)
     write_failures: List[Path] = []
 
@@ -240,14 +252,15 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
             print(f"FAILED inference {src}: {e}")
             n_failed += 1
             continue
-        to_write.put((dst, src.name, pred_dev, slices, vol.shape[:3]))
+        if writes:
+            to_write.put((dst, src.name, pred_dev, slices, vol.shape[:3]))
         n_done += 1
     to_write.put(None)
     wt.join()
     n_done -= len(write_failures)
     n_failed += len(write_failures)
     dt = time.perf_counter() - t0
-    if n_done:
+    if n_done and writes:
         print(f"{n_done} volumes in {dt:.2f}s ({n_done / dt:.2f} vol/s, "
               f"{runner.n_buckets} buckets)")
     return n_done, n_failed
@@ -295,6 +308,12 @@ def watch_directory(conf: dict, model: SwinUnetR, src: Path, out: Path,
             if dst.exists():
                 continue                     # served by an earlier run
             fresh.append((p, dst))
+        group = runner.group
+        if group is not None and group.group is not None:
+            import torch.distributed as dist
+            box = [fresh]       # rank 0's view of the directory
+            dist.broadcast_object_list(box, src=0, group=group.group)
+            fresh = box[0]
         if fresh:
             d, f = serve_volumes(conf, model, fresh, runner=runner)
             n_done += d
@@ -360,7 +379,10 @@ def main(argv=None):
                        or not Path(args.input[0]).is_dir()):
         raise SystemExit("--watch requires a single --input directory")
     conf = load_conf(args.configs, **vars(args))
-    model = load_model(conf, args.ckpt, args.device)
+    device = resolve_device(args.device)
+    maybe_initialize_distributed(conf, device)
+    mesh_of(conf)            # mesh_data against the world, before any read
+    model = load_model(conf, args.ckpt, device)
     if args.watch:
         watch_directory(conf, model, Path(args.input[0]), Path(args.output),
                         chunk=args.chunk, interval=args.watch_interval,

@@ -162,10 +162,12 @@ def clustered_prototype_loss(
         k_means_iterations: int = 3,
         fwhm: float = 128.0,
         temp_s: float = 0.066,
-        temp_t: float = 0.033) -> torch.Tensor:
+        temp_t: float = 0.033, group=None) -> torch.Tensor:
     """The phase-2 loss: the sum over students of the mean per-sample
     clustered cross-entropy; ``jitters[i]`` is student ``i``'s jitter.
-    The caller detaches the teacher's ``emb_t``."""
+    The caller detaches the teacher's ``emb_t``.  ``group`` (a
+    ``parallel/mesh.py::DataGroup``): the samples are this rank's rows,
+    each mean is over the global batch (this rank's share)."""
     if len(jitters) != len(emb_s):
         raise ValueError(f"{len(emb_s)} students, {len(jitters)} jitters")
     emb_p0, coord_p0 = sample_embedding(emb_t, coord_t, reduction_factor * 2)
@@ -178,5 +180,7 @@ def clustered_prototype_loss(
         es_s, cs_s = sample_embedding(es, cs, reduction_factor, jitter)
         per_b = assign_prototype(es_s, cs_s, emb_t_s, coord_t_s, emb_p,
                                  sim_t_p, temp_s)
-        total = total + per_b.mean()
+        total = total + (per_b.mean() if group is None or not group.splits
+                         else per_b.sum() / group.sum(
+                             per_b.new_tensor(float(len(per_b)))))
     return total

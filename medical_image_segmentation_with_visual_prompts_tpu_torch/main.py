@@ -5,7 +5,11 @@ Counterpart of the JAX package's ``main.py``, flag for flag, plus
 ``--device cpu``).  The YAML file of ``--configs`` carries the rest and
 wins over the command line (``config.get_full_configs``).  Checkpoints
 are the JAX package's msgpack family, so either CLI resumes, tests or
-serves the other's.
+serves the other's.  ``distributed`` and ``mesh_data`` in the YAML run
+it data parallel, one process per device (``torchrun --nproc-per-node
+N``, or the ``distributed`` keys): the process group starts and
+``mesh_data`` is checked against the world before anything is read or
+written, and only rank 0 writes.
 
 Run as ``python -m medical_image_segmentation_with_visual_prompts_tpu_torch.main``.
 """

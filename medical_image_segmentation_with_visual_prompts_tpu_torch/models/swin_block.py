@@ -126,6 +126,9 @@ class SwinTransformerBlock(nn.Module):
         self.attn_drop = float(attn_drop)
         self.proj_drop = float(proj_drop)
         self.dropout_generator = None
+        # The data group whose rows this process holds (the dropout
+        # counters' first window; SwinUnetR.set_data_group).
+        self.data_group = None
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
         self.shift_size = tuple(shift_size) if shift_size is not None \
@@ -169,8 +172,12 @@ class SwinTransformerBlock(nn.Module):
         """The generator the block draws its dropout seeds from."""
         self.dropout_generator = generator
 
-    def dropout(self) -> Dropout:
-        """This call's dropout: fresh seeds in train mode, else none."""
+    def dropout(self, x_win: Optional[torch.Tensor] = None) -> Dropout:
+        """This call's dropout on windows ``x_win`` ``[B, P, M, C]``: fresh
+        seeds in train mode, else none.  Under a data group the counters
+        start at the global index of this rank's first window, ``rank * B
+        * P`` (every rank holds B rows), so that a rank draws the global
+        batch's masks for its rows."""
         if not self.training or (self.attn_drop == 0.0
                                  and self.proj_drop == 0.0):
             return NO_DROPOUT
@@ -179,7 +186,11 @@ class SwinTransformerBlock(nn.Module):
                                "needs set_dropout_generator()")
         seeds = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64,
                               generator=self.dropout_generator).tolist()
-        return Dropout(tuple(seeds), self.attn_drop, self.proj_drop)
+        drop = Dropout(tuple(seeds), self.attn_drop, self.proj_drop)
+        group = self.data_group
+        if group is not None and x_win is not None:
+            drop = drop.at(group.rank * x_win.shape[0] * x_win.shape[1])
+        return drop
 
     def _operands(self, key, tokens, build):
         """(ops, labels) for one geometry: built afresh with its graph
@@ -216,7 +227,7 @@ class SwinTransformerBlock(nn.Module):
         """x: ``[B, H, W, D, C]``; tokens: ``[I, C]`` prompt tokens or None."""
         x_win, ops, labels, undo = self.windows(x, tokens)
         if not self.fused_block:
-            drop = self.dropout()
+            drop = self.dropout(x_win)
             if self.use_checkpoint and self.training and \
                     torch.is_grad_enabled():
                 return undo(torch.utils.checkpoint.checkpoint(
@@ -224,7 +235,7 @@ class SwinTransformerBlock(nn.Module):
                     use_reentrant=False, preserve_rng_state=False))
             return undo(self.unfused_body(x_win, tokens, ops, labels, drop))
         fn = fused_swin_block if self.use_kernels else block_reference
-        return undo(fn(x_win, ops, labels, self.dropout()))
+        return undo(fn(x_win, ops, labels, self.dropout(x_win)))
 
     def attn_input(self, x_win: torch.Tensor,
                    tokens: Optional[torch.Tensor]) -> torch.Tensor:
@@ -467,8 +478,8 @@ class ConsecutiveSwinBlocks(nn.Module):
             x_win, ops0, ops1, labels, plan, undo = pair
             b0, b1 = self.swin_blocks
             fn = fused_swin_pair if b0.use_kernels else pair_reference
-            x = undo(fn(x_win, ops0, ops1, labels, plan, b0.dropout(),
-                        b1.dropout()))
+            x = undo(fn(x_win, ops0, ops1, labels, plan, b0.dropout(x_win),
+                        b1.dropout(x_win)))
         if self.merge is not None:
             x = self.merge(x)
         return x

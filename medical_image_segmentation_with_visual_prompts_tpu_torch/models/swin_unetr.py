@@ -152,6 +152,7 @@ class SwinUnetR(nn.Module):
         else:
             self._build_decoder(conf)
         self.use_checkpoint = conf.use_checkpoint
+        self.data_group = None        # set_data_group
         # Dropout seeds of every block call come from this generator.
         self.dropout_generator = torch.Generator().manual_seed(dropout_seed)
         for m in self.modules():
@@ -243,6 +244,15 @@ class SwinUnetR(nn.Module):
             self.head_name: nn.Sequential(
                 nn.BatchNorm3d(hc[0], eps=1e-5, momentum=0.1),
                 same_conv(hc[0], classes))})
+
+    def set_data_group(self, group) -> "SwinUnetR":
+        """Train as one rank of a data group (``parallel/mesh.py``; None:
+        alone): BatchNorm on the global batch's moments and the Swin
+        blocks' dropout counters at the global window index."""
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm3d) or hasattr(m, "data_group"):
+                m.data_group = group
+        return self
 
     def set_kernels(self, enabled: bool) -> "SwinUnetR":
         """Route the blocks and the decoder convs through the CUDA kernel

@@ -70,14 +70,29 @@ def batch_norm(x: torch.Tensor, norm: nn.BatchNorm3d) -> torch.Tensor:
     -- and the running statistics updated in place with them, by hand:
     ``F.batch_norm`` would store the unbiased variance.  torch's momentum
     0.1 is flax's 0.9.
+
+    Under a data group (``norm.data_group``, set by
+    ``SwinUnetR.set_data_group``) the moments are those of the global
+    batch, wrap-pad rows included, as the JAX BatchNorm sees them in a
+    sharded program: one differentiable all-reduce of ``[sum x, sum x^2,
+    count]`` per call, so every rank's running statistics stay equal.
     """
     if not norm.training:
         scale, shift = bn_fold(norm)
         return x.float() * scale + shift
     xf = x.float()
     dims = tuple(range(xf.dim() - 1))
-    mean = xf.mean(dims)
-    var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+    group = getattr(norm, "data_group", None)
+    if group is None or not group.splits:
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+    else:
+        c = xf.shape[-1]
+        sums = group.all_sum(torch.cat([
+            xf.sum(dims), (xf * xf).sum(dims),
+            xf.new_full((1,), float(xf.numel() // c))]))
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         m = norm.momentum
         norm.running_mean.mul_(1.0 - m).add_(mean, alpha=m)

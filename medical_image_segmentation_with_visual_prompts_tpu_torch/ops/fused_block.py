@@ -21,8 +21,11 @@ not -inf (the reference's multiplicative mask).
 
 Dropout is counter-based (``ops/prng.py``): ``keep_a`` hashes
 ``((w*H + head)*M + row)*n_cols + col`` with the first seed, ``keep_p``
-hashes ``(w*M + row)*C + col`` with the second, where ``w`` is the flat
-window index in ``[B*P]`` order.  ``n_cols`` and ``col`` count the JAX
+hashes ``(w*M + row)*C + col`` with the second, where ``w`` is
+``Dropout.win_base`` plus the flat window index in ``[B*P]`` order: a
+call that holds one rank's rows of a data-parallel batch passes the
+global index of its first window, so that its masks are the global
+batch's, as the JAX kernel's ``program_id`` is under ``jit``.  ``n_cols`` and ``col`` count the JAX
 kernel's key columns, which include ``fold_width - 1`` alignment columns
 after a fold column (``BlockOperands.drop_cols``), so the masks are the
 JAX package's bit for bit.
@@ -91,11 +94,14 @@ def fold_width(m: int, n_tokens: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class Dropout:
     """Counter-based dropout of one block call: two uint32 seeds
-    (attention, projection) and the two rates."""
+    (attention, projection), the two rates, and the window index of the
+    call's first window in the counters (uint32; 0 but for one rank's
+    rows of a data-parallel batch)."""
 
     seeds: Tuple[int, int]
     attn: float
     proj: float
+    win_base: int = 0
 
     def __post_init__(self):
         for rate in (self.attn, self.proj):
@@ -104,6 +110,12 @@ class Dropout:
                                  f"{self.attn}, {self.proj}")
         object.__setattr__(self, "seeds",
                            tuple(int(s) & 0xFFFFFFFF for s in self.seeds))
+        object.__setattr__(self, "win_base", int(self.win_base) & 0xFFFFFFFF)
+
+    def at(self, win_base: int) -> "Dropout":
+        """The same dropout with the counters' first window at
+        ``win_base``."""
+        return dataclasses.replace(self, win_base=win_base)
 
     def kernel_args(self):
         """(seed_a, seed_p, threshold_a, threshold_p, scale_a, scale_p)."""
@@ -395,7 +407,8 @@ def key_columns(n: int, m: int, drop_cols: int, device) -> torch.Tensor:
 def attn_keep(dropout: Dropout, bp: int, h: int, m: int, n: int,
               drop_cols: int, device) -> torch.Tensor:
     """``[BP, H, M, N]`` attention keep mask (values 0 or 1/(1-rate))."""
-    w = torch.arange(bp, device=device, dtype=torch.int64)[:, None, None, None]
+    w = torch.arange(bp, device=device, dtype=torch.int64)[
+        :, None, None, None] + dropout.win_base
     hh = torch.arange(h, device=device, dtype=torch.int64)[None, :, None, None]
     rr = torch.arange(m, device=device, dtype=torch.int64)[None, None, :, None]
     jj = key_columns(n, m, drop_cols, device)[None, None, None, :]
@@ -406,7 +419,8 @@ def attn_keep(dropout: Dropout, bp: int, h: int, m: int, n: int,
 def proj_keep(dropout: Dropout, bp: int, m: int, c: int,
               device) -> torch.Tensor:
     """``[BP, M, C]`` projection keep mask."""
-    w = torch.arange(bp, device=device, dtype=torch.int64)[:, None, None]
+    w = torch.arange(bp, device=device, dtype=torch.int64)[
+        :, None, None] + dropout.win_base
     rr = torch.arange(m, device=device, dtype=torch.int64)[None, :, None]
     jj = torch.arange(c, device=device, dtype=torch.int64)[None, None, :]
     return keep_mask(dropout.seeds[1], (w * m + rr) * c + jj, dropout.proj)
@@ -538,8 +552,8 @@ def _launch(x_win: torch.Tensor, out: Optional[torch.Tensor],
         None if info is None else ctypes.addressof(info), b * pw, m, c,
         ops.num_heads, c // ops.num_heads, ops.n_ext, pw, *ops.factors.dims,
         int(ops.fold_mode != FOLD_NONE), ops.scale, ops.factors.scale,
-        *dropout.kernel_args(), ops.drop_cols, is_f32(x_win),
-        kernels.stream_of(x_win))
+        *dropout.kernel_args(), ops.drop_cols, dropout.win_base,
+        is_f32(x_win), kernels.stream_of(x_win))
 
 
 def launch_info(x_win: torch.Tensor, ops: BlockOperands,

@@ -251,8 +251,8 @@ def _launch(x_win, dout, dx, ops, labels, dropout, plan, ws, out,
         bp, m, c, ops.num_heads, c // ops.num_heads, ops.n_ext, pw,
         *ops.factors.dims, int(ops.fold_mode != FOLD_NONE), plan.ks, plan.hs,
         plan.qs, plan.threads, ops.scale, ops.factors.scale,
-        *dropout.kernel_args(), ops.drop_cols, is_f32(x_win),
-        kernels.stream_of(x_win))
+        *dropout.kernel_args(), ops.drop_cols, dropout.win_base,
+        is_f32(x_win), kernels.stream_of(x_win))
 
 
 def launch_info(x_win: torch.Tensor, ops: BlockOperands,

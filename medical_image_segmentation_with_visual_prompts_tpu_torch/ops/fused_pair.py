@@ -16,7 +16,9 @@ its tokens from one source window, ``tok[w', t]`` of ``src[w']``.  Each
 ``block`` is :func:`ops.fused_block.block_reference`'s arithmetic.
 Dropout counters are those of the two-block path: block 1 hashes the
 index of its (source) window, block 2 the index of the shifted window,
-each with its own two seeds (the JAX kernel's four).
+each with its own two seeds (the JAX kernel's four), both indices
+counted from the call's ``Dropout.win_base`` (one rank's rows of a
+data-parallel batch; the kernel takes one base for both blocks).
 
 * :func:`pair_reference`: the plain version, ``block_reference``, the
   plan's gather, ``block_reference``, the inverse gather.
@@ -118,6 +120,10 @@ def _launch(x_win, out, ops0, ops1, labels, plan, dropout0, dropout1,
     """Call ``csrc/fused_pair.cu``: launch into ``out``, or (``info`` an
     int[7] ctypes array) only size the launch."""
     from . import kernels
+    if dropout0.win_base != dropout1.win_base:
+        raise ValueError(f"fused_swin_pair: the blocks' dropout counters "
+                         f"start at windows {dropout0.win_base} and "
+                         f"{dropout1.win_base}; the kernel takes one base")
     b, pw, m, c = x_win.shape
     return kernels.library().mivp_fused_swin_pair(
         x_win.data_ptr(), kernels.ptr(out), plan.src.data_ptr(),
@@ -127,7 +133,8 @@ def _launch(x_win, out, ops0, ops1, labels, plan, dropout0, dropout1,
         ops0.num_heads, c // ops0.num_heads, ops0.n_ext, pw,
         *ops0.factors.dims, int(bool(ops0.fold_mode)), ops0.scale,
         ops0.factors.scale, *dropout0.kernel_args(), *dropout1.kernel_args(),
-        ops0.drop_cols, is_f32(x_win), kernels.stream_of(x_win))
+        ops0.drop_cols, dropout0.win_base, is_f32(x_win),
+        kernels.stream_of(x_win))
 
 
 def launch_info(x_win, ops0, ops1, labels, plan, dropout0=NO_DROPOUT,

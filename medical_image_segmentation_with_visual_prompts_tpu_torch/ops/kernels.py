@@ -33,9 +33,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 # Dropout arguments: seed_a, seed_p, threshold_a, threshold_p, scale_a,
-# scale_p (ops/fused_block.py::Dropout.kernel_args), then drop_cols.
+# scale_p (ops/fused_block.py::Dropout.kernel_args), then drop_cols and
+# the counters' first window (Dropout.win_base).
 _SEEDS = [_U] * 4 + [_F, _F]
-_DROP = _SEEDS + [_I]
+_DROP = _SEEDS + [_I, _U]
 # C signatures of the entries in csrc/ (restype: cudaError_t as int).
 SIGNATURES = {
     # x, out, wqkv, ext_kv, pe_tab, pe_coord, labels, ln1_s, ln1_b, wproj,
@@ -47,9 +48,9 @@ SIGNATURES = {
     # x, out, src, tok, labels, ops0[12], ops1[12] (host pointer arrays),
     # info, bp, m, c, heads, dh, n_ext, p_windows, ph, pw, pd, fold,
     # scale, pe_scale, block 1's and block 2's seeds and rates, drop_cols,
-    # x is fp32, stream
+    # win_base, x is fp32, stream
     "mivp_fused_swin_pair": [_P] * 8 + [_I] * 11 + [_F, _F] + _SEEDS * 2
-    + [_I, _I, _P],
+    + [_I, _U, _I, _P],
     # x, dout, dx, operands (host pointer array, ops/fused_block_bwd.py::
     # _OPERANDS), labels, per-window and per-CTA partials, out, the
     # device-memory form's y and dqkv, info, big, bp, m, c, heads, dh,

@@ -13,6 +13,12 @@ two modes:
   The stitch is a plain slice-add per window -- the JAX coset
 decomposition exists to avoid TPU scatters.  The window grid, bucket
 and pad-coverage helpers are the same numpy functions.
+
+With a data group (``group``, ``parallel/mesh.py``; the JAX ``mesh``),
+each chunk is rounded up to a multiple of the world size, its windows
+are split over the ranks (``ceil(n / world)`` each, the last padded with
+zero windows), and the logits are gathered, so that every rank stitches
+the same volume.
 """
 
 from __future__ import annotations
@@ -129,12 +135,13 @@ class BucketedInference:
                  chunk: Optional[int] = None, num_classes: int = 2,
                  stride=None, preprocess: Optional[Callable] = None,
                  coverage: str = "crop", pad_value: float = 0.0,
-                 device=None, mode: str = "gaussian"):
+                 device=None, mode: str = "gaussian", group=None):
         if coverage not in ("crop", "pad"):
             raise ValueError(f"coverage must be crop|pad, got {coverage}")
         if mode not in ("gaussian", "per_window"):
             raise ValueError(f"mode must be gaussian|per_window, got {mode}")
         self.mode = mode
+        self.group = group
         self.apply_fn = apply_fn
         self.window = tuple(window)
         self.chunk = chunk
@@ -156,9 +163,29 @@ class BucketedInference:
         return len(self._buckets)
 
     def resolve_chunk(self, n_windows: int) -> int:
-        if self.chunk is not None:
-            return int(self.chunk)
-        return n_windows if n_windows <= 32 else 16
+        """The window batch: ``chunk``, else the whole grid when it has
+        at most 32 windows, else 16; rounded up to a multiple of the data
+        group's world size."""
+        chunk = int(self.chunk) if self.chunk is not None else \
+            n_windows if n_windows <= 32 else 16
+        world = 1 if self.group is None else self.group.world
+        return -(-chunk // world) * world
+
+    def _logits(self, vol: torch.Tensor, part) -> torch.Tensor:
+        """The logits of the windows at ``part`` (starts): here, or this
+        rank's share of them gathered from every rank."""
+        wh, ww, wd = self.window
+        group = self.group
+        if group is None or not group.splits:
+            return self.apply_fn(torch.stack(
+                [vol[s[0]:s[0] + wh, s[1]:s[1] + ww, s[2]:s[2] + wd]
+                 for s in part]))
+        per = -(-len(part) // group.world)
+        mine = part[group.rank * per:(group.rank + 1) * per]
+        batch = vol.new_zeros((per, wh, ww, wd, vol.shape[-1]))
+        for i, s in enumerate(mine):
+            batch[i] = vol[s[0]:s[0] + wh, s[1]:s[1] + ww, s[2]:s[2] + wd]
+        return group.gather(self.apply_fn(batch))[:len(part)]
 
     def plan(self, dims: Sequence[int]):
         """(bucket shape, starts [N, 3], validity [N]) for a volume."""
@@ -209,9 +236,7 @@ class BucketedInference:
         chunk = self.resolve_chunk(len(starts))
         for c0 in range(0, len(starts), chunk):
             part = starts[c0:c0 + chunk]
-            batch = torch.stack([vol[s[0]:s[0] + wh, s[1]:s[1] + ww,
-                                     s[2]:s[2] + wd] for s in part])
-            logits = self.apply_fn(batch)
+            logits = self._logits(vol, part)
             if per_window:
                 preds.append(torch.argmax(logits, dim=-1))
                 continue

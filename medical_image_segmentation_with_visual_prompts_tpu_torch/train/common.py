@@ -1,5 +1,5 @@
-"""Shared trainer machinery: the optimizers, their checkpoint state, the
-teacher's EMA and the loss accumulators.
+"""Shared trainer machinery: the data-parallel context, the optimizers,
+their checkpoint state, the teacher's EMA and the loss accumulators.
 
 Counterpart of the JAX package's ``train/common.py``.  The JAX trainers
 split the parameters into (trainable, frozen) trees; here the frozen ones
@@ -28,13 +28,104 @@ leaves); an empty group keeps its two counts.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataGroup, mesh_of
 from ..utils.checkpoint import restore_like
 from ..utils.torch_import import flax_paths, from_flax, to_flax
+
+
+def valid_of(batch: Dict) -> torch.Tensor:
+    """Per-sample validity weights ``[B]``: the ``_valid`` mask that
+    :meth:`DeviceCtx.stage` attaches to a wrap-padded partial batch, or
+    all ones."""
+    v = batch.get("_valid")
+    if v is not None:
+        return v
+    x = next(x for k, x in batch.items()
+             if k != "_valid" and isinstance(x, torch.Tensor))
+    return torch.ones((x.shape[0],), dtype=torch.float32, device=x.device)
+
+
+class DeviceCtx:
+    """Execution context: one device, or data parallel over processes.
+
+    Honors the ``mesh_data`` config key as the JAX package's ``DeviceCtx``
+    does: ``-1`` is every process of the world (one per device), ``N >
+    1`` must be the world size, 0/1/absent runs on one device without a
+    data group.  :meth:`stage` moves a host batch (every rank reads the
+    same global batch from the same seeded loader) to the device: under a
+    data group the global batch is wrap-padded to a multiple of the world
+    size, marked by ``_valid`` (1 real, 0 padding) where padded, and each
+    rank keeps its rows.
+    """
+
+    def __init__(self, hparams, device, logger=None):
+        self.device = device
+        self.logger = logger
+        self._warned_pad = False
+        self.group: Optional[DataGroup] = mesh_of(hparams)
+        if self.group is not None and logger is not None:
+            logger.info(f"Data parallel over {self.group.world} processes "
+                        f"(rank {self.group.rank}).")
+
+    @property
+    def n_devices(self) -> int:
+        return 1 if self.group is None else self.group.world
+
+    @property
+    def is_main(self) -> bool:
+        """The process that writes logs, summaries and checkpoints."""
+        return self.group is None or self.group.is_main
+
+    def round_batch(self, batch_size: int) -> int:
+        """Smallest multiple of the world size >= batch_size."""
+        n = self.n_devices
+        return -(-batch_size // n) * n
+
+    def stage(self, batch: Dict, exclude: Tuple[str, ...] = ("name",)
+              ) -> Dict:
+        """Host batch -> tensors on the device: this rank's rows of the
+        (padded) global batch, plus ``_valid`` where padded."""
+        out, padded, rows = {}, 0, slice(None)
+        n = self.n_devices
+        for k, v in batch.items():
+            if k in exclude or not hasattr(v, "shape"):
+                out[k] = v
+                continue
+            v = v if isinstance(v, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(v))
+            b = v.shape[0]
+            pad = (-b) % n
+            if pad:
+                if not self._warned_pad and self.logger is not None:
+                    self.logger.info(
+                        f"Padding partial batch of {b} to {b + pad} for "
+                        f"the {n} processes (wrap-around samples, masked "
+                        f"out of losses and metrics by '_valid').")
+                    self._warned_pad = True
+                v = torch.cat([v] * -(-(b + pad) // b))[:b + pad]
+                padded = pad
+            total = v.shape[0]
+            if self.group is not None:
+                rows = self.group.rows(total)
+            out[k] = v[rows].contiguous().to(self.device)
+        if padded:
+            valid = torch.ones((total,), dtype=torch.float32)
+            valid[-padded:] = 0.0
+            out["_valid"] = valid[rows].to(self.device)
+        return out
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks (itself on one device)."""
+        return t if self.group is None else self.group.sum(t)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` along axis 0 (itself on one device)."""
+        return t if self.group is None else self.group.gather(t)
 
 
 def adamw(params, lr: float, weight_decay: float) -> torch.optim.AdamW:

@@ -42,6 +42,18 @@ Counterpart of the JAX package's ``train/multi_view.py``
 The model runs its kernels on the card: B1 forwards and B4 backwards of
 the 6 encoder blocks per view (with ``set_fused_block(False)``, B6/B8
 forwards and their recompute backward).
+
+``mesh_data`` (``train/common.py::DeviceCtx``): data parallel, one
+process per device, each rank on its rows of the global batch (wrap-
+padded to a multiple of the world size; as in the JAX step, no
+``_valid`` weighs the losses, so the duplicates count).  The draws are
+made for the global batch from the one seeded generator on every rank
+and the rotations sliced to the rank's rows; the views' forwards run in
+one ``DistributedDataParallel`` call (gradients summed), with the global
+batch's BatchNorm moments and dropout masks; each mean is over the
+global batch (this rank's share), and NT-Xent takes the global 2N x 2N
+matrix of the gathered codes (``losses/contrastive_pair.py``).  Rank 0
+alone writes.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ from ..models.partition import label_of, set_trainable, trainable_labels
 from ..ops.augment import (draw_mask_rank, draw_rotations, mask_by,
                            mask_shape, permute_inverse, permuted_shape,
                            random_permute, rotate_by)
+from ..parallel.train_parallel import Forwards, data_parallel
 from ..utils import init_weights
 from ..utils.checkpoint import load_checkpoint, restore_like, save_checkpoint
 from ..utils.device import resolve_device
@@ -68,9 +81,9 @@ from ..utils.schedules import warmup_cosine
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
 from ..utils.visualization import view_reconstruction
-from .common import (AvgLosses, fill_missing_grads, grouped_adamw,
-                     grouped_adamw_leaves, load_grouped_adamw_leaves,
-                     set_scheduled_lr)
+from .common import (AvgLosses, DeviceCtx, fill_missing_grads,
+                     grouped_adamw, grouped_adamw_leaves,
+                     load_grouped_adamw_leaves, set_scheduled_lr)
 
 SAVE_EVERY = 10        # epochs between backbone checkpoints
 _LABELS = (("rec", "Reconstruction"), ("rot", "Rotation prediction"),
@@ -109,6 +122,11 @@ class MultiViewTrainer:
         self.model = backbone(self.model_conf, dropout_seed=seed)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
+        self.dctx = DeviceCtx(hparams, self.device, self.logger)
+        self.dp = self.dctx.group
+        self.model.set_data_group(self.dp)
+        # The views' forwards in one call; DDP-wrapped by prepare_fit.
+        self.forwards = self.views = Forwards(self.model)
         # Each step's view draws (rotations, masks, the axis swap).
         self.view_generator = torch.Generator().manual_seed(seed + 1)
         self.train_loader = train_loader
@@ -173,17 +191,18 @@ class MultiViewTrainer:
         self.configure_optimizers()
         self.start_epoch, self.step_count = 0, 0
         conf = self.hparams
-        if getattr(conf, "load_ckpt_backbone", False) is not True:
-            return self.start_epoch
-        path = conf.load_ckpt_backbone_path
-        ckpt = load_checkpoint(path)
-        self.start_epoch = int(ckpt["current_epoch"])
-        load_flax_variables(self.model, restore_like(
-            to_flax_variables(self.model), ckpt["model_state_dict"]))
-        load_grouped_adamw_leaves(self.optimizer, self.model,
-                                  ckpt["optimizer_state_dict"])
-        self.step_count = int(ckpt["scheduler_state_dict"]["step"])
-        self.logger.info(f"Resumed from checkpoint {path}.")
+        if getattr(conf, "load_ckpt_backbone", False) is True:
+            path = conf.load_ckpt_backbone_path
+            ckpt = load_checkpoint(path)
+            self.start_epoch = int(ckpt["current_epoch"])
+            load_flax_variables(self.model, restore_like(
+                to_flax_variables(self.model), ckpt["model_state_dict"]))
+            load_grouped_adamw_leaves(self.optimizer, self.model,
+                                      ckpt["optimizer_state_dict"])
+            self.step_count = int(ckpt["scheduler_state_dict"]["step"])
+            self.logger.info(f"Resumed from checkpoint {path}.")
+        if self.dp is not None:
+            self.views = data_parallel(self.forwards, self.dp)
         return self.start_epoch
 
     # ------------------------------------------------------------- views
@@ -218,18 +237,42 @@ class MultiViewTrainer:
                     f"of the {seen} view is {rec}, {back} swapped back, not "
                     f"the roi's shape {self.roi}")
 
-    def _image(self, batch) -> torch.Tensor:
-        return torch.as_tensor(batch["image"], device=self.device)
+    def _image_and_draws(self, batch, draws: Optional[ViewDraws]):
+        """This rank's rows of the batch's images, and the step's draws
+        (made for the global batch, else the caller's) with the rotations
+        cut to those rows."""
+        image = self.dctx.stage({"image": batch["image"]})["image"]
+        n = image.shape[0] * self.dctx.n_devices
+        draws = draws or self.draw_views(n)
+        self.check_views(draws)
+        if self.dp is not None:
+            rows = self.dp.rows(n)
+            draws = draws._replace(rot_i=draws.rot_i[rows],
+                                   rot_j=draws.rot_j[rows])
+        return image, draws
 
-    def _losses(self, image: torch.Tensor, draws: ViewDraws) -> dict:
+    def _mean(self, t: torch.Tensor) -> torch.Tensor:
+        """Mean over the global batch: this rank's share."""
+        if self.dp is None or not self.dp.splits:
+            return torch.mean(t)
+        return t.sum() / self.dp.sum(t.new_tensor(float(t.numel())))
+
+    def _losses(self, image: torch.Tensor, draws: ViewDraws,
+                forwards) -> dict:
         """{name: loss tensor} of the views of ``image`` (the model runs
-        in its current mode)."""
+        in its current mode, through ``forwards``: :class:`Forwards` of
+        the model or its DDP wrapper)."""
         conf = self.hparams
         x_i, keep_i = mask_by(rotate_by(image, draws.rot_i), draws.rank_i,
                               self.roi, self.patch, self.ratio)
         x_j, keep_j = mask_by(rotate_by(image, draws.rot_j), draws.rank_j,
                               self.roi, self.patch, self.ratio)
-        out_i, out_j = self.model(x_i), self.model(x_j)
+        views = [x_i, x_j]
+        if conf.use_mutual_learning:
+            c = int(draws.permute)
+            views.append(random_permute(x_i, c).contiguous())
+        outs = forwards(*views)
+        out_i, out_j = outs[:2]
         mi = keep_i[None, ..., None].float()
         mj = keep_j[None, ..., None].float()
         parts = {}
@@ -238,7 +281,7 @@ class MultiViewTrainer:
             img = torch.cat([x_i * mi, x_j * mj])
             rec = torch.cat([out_i["reconstruction"] * mi,
                              out_j["reconstruction"] * mj])
-            parts["rec"] = torch.mean((rec - img) ** 2) / (1 - self.ratio)
+            parts["rec"] = self._mean((rec - img) ** 2) / (1 - self.ratio)
             total = total + float(conf.weight_rec) * parts["rec"]
             if self.view:
                 self.view_data = ((x_i * mi).detach(),
@@ -248,17 +291,18 @@ class MultiViewTrainer:
                                 out_j["rotation_prediction"]])
             labels = torch.cat([draws.rot_i, draws.rot_j]).to(
                 logits.device, torch.int64)
-            parts["rot"] = F.cross_entropy(logits, labels)
+            parts["rot"] = F.cross_entropy(logits, labels) \
+                if self.dp is None or not self.dp.splits else self._mean(
+                    F.cross_entropy(logits, labels, reduction="none"))
             total = total + float(conf.weight_rot) * parts["rot"]
         if conf.use_contrastive_learning:
             parts["con"] = contrastive_pair_loss(
-                out_i["contrastive_coding"], out_j["contrastive_coding"])
+                out_i["contrastive_coding"], out_j["contrastive_coding"],
+                group=self.dp)
             total = total + float(conf.weight_con) * parts["con"]
         if conf.use_mutual_learning:
-            c = int(draws.permute)
-            out_k = self.model(random_permute(x_i, c).contiguous())
-            rec_perm = permute_inverse(out_k["reconstruction"], c)
-            parts["mut"] = torch.mean(
+            rec_perm = permute_inverse(outs[2]["reconstruction"], c)
+            parts["mut"] = self._mean(
                 ((rec_perm - out_i["reconstruction"]) * mi) ** 2
             ) / (1 - self.ratio)
             total = total + parts["mut"]
@@ -271,24 +315,21 @@ class MultiViewTrainer:
         the forwards, the losses, the backward and the update; returns
         {name: loss} on the device.  ``draws``: the step's
         :class:`ViewDraws`, else drawn from :attr:`view_generator`."""
-        image = self._image(batch)
-        draws = draws or self.draw_views(image.shape[0])
-        self.check_views(draws)
-        parts = self._losses(image, draws)
+        image, draws = self._image_and_draws(batch, draws)
+        parts = self._losses(image, draws, self.views)
         self.optimizer.zero_grad(set_to_none=True)
         parts["tot"].backward()
         fill_missing_grads(self.optimizer)
         set_scheduled_lr(self.optimizer, self.step_count)
         self.optimizer.step()
         self.step_count += 1
-        return {k: v.detach() for k, v in parts.items()}
+        return {k: self.dctx.sum(v.detach()) for k, v in parts.items()}
 
     @torch.no_grad()
     def eval_step(self, batch, draws: Optional[ViewDraws] = None) -> dict:
-        image = self._image(batch)
-        draws = draws or self.draw_views(image.shape[0])
-        self.check_views(draws)
-        return self._losses(image, draws)
+        image, draws = self._image_and_draws(batch, draws)
+        return {k: self.dctx.sum(v) for k, v in self._losses(
+            image, draws, self.forwards).items()}
 
     # ------------------------------------------------------------- train
     def _scalar(self, name, value, epoch) -> None:
@@ -328,7 +369,7 @@ class MultiViewTrainer:
                 self.losses.append(parts)
                 for name, val in parts.items():
                     avg.append(name, val)
-                if self.view and step % 5 == 0:
+                if self.view and step % 5 == 0 and self.dctx.is_main:
                     view_reconstruction(
                         name=batch["name"], n_slices=4,
                         ori_img=self.view_data[0],
@@ -349,7 +390,8 @@ class MultiViewTrainer:
             self._scalar("perf/step_ms", mean_ms, epoch)
             for name, val in avg.mean_and_clear().items():
                 self._scalar(f"train_loss/{name}", val, epoch)
-            if self.save_ckpt_path is not None and epoch % SAVE_EVERY == 0:
+            if self.save_ckpt_path is not None and epoch % SAVE_EVERY == 0 \
+                    and self.dctx.is_main:
                 self._save(epoch)
             if self.val_loader is None:
                 continue

@@ -34,6 +34,20 @@ Counterpart of the JAX package's ``train/segmentation.py``
   {mean} +/- {std}."`` over the volumes and return the per-volume values.
   ``_test_windows`` and ``_test_gaussian`` yield each volume's name,
   statistics and labels.
+* ``mesh_data`` (``train/common.py::DeviceCtx``): data parallel, one
+  process per device.  Every rank reads the same seeded global batch and
+  takes its rows (a partial batch wrap-padded to a multiple of the world,
+  the padding weighted 0 by ``_valid``); the model's BatchNorms take the
+  global batch's moments and its blocks hash dropout at the global window
+  index (``SwinUnetR.set_data_group``); the loss is each rank's share of
+  the global ``_valid``-weighted loss and ``DistributedDataParallel``
+  sums the gradients (``parallel/train_parallel.py::data_parallel``), so
+  every rank takes the single-process step of the global batch.  Logged
+  losses and metric statistics are the global ones; only rank 0 writes
+  summaries, checkpoints and PNGs.  ``test()`` splits each chunk's
+  windows over the ranks: per window, the (I, P, T) statistics summed
+  over the ranks and the labels gathered; Gaussian, the logits gathered
+  and stitched on every rank.
 * ``view: true``: ``utils/visualization.py::view_segmentation`` panels
   of every 5th training step (its logits and labels) and of the first
   chunk of each test volume under the per-window protocol (logits,
@@ -54,6 +68,7 @@ from ..losses import dice_focal_loss
 from ..models.partition import downstream_labels, set_trainable
 from ..ops.augment import map_label_indices
 from ..parallel import BucketedInference, window_starts
+from ..parallel.train_parallel import data_parallel
 from ..utils import init_weights, load_reference_checkpoint
 from ..utils.checkpoint import (load_checkpoint, merge_state, restore_like,
                                 save_checkpoint)
@@ -63,8 +78,8 @@ from ..utils.schedules import step_decay
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
 from ..utils.visualization import view_segmentation
-from .common import (AvgLosses, adamw, adamw_leaves, fill_missing_grads,
-                     load_adamw_leaves)
+from .common import (AvgLosses, DeviceCtx, adamw, adamw_leaves,
+                     fill_missing_grads, load_adamw_leaves, valid_of)
 
 TEST_CHUNK = 10        # windows per forward of the per-window test
 SAVE_EVERY = 20        # epochs between prompt-token checkpoints
@@ -90,6 +105,11 @@ class SegmentationTrainer:
         if getattr(hparams, "load_ckpt_backbone", False) is True:
             self._merge_backbone(hparams.load_ckpt_backbone_path)
         self.model.to(self.device)
+        # Data parallel (``mesh_data``): this process's rows of each batch.
+        self.dctx = DeviceCtx(hparams, self.device, self.logger)
+        self.dp = self.dctx.group
+        self.model.set_data_group(self.dp)
+        self.ddp = None              # the DDP wrapper (prepare_fit)
         # Resolved by ``config.get_full_configs``.
         self.save_ckpt_path = Path(hparams.save_ckpt_prompt_tokens_path) \
             if getattr(hparams, "save_ckpt_prompt_tokens", False) else None
@@ -160,37 +180,53 @@ class SegmentationTrainer:
                               ckpt["optimizer_state_dict"])
             self.logger.info(f"Resumed from checkpoint "
                              f"{conf.load_ckpt_prompt_tokens_path}.")
+        if self.dp is not None:
+            self.ddp = data_parallel(self.model, self.dp)
         return self.start_epoch
 
+    def _staged(self, batch):
+        """(image, labels, sample weights) of this process's rows; the
+        weights are None on one device without padding."""
+        b = self.dctx.stage(batch)
+        weights = valid_of(b) if self.dp is not None and self.dp.splits \
+            else b.get("_valid")
+        return b["image"], map_label_indices(
+            b["mask"], tuple(self.hparams.active_labels_downstream)), weights
+
     def _batch(self, batch):
-        image = torch.from_numpy(np.asarray(batch["image"])).to(self.device)
-        mask = torch.from_numpy(np.asarray(batch["mask"])).to(self.device)
-        return image, map_label_indices(
-            mask, tuple(self.hparams.active_labels_downstream))
+        """(image, labels) of this process's rows of a host batch."""
+        return self._staged(batch)[:2]
+
+    def _loss_and_stats(self, logits, seg_true, weights):
+        """This rank's share of the loss, and the global statistics."""
+        loss = dice_focal_loss(
+            logits, seg_true, gamma=4.0,
+            include_background=self.hparams.include_background,
+            sample_weights=weights, group=self.dp)
+        stats = seg_stats(logits.detach(), seg_true, self.num_classes,
+                          sample_weights=weights)
+        return loss, tuple(self.dctx.sum(t) for t in stats)
 
     def train_step(self, batch):
         """One optimizer step on a host batch; returns (loss, stats)
-        tensors on the device."""
-        image, seg_true = self._batch(batch)
-        logits = self.model(image)
-        loss = dice_focal_loss(logits, seg_true, gamma=4.0,
-                               include_background=self.hparams.include_background)
+        tensors on the device, both of the global batch."""
+        image, seg_true, weights = self._staged(batch)
+        logits = (self.ddp or self.model)(image)
+        loss, stats = self._loss_and_stats(logits, seg_true, weights)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         fill_missing_grads(self.optimizer)
         self.optimizer.step()
         if self.view:
             self.view_data = (logits.detach(), seg_true)
-        return loss.detach(), seg_stats(logits.detach(), seg_true,
-                                        self.num_classes)
+        return self.dctx.sum(loss.detach()), stats
 
     @torch.no_grad()
     def eval_step(self, batch):
-        image, seg_true = self._batch(batch)
-        logits = self.model(image)
-        loss = dice_focal_loss(logits, seg_true, gamma=4.0,
-                               include_background=self.hparams.include_background)
-        return loss, seg_stats(logits, seg_true, self.num_classes)
+        image, seg_true, weights = self._staged(batch)
+        loss, stats = self._loss_and_stats(self.model(image), seg_true,
+                                           weights)
+        return self.dctx.sum(loss), stats
 
     def _scalar(self, name, value, epoch) -> None:
         if self.writer is not None:
@@ -222,7 +258,7 @@ class SegmentationTrainer:
                 avg.append("seg", loss)
                 avg.append("tot", loss)
                 metrics.update_stats(*(t.cpu().numpy() for t in stats))
-                if self.view and step % 5 == 0:
+                if self.view and step % 5 == 0 and self.dctx.is_main:
                     view_segmentation(
                         name=batch["name"], n_slices=4,
                         seg_pred=self.view_data[0],
@@ -247,7 +283,8 @@ class SegmentationTrainer:
                 self._scalar(f"train_loss/{name}", val, epoch)
             self._scalar("train_metric/seg", metrics.compute(), epoch)
             metrics.reset()
-            if self.save_ckpt_path is not None and epoch % SAVE_EVERY == 0:
+            if self.save_ckpt_path is not None and epoch % SAVE_EVERY == 0 \
+                    and self.dctx.is_main:
                 # Full model state, optimizer state, epoch: file epoch + 1.
                 save_checkpoint(
                     self.save_ckpt_path, epoch + 1,
@@ -282,9 +319,11 @@ class SegmentationTrainer:
         return self.final_state
 
     # ---------------------------------------------------------------- test
-    def _volume_stats(self, pred: torch.Tensor, mask: torch.Tensor):
+    def _volume_stats(self, pred: torch.Tensor, mask: torch.Tensor,
+                      over_ranks: bool = False):
         """Per-class (intersection, pred sum, target sum) of a label
-        volume, as float64 numpy vectors."""
+        volume (or of this rank's windows, summed over the ranks), as
+        float64 numpy vectors."""
         seg_true = map_label_indices(
             mask, tuple(self.hparams.active_labels_downstream))
         seg_true = seg_true.reshape(pred.shape).long()
@@ -292,8 +331,10 @@ class SegmentationTrainer:
         p1 = pred[..., None] == classes
         t1 = seg_true[..., None] == classes
         axes = tuple(range(pred.dim()))
-        return tuple(v.sum(axes).cpu().numpy().astype(np.float64)
-                     for v in (p1 & t1, p1, t1))
+        sums = torch.stack([v.sum(axes) for v in (p1 & t1, p1, t1)])
+        if over_ranks:
+            sums = self.dctx.sum(sums)
+        return tuple(sums.cpu().numpy().astype(np.float64))
 
     @torch.inference_mode()
     def test(self):
@@ -331,10 +372,12 @@ class SegmentationTrainer:
     @torch.inference_mode()
     def _test_windows(self):
         """Per volume: the windows of the stride-aligned centre crop in
-        fixed chunks of :data:`TEST_CHUNK`; yields (name, stats over its
-        windows, uint8 labels of its windows ``[n, *roi]`` on the
-        device)."""
+        fixed chunks of :data:`TEST_CHUNK` (rounded up to a multiple of
+        the world size; each rank runs its rows of a chunk); yields (name,
+        stats over its windows, uint8 labels of its windows ``[n, *roi]``
+        on the device)."""
         wh, ww, wd = roi = tuple(self.hparams.roi_size)
+        chunk = self.dctx.round_batch(TEST_CHUNK)
         for step, (name, x, m) in enumerate(self._volumes()):
             slc, grid, _ = window_starts(x.shape[:3], roi)   # stride roi / 2
             x = torch.from_numpy(np.ascontiguousarray(x[slc])).to(
@@ -342,28 +385,37 @@ class SegmentationTrainer:
             m = torch.from_numpy(np.ascontiguousarray(m[slc])).to(
                 self.device)
             totals, preds = None, []
-            for lo in range(0, len(grid), TEST_CHUNK):
-                part = grid[lo:lo + TEST_CHUNK]
+            for lo in range(0, len(grid), chunk):
+                part = grid[lo:lo + chunk]
+                n = len(part)
                 xs = torch.stack([x[a:a + wh, b:b + ww, c:c + wd]
                                   for a, b, c in part])
                 ms = torch.stack([m[a:a + wh, b:b + ww, c:c + wd]
                                   for a, b, c in part])
-                pad = TEST_CHUNK - len(part)     # one program shape
+                pad = chunk - n                  # one program shape
                 if pad:
                     xs = torch.cat([xs, xs.new_zeros((pad, *xs.shape[1:]))])
-                logits = self.model(xs)
+                rows = slice(0, chunk) if self.dp is None else \
+                    self.dp.rows(chunk)
+                logits = self.model(xs[rows])
+                # This rank's windows that are real (not padding).
+                mine = slice(rows.start, max(rows.start, min(rows.stop, n)))
+                pred = logits.argmax(-1)
+                stats = self._volume_stats(
+                    pred[:mine.stop - mine.start], ms[mine],
+                    over_ranks=True)
                 if self.view and lo == 0:
-                    view_segmentation(
-                        name=name, n_slices=4, seg_pred=logits,
-                        seg_target=map_label_indices(ms, tuple(
-                            self.hparams.active_labels_downstream)),
-                        img=xs, n_classes=self.num_classes, epoch=0,
-                        step=step)
-                pred = logits[:len(part)].argmax(-1)
-                stats = self._volume_stats(pred, ms)
+                    all_logits = self.dctx.gather(logits)
+                    if self.dctx.is_main:
+                        view_segmentation(
+                            name=name, n_slices=4, seg_pred=all_logits,
+                            seg_target=map_label_indices(ms, tuple(
+                                self.hparams.active_labels_downstream)),
+                            img=xs, n_classes=self.num_classes, epoch=0,
+                            step=step)
                 totals = stats if totals is None else \
                     tuple(a + b for a, b in zip(totals, stats))
-                preds.append(pred.to(torch.uint8))
+                preds.append(self.dctx.gather(pred.to(torch.uint8))[:n])
             yield name, totals, torch.cat(preds)
 
     @torch.inference_mode()
@@ -377,7 +429,7 @@ class SegmentationTrainer:
         runner = BucketedInference(
             self.model, roi, None, self.num_classes,
             stride=getattr(conf, "test_stride_factor", None),
-            coverage=coverage, device=self.device)
+            coverage=coverage, device=self.device, group=self.dp)
         for name, x, m in self._volumes():
             if coverage != "pad":
                 slc = window_starts(x.shape[:3], roi, runner.stride)[0]

@@ -43,6 +43,17 @@ The model runs its kernels on the card (B1 forwards, B4 backwards of the
 students' trainable blocks; B2 in the eval-mode decoders; with
 ``set_fused_block(False)``, B6/B8 forwards and their recompute
 backward).
+
+``mesh_data`` (``train/common.py::DeviceCtx``): data parallel, one
+process per device, each rank on its rows of the global batch (wrap-
+padded to a multiple of the world size).  The students' forwards run in
+one ``DistributedDataParallel`` call (gradients summed); student and
+teacher take the global batch's BatchNorm moments and dropout masks
+(``SwinUnetR.set_data_group``), the teacher's EMA is the same on every
+rank, the jitters come from the one seeded generator, and each loss is
+the rank's share of the global batch's.  As in the JAX step, no
+``_valid`` weighs the losses: the wrap-pad duplicates count.  Rank 0
+alone writes.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ from ..config import SUPERVISED_MODES, ModelConfig
 from ..losses import clustered_prototype_loss, dice_loss, draw_jitters
 from ..models.partition import label_of, set_trainable, trainable_labels
 from ..ops.augment import map_label_indices
+from ..parallel.train_parallel import Forwards, data_parallel
 from ..utils import init_weights
 from ..utils.checkpoint import (load_checkpoint, merge_state, restore_like,
                                 save_checkpoint)
@@ -67,7 +79,7 @@ from ..utils.schedules import warmup_cosine
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
 from ..utils.visualization import view_prototype_students_teacher
-from .common import (AvgLosses, ema_update, fill_missing_grads,
+from .common import (AvgLosses, DeviceCtx, ema_update, fill_missing_grads,
                      grouped_adamw, grouped_adamw_leaves,
                      load_grouped_adamw_leaves, set_scheduled_lr)
 
@@ -98,6 +110,12 @@ class StudentsTeacherTrainer:
         self.teacher.requires_grad_(False)
         self.model.to(self.device)
         self.teacher.to(self.device)
+        self.dctx = DeviceCtx(hparams, self.device, self.logger)
+        self.dp = self.dctx.group
+        self.model.set_data_group(self.dp)
+        self.teacher.set_data_group(self.dp)
+        # The students' forwards in one call; DDP-wrapped by prepare_fit.
+        self.forwards = self.students = Forwards(self.model)
         # Each step's students' jitters for the prototype loss.
         self.jitter_generator = torch.Generator().manual_seed(seed + 2)
         self.train_loader = train_loader
@@ -164,7 +182,7 @@ class StudentsTeacherTrainer:
         self.start_epoch, self.step_count = 0, 0
         conf = self.hparams
         if getattr(conf, "load_ckpt_backbone", False) is not True:
-            return self.start_epoch
+            return self._distribute()
         path = conf.load_ckpt_backbone_path
         ckpt = load_checkpoint(path)
         if "teacher_state_dict" in ckpt:
@@ -185,18 +203,22 @@ class StudentsTeacherTrainer:
             self.teacher.load_state_dict(self.model.state_dict())
             self.logger.info(f"Loaded backbone checkpoint {path} into the "
                              "student and the teacher.")
+        return self._distribute()
+
+    def _distribute(self) -> int:
+        if self.dp is not None:
+            self.students = data_parallel(self.forwards, self.dp)
         return self.start_epoch
 
     # ------------------------------------------------------------- steps
-    def _tensor(self, batch, key) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(batch[key])).to(self.device)
-
-    def _forwards(self, batch):
-        """The students' outputs and the teacher's (without grad)."""
-        outs = [self.model(self._tensor(batch, f"image_st_{i}"))
-                for i in range(self.n_students)]
+    def _forwards(self, batch, students):
+        """The students' outputs (``students``: the model's forwards, or
+        their DDP wrapper) and the teacher's (without grad), on a staged
+        batch."""
+        outs = students(*(batch[f"image_st_{i}"]
+                          for i in range(self.n_students)))
         with torch.no_grad():
-            teacher = self.teacher(self._tensor(batch, "image"))
+            teacher = self.teacher(batch["image"])
         return outs, teacher
 
     def _losses(self, outs, teacher, batch, jitters):
@@ -212,23 +234,22 @@ class StudentsTeacherTrainer:
             parts["prt"] = clustered_prototype_loss(
                 [o["latent_outputs"] for o in outs],
                 teacher["latent_outputs"].detach(),
-                [self._tensor(batch, f"coord_st_{i}")
-                 for i in range(self.n_students)],
-                self._tensor(batch, "coord"), jitters,
-                reduction_factor=rf,
+                [batch[f"coord_st_{i}"] for i in range(self.n_students)],
+                batch["coord"], jitters, reduction_factor=rf,
                 k_means_iterations=int(conf.k_means_iterations),
-                fwhm=float(conf.fwhm))
+                fwhm=float(conf.fwhm), group=self.dp)
             total = total + parts["prt"]
         stats = None
         if self.supervised:
             active = tuple(getattr(conf, "active_labels_pretrain", ()) or ())
-            seg_true = map_label_indices(self._tensor(batch, "mask_st_0"),
-                                         active)
+            seg_true = map_label_indices(batch["mask_st_0"], active)
             pred = outs[0]["seg_pred"]
             parts["seg"] = dice_loss(
-                pred, seg_true, include_background=conf.include_background)
+                pred, seg_true, include_background=conf.include_background,
+                group=self.dp)
             total = total + parts["seg"]
-            stats = seg_stats(pred.detach(), seg_true, self.num_classes)
+            stats = tuple(self.dctx.sum(t) for t in seg_stats(
+                pred.detach(), seg_true, self.num_classes))
         parts["tot"] = total
         return parts, stats
 
@@ -238,8 +259,9 @@ class StudentsTeacherTrainer:
         the device.  ``jitters``: the students' loss jitters, else drawn
         from :attr:`jitter_generator`."""
         ema_update(self.teacher, self.model, float(self.hparams.tau))
-        outs, teacher = self._forwards(batch)
-        parts, stats = self._losses(outs, teacher, batch, jitters)
+        staged = self.dctx.stage(batch)
+        outs, teacher = self._forwards(staged, self.students)
+        parts, stats = self._losses(outs, teacher, staged, jitters)
         if self.view:
             self.view_data = (
                 teacher["latent_outputs"], batch["image"],
@@ -251,11 +273,15 @@ class StudentsTeacherTrainer:
         set_scheduled_lr(self.optimizer, self.step_count)
         self.optimizer.step()
         self.step_count += 1
-        return {k: v.detach() for k, v in parts.items()}, stats
+        return {k: self.dctx.sum(v.detach()) for k, v in parts.items()}, \
+            stats
 
     @torch.no_grad()
     def eval_step(self, batch, jitters=None):
-        return self._losses(*self._forwards(batch), batch, jitters)
+        staged = self.dctx.stage(batch)
+        parts, stats = self._losses(
+            *self._forwards(staged, self.forwards), staged, jitters)
+        return {k: self.dctx.sum(v) for k, v in parts.items()}, stats
 
     # ------------------------------------------------------------- train
     def _scalar(self, name, value, epoch) -> None:
@@ -296,7 +322,7 @@ class StudentsTeacherTrainer:
                     avg.append(name, val)
                 if stats is not None:
                     metrics.update_stats(*(t.cpu().numpy() for t in stats))
-                if self.view and step % 5 == 0:
+                if self.view and step % 5 == 0 and self.dctx.is_main:
                     tch, img, sts, imgs = self.view_data
                     view_prototype_students_teacher(
                         name=batch["name"], n_slices=4,
@@ -325,7 +351,8 @@ class StudentsTeacherTrainer:
             if metrics is not None:
                 self._scalar("train_metric/seg", metrics.compute(), epoch)
                 metrics.reset()
-            if self.save_ckpt_path is not None and epoch % SAVE_EVERY == 0:
+            if self.save_ckpt_path is not None and epoch % SAVE_EVERY == 0 \
+                    and self.dctx.is_main:
                 self._save(epoch)
             if self.val_loader is None:
                 continue

@@ -19,16 +19,24 @@ LOG_FORMAT = ("Time: %(asctime)s | Logger: %(name)s | "
               "Level: %(levelname)s | Message: %(message)s")
 
 
-def get_logger(log_dir, name: str = "Root") -> logging.Logger:
+def get_logger(log_dir, name: str = "Root", to_file: bool = True
+               ) -> logging.Logger:
     """``log_dir/log.txt`` (appended) and console logger; a second call
-    with the same name replaces the first one's handlers."""
-    log_dir = Path(log_dir)
-    log_dir.mkdir(exist_ok=True, parents=True)
+    with the same name replaces the first one's handlers.  ``to_file``
+    False (a data-parallel rank other than 0): a silent logger, and
+    nothing is written."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
+    if not to_file:
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
+        return logger
+    logger.propagate = True
+    log_dir = Path(log_dir)
+    log_dir.mkdir(exist_ok=True, parents=True)
     for handler in (logging.FileHandler(log_dir / "log.txt", mode="a"),
                     logging.StreamHandler()):
         handler.setLevel(logging.INFO)

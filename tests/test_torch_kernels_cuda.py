@@ -1367,3 +1367,96 @@ def test_unfused_training_step_launches(dev, attn_drop, use_checkpoint):
                    "B4": 0, "B5": 0}, got
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     assert grads and all(torch.isfinite(t).all() for t in grads)
+
+
+# Data parallel: a rank holding rows [r*b, (r+1)*b) of a global batch
+# passes the global index of its first window (Dropout.win_base) to
+# B1, B5 and B4, so that it hashes the global batch's masks.
+WIN_BASE_CASES = [(48, 4, 64, fb.FOLD_NONE, True, 5),
+                  (96, 8, 100, fb.FOLD_KEY, False, 7),
+                  (192, 4, 128, fb.FOLD_COUNT, True, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,m,fold_mode,shifted,n_tok", WIN_BASE_CASES)
+def test_fused_swin_block_at_a_window_base(dev, c, heads, m, fold_mode,
+                                           shifted, n_tok):
+    """B1 with dropout on samples [1:] at win_base = P equals rows [1:]
+    of the whole call bit for bit, and on samples [:1] at base 0 rows
+    [:1]; at base P it is held to the plain version at the same base."""
+    x, ops, labels = _block_case(dev, 3, 3, m, c, heads, fold_mode, shifted,
+                                 n_tok, seed=5)
+    p = x.shape[1]
+    with torch.inference_mode():
+        whole = fb.fused_swin_block(x, ops, labels, DROP)
+        head = fb.fused_swin_block(x[:1].contiguous(), ops, labels, DROP)
+        tail = fb.fused_swin_block(x[1:].contiguous(), ops, labels,
+                                   DROP.at(p))
+        unbased = fb.fused_swin_block(x[1:].contiguous(), ops, labels, DROP)
+        ref = fb.block_reference(x[1:].contiguous(), ops, labels, DROP.at(p))
+        torch.cuda.synchronize()
+    assert torch.equal(head, whole[:1]) and torch.equal(tail, whole[1:])
+    assert not torch.equal(unbased, whole[1:])
+    _assert_close(tail, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,dims,window,n_tok", PAIR_CASES[1:4])
+def test_pair_kernel_at_a_window_base(dev, c, heads, dims, window, n_tok):
+    """B5 with dropout on sample [1:] at win_base = P: rows [1:] of the
+    whole call bit for bit; the plain version at the same base."""
+    x_win, ops0, ops1, labels, plan = _pair_case(dev, c, heads, dims, window,
+                                                 n_tok, seed=6)
+    p = x_win.shape[1]
+    d0, d1 = PAIR_DROP
+    part = x_win[1:].contiguous()
+    with torch.inference_mode():
+        whole = fp.fused_swin_pair(x_win, ops0, ops1, labels, plan, d0, d1)
+        head = fp.fused_swin_pair(x_win[:1].contiguous(), ops0, ops1, labels,
+                                  plan, d0, d1)
+        tail = fp.fused_swin_pair(part, ops0, ops1, labels, plan, d0.at(p),
+                                  d1.at(p))
+        ref = fp.pair_reference(part, ops0, ops1, labels, plan, d0.at(p),
+                                d1.at(p))
+        torch.cuda.synchronize()
+    assert torch.equal(head, whole[:1]) and torch.equal(tail, whole[1:])
+    _assert_close(tail, ref)
+    with pytest.raises(ValueError, match="one base"):
+        fp.fused_swin_pair(part, ops0, ops1, labels, plan, d0.at(p), d1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,m,fold_mode,shifted,n_tok", WIN_BASE_CASES)
+def test_block_backward_at_a_window_base(dev, c, heads, m, fold_mode,
+                                         shifted, n_tok):
+    """B4 with dropout on samples [1:] at win_base = P: dx is rows [1:]
+    of the whole call's bit for bit (each window's own), every gradient
+    is held to the plain version at the same base, and the two ranks'
+    operand gradients (samples [:1] at base 0, [1:] at base P) add up to
+    the whole call's within GRAD_TOL."""
+    x, ops, labels = _block_case(dev, 3, 3, m, c, heads, fold_mode, shifted,
+                                 n_tok, seed=6)
+    p = x.shape[1]
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(10)
+                       ).to(dev, torch.bfloat16)
+    dx, whole = fbb.block_backward(x, dout, ops, labels, DROP)
+    dx0, head = fbb.block_backward(x[:1].contiguous(), dout[:1].contiguous(),
+                                   ops, labels, DROP)
+    dx1, tail = fbb.block_backward(x[1:].contiguous(), dout[1:].contiguous(),
+                                   ops, labels, DROP.at(p))
+    ref_dx, ref = fbb.block_backward_reference(
+        x[1:].contiguous(), dout[1:].contiguous(), ops, labels, DROP.at(p))
+    torch.cuda.synchronize()
+    assert torch.equal(dx0, dx[:1]) and torch.equal(dx1, dx[1:])
+    names = ["x", "bias", "ext_k", "ext_v", *fb.PARAM_KEYS]
+    for name, g, r, w, h in zip(names, (dx1, *tail), (ref_dx, *ref),
+                                (dx[1:], *whole), (dx0, *head)):
+        if r is None:
+            assert g is None, name
+            continue
+        for got, want in ((g, r), (g if name == "x" else g + h,
+                                   w if name == "x" else w)):
+            got, want = got.float(), want.float()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)

@@ -39,7 +39,9 @@ def test_every_port_module_imports_without_jax():
                     "train.segmentation", "main", "utils.checkpoint",
                     "utils.torch_import", "utils.loggers", "utils.tb_events",
                     "utils.initialization", "utils.summary",
-                    "utils.visualization", "utils.torch_export"):
+                    "utils.visualization", "utils.torch_export",
+                    "parallel.mesh", "parallel.distributed",
+                    "parallel.train_parallel"):
             assert "{PKG}." + mod in names, mod
         import pathlib, tempfile
         import numpy as np
@@ -75,8 +77,9 @@ def test_chip_smoke_imports_only_the_port():
     roots = {n.split(".")[0] for n in names}
     assert PKG in roots
     assert roots <= {PKG, "torch", "numpy", "__future__", "argparse",
-                     "dataclasses", "json", "os", "struct", "subprocess",
-                     "sys", "tempfile", "time", "pathlib", "zlib"}, roots
+                     "dataclasses", "json", "os", "socket", "struct",
+                     "subprocess", "sys", "tempfile", "time", "pathlib",
+                     "zlib"}, roots
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

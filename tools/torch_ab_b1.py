@@ -14,6 +14,7 @@ Run on a machine with one CUDA card, from the repository root::
     python3 tools/torch_ab_b1.py --kernel b4 [--quick] [--sweep] \
         PARENT_DIR . . PARENT_DIR
     python3 tools/torch_ab_b1.py --kernel b4 --probe . [PROBE_INDEX ...]
+    python3 tools/torch_ab_b1.py --kernel dp PARENT_DIR . . PARENT_DIR
 
 Each argument is the root of a checkout holding the PyTorch port; each
 runs in its own process, in the order given (alternate them: A B B A).
@@ -73,6 +74,12 @@ CUDA events on the same seeded inputs.
   channels-last); where the checkout reports it, each launch's tile,
   registers, spills and CTAs per SM.  ``--sweep`` also times every tile
   the checkout's kernel offers.  ``ptxas -v`` of ``conv3x3_pair.cu``.
+* ``--kernel dp``: the kernels whose dropout counters take a window base
+  (B1, B5, B4), called as a checkout without the base calls them (the
+  base is 0), at the flagship training shapes at batch 4 (the 12 block
+  calls, dropout 0.1/0.1; B5 at the 6 pair calls): ms per call (CUDA
+  events, 10 calls) and their sums per kernel, and every output compared
+  bit for bit with run 0's.
 
 Imports torch and the port only.
 """
@@ -469,6 +476,99 @@ print(json.dumps({"build_s": build_s, "ms": times, "info": info,
 '''
 
 
+CHILD_DP = r'''
+import json, sys, time
+sys.path.insert(0, ".")
+import numpy as np, torch
+from medical_image_segmentation_with_visual_prompts_tpu_torch.models import \
+    ConsecutiveSwinBlocks, SwinTransformerBlock
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import kernels
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops import \
+    fused_block_bwd as fbb
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops.fused_block \
+    import Dropout, fused_swin_block
+from medical_image_segmentation_with_visual_prompts_tpu_torch.ops.fused_pair \
+    import fused_swin_pair
+from medical_image_segmentation_with_visual_prompts_tpu_torch.utils import \
+    init_weights
+torch.backends.cuda.matmul.allow_tf32 = False
+GEOMETRIES = (("enc0", 48, 4, (64, 64, 4)), ("enc1", 96, 8, (32, 32, 2)),
+              ("enc2", 192, 16, (16, 16, 2)), ("dec0", 192, 4, (16, 16, 2)),
+              ("dec1", 96, 4, (32, 32, 2)), ("dec2", 48, 4, (64, 64, 4)))
+BATCH = 4
+
+
+def event_ms(fn, iters=10):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def flat(*ts):
+    return np.concatenate([t.float().flatten().cpu().numpy() for t in ts
+                           if t is not None])
+
+
+t0 = time.perf_counter()
+kernels.library()
+build_s = time.perf_counter() - t0
+g = torch.Generator().manual_seed(0)
+outs, times = {}, {}
+for i, (name, c, heads, dims) in enumerate(GEOMETRIES):
+    for j, shift in enumerate(((0, 0, 0), (4, 4, 2))):
+        blk = SwinTransformerBlock(c, (8, 8, 4), 64, heads, 1, 64,
+                                   shift_size=shift, pad_mode="aligned",
+                                   dtype=torch.bfloat16, attn_drop=0.1,
+                                   proj_drop=0.1)
+        blk = init_weights(blk, g).cuda()
+        x = torch.randn((BATCH, *dims, c), generator=g).to("cuda",
+                                                          torch.bfloat16)
+        tok = (0.5 * torch.randn((64, c), generator=g)).cuda()
+        drop = Dropout((1000 + 2 * (2 * i + j), 1001 + 2 * (2 * i + j)),
+                       0.1, 0.1)
+        with torch.no_grad():
+            x_win, ops, labels, _ = blk.windows(x, tok)
+        dout = torch.randn(x_win.shape, generator=g).to("cuda",
+                                                        torch.bfloat16)
+        tag = f"{name} {'shift' if any(shift) else 'noshift'}"
+        with torch.inference_mode():
+            fwd = lambda: fused_swin_block(x_win, ops, labels, drop)  # noqa
+            outs[f"B1 {tag}"] = flat(fwd())
+            times[f"B1 {tag}"] = event_ms(fwd)
+        bwd = lambda: fbb.block_backward(x_win, dout, ops, labels, drop)  # noqa
+        dx, grads = bwd()
+        outs[f"B4 {tag}"] = flat(dx, *grads)
+        times[f"B4 {tag}"] = event_ms(bwd)
+for i, (name, c, heads, dims) in enumerate(GEOMETRIES):
+    pair = ConsecutiveSwinBlocks(c, heads, 64, 1, 64, (8, 8, 4), down=False,
+                                 pad_mode="aligned", dtype=torch.bfloat16,
+                                 attn_drop=0.1, proj_drop=0.1)
+    pair = init_weights(pair, g).cuda()
+    pair.pair_kernel = True
+    x = torch.randn((BATCH, *dims, c), generator=g).to("cuda", torch.bfloat16)
+    toks = tuple((0.5 * torch.randn((64, c), generator=g)).cuda()
+                 for _ in range(2))
+    d0 = Dropout((2000 + 4 * i, 2001 + 4 * i), 0.1, 0.1)
+    d1 = Dropout((2002 + 4 * i, 2003 + 4 * i), 0.1, 0.1)
+    with torch.inference_mode():
+        x_win, ops0, ops1, labels, plan, _ = pair.pair_windows(x, toks)
+        run = lambda: fused_swin_pair(x_win, ops0, ops1, labels, plan,  # noqa
+                                      d0, d1)
+        outs[f"B5 {name}"] = flat(run())
+        times[f"B5 {name}"] = event_ms(run)
+np.savez(sys.argv[1], **outs)
+print(json.dumps({"build_s": build_s, "ms": times}))
+'''
+
+
 CHILD_B2 = r'''
 import json, sys, time
 sys.path.insert(0, ".")
@@ -747,6 +847,37 @@ def main_b4(roots, sweep: bool) -> int:
     return 0
 
 
+def main_dp(roots) -> int:
+    """B1, B5 and B4 with dropout at batch 4 in each checkout: ms per call
+    and per kernel, every output bit for bit against run 0's."""
+    import numpy as np
+    first = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, root in enumerate(roots):
+            dump = f"{tmp}/run{i}.npz"
+            out = subprocess.run([sys.executable, "-c", CHILD_DP, dump],
+                                 cwd=root, capture_output=True, text=True)
+            if out.returncode:
+                print(out.stderr, file=sys.stderr)
+                return 1
+            res = json.loads(out.stdout.strip().splitlines()[-1])
+            outs = dict(np.load(dump))
+            if first is None:
+                first = outs
+            sums = {}
+            for k, v in res["ms"].items():
+                sums[k.split()[0]] = sums.get(k.split()[0], 0.0) + v
+            line = ", ".join(
+                f"{kern} {sums[kern]:.4f} ms ("
+                f"{sum(int((outs[k] != first[k]).sum()) for k in first if k.startswith(kern))}"
+                f" of {sum(first[k].size for k in first if k.startswith(kern))}"
+                " elements differ from run 0)" for kern in sorted(sums))
+            print(f"run {i}: {root}: build {res['build_s']:.1f} s; {line}")
+            for k, v in res["ms"].items():
+                print(f"  {k}: {v:.4f} ms")
+    return 0
+
+
 # B6/B7/B8 design probes (window_attention.cu, MIVP_B6_SKIP): parts
 # compiled out.
 B6_PROBES = (("as built", {}),
@@ -916,10 +1047,12 @@ def main(argv) -> int:
         else:
             break
     roots = [Path(a).resolve() for a in argv]
-    if not roots or kernel not in ("b1", "b2", "b4", "b6"):
+    if not roots or kernel not in ("b1", "b2", "b4", "b6", "dp"):
         print(__doc__, file=sys.stderr)
         return 2
     print(f"card: {card_line()}")
+    if kernel == "dp":
+        return main_dp(roots)
     b4_units = ("fused_block_bwd.cu", "fused_block_bwd_512.cu")
     names = ("conv3x3_pair.cu",) if kernel == "b2" else \
         b4_units if kernel == "b4" else (
