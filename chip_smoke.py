@@ -130,6 +130,22 @@ the port's paths:
   and global batch 4 against the one-process fit, each rank's launches,
   and DP serving of the 320x320x24 volume against one-process serving.
 
+* the rest of the JAX package's surface (phases ``native-serve``,
+  ``segment-volume``, ``profile-trace``, ``flops``): the native data
+  library (``data/native.py``, built from ``native/miseg_native.cpp``)
+  against numpy on the 320x320x24 volume, that volume served from disk
+  with the native and the numpy decoder (labels equal to each other and
+  to the in-memory run; vol/s of each in alternating repeated arms);
+  ``infer.segment_volume`` against ``predict_device``; ``main.main``
+  fitting the flagship training config for 7 steps with ``profile_dir``,
+  the trace's B1/B4 events of steps 2-6 against the launch counters
+  over them; model FLOPs per window (``utils/flops.py``) and the shares
+  of the card's peak that serving and the pretraining steps reach.
+
+Device busy shares (``print_profile`` and the trace) count kernels,
+copies and fills only, not user-annotation spans.  The peaks that
+``Bound`` divides by come from the card's name (``utils/flops.py``).
+
 B2 and B3 are timed beside one cuDNN ``conv3d`` on the same shapes
 without the prologue (bf16, channels-last), and each B2 launch reports
 its tile, registers, spills and CTAs per SM; each B1 and B5 launch of the
@@ -210,10 +226,9 @@ SERVE_REPEATS = 10
 TRAIN_LOSS_RTOL = 2e-2
 TRAIN_VOLUMES = 8   # 6 train volumes x 2 crops = 6 steps of batch 2
 DROP_RATE = 0.1
-# Peaks of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit):
-# bf16 tensor-core FLOP/s and HBM bytes/s.
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+# The card's dense bf16 tensor-core FLOP/s and memory bytes/s (NVIDIA's
+# data sheet, by the card's name: utils/flops.py), set by card_peaks().
+PEAKS = {}
 
 # (name, C, heads, spatial dims) of the 6 flagship block
 # geometries on a 128x128x8 roi: encoder stages 0-2 and decoder blocks
@@ -246,6 +261,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def card_peaks():
+    """(bf16 FLOP/s, bytes/s) of this card; an unknown card raises."""
+    if not PEAKS:
+        from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+            .flops import chip_peak_tbytes, chip_peak_tflops
+        PEAKS.update(flops=chip_peak_tflops() * 1e12,
+                     bytes=chip_peak_tbytes() * 1e12)
+    return PEAKS["flops"], PEAKS["bytes"]
+
+
 def cuda_ms(fn, iters: int = 10) -> float:
     """Mean device time of ``fn()`` over ``iters`` calls (CUDA events)."""
     import torch
@@ -271,8 +296,9 @@ class Bound:
         self.ms = self.ops_ms = self.bytes_ms = 0.0
 
     def add(self, flops: float, nbytes: float) -> None:
-        t_ops = 1e3 * flops / PEAK_BF16_FLOPS
-        t_bytes = 1e3 * nbytes / PEAK_BYTES
+        peak_flops, peak_bytes = card_peaks()
+        t_ops = 1e3 * flops / peak_flops
+        t_bytes = 1e3 * nbytes / peak_bytes
         self.ms += max(t_ops, t_bytes)
         self.ops_ms += t_ops
         self.bytes_ms += t_bytes
@@ -1316,11 +1342,43 @@ def profile_steps(tr, hp, steps: int = 2, loaders=None):
     return print_profile(prof, steps, "kernel steps", "step")
 
 
+# Trace event categories that are device work: kernels, copies and
+# fills.  A user annotation's GPU span (``gpu_user_annotation``, e.g. the
+# optimizer step's) covers device time but is not work of its own.
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_work(evt) -> bool:
+    """Whether a ``torch.profiler`` event is a kernel, a copy or a fill
+    on the card (not a user annotation's span)."""
+    import torch
+    if evt.device_type != torch.autograd.DeviceType.CUDA or \
+            getattr(evt, "is_user_annotation", False):
+        return False
+    kind = getattr(evt, "activity_type", None)
+    return kind is None or str(kind).lower() in DEVICE_WORK
+
+
+def busy_and_span(spans) -> tuple:
+    """(busy, span) of device intervals ``[(start, end), ...]``: the
+    length of their union and from the first start to the last end."""
+    spans = sorted(spans)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, max(e for _, e in spans) - spans[0][0]
+
+
 def print_profile(prof, steps: int, what: str, unit: str):
     """Device time of a ``torch.profiler`` window of ``steps`` repeats by
-    kernel bucket, the busiest kernels, and the device's idle share;
-    returns (busy ms per repeat, idle share)."""
-    import torch
+    kernel bucket, the busiest kernels, and the device's idle share, over
+    kernels, copies and fills only (:func:`device_work`); returns (busy
+    ms per repeat, idle share)."""
     buckets = (("B1 fused_swin_block_kernel", ("fused_swin_block_kernel",)),
                ("B5 fused_swin_pair_kernel", ("fused_swin_pair_kernel",)),
                ("B4 fused_block_bwd_kernel + bwd_reduce_kernel",
@@ -1336,7 +1394,7 @@ def print_profile(prof, steps: int, what: str, unit: str):
     sums = {name: 0.0 for name, _ in buckets}
     by_kernel, spans = {}, []
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if not device_work(evt):
             continue
         us = evt.time_range.elapsed_us()
         spans.append((evt.time_range.start, evt.time_range.end))
@@ -1349,16 +1407,7 @@ def print_profile(prof, steps: int, what: str, unit: str):
     if not spans:
         print("  profiler: no device events recorded")
         return None, None
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    busy, window = busy_and_span(spans)
     print(f"  profile of {steps} {what} (torch.profiler): device busy "
           f"{busy / 1e3 / steps:.3f} ms per {unit} of a "
           f"{window / 1e3 / steps:.3f} ms span, idle share "
@@ -2422,6 +2471,23 @@ def loss_device_ms(tr, batch) -> float:
     return cuda_ms(step, 5)
 
 
+def step_flops(tr) -> int:
+    """Products of one training step of ``tr`` (a trainer on the plain
+    versions: a kernel launch is not a torch op the counter sees) on its
+    first batch, forward and backward: ``FlopCounterMode`` with grad on
+    (``utils/flops.py::counted_flops`` is the no-grad form).  Prints
+    them."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    batch = next(iter(tr.train_loader))
+    with counter:
+        tr.train_step(batch)
+    flops = int(counter.get_total_flops())
+    print(f"  one plain training step: {flops / 1e9:.3f} GFLOP of products "
+          "(FlopCounterMode, forward and backward)")
+    return flops
+
+
 def phase_students_teacher(card: str):
     """Phase-2 students-teacher training through ``main --mode fit
     --training-mode ...`` at the flagship model with the example config's
@@ -2514,6 +2580,7 @@ def phase_students_teacher(card: str):
               f"clock around each step, ending in its loss read) on {card}")
         print(f"  steps ms kernels {[round(v, 3) for v in tr.step_ms]}; "
               f"plain {[round(v, 3) for v in plain.step_ms]}")
+        out["step_flops"] = step_flops(plain)
         del plain
 
         # The epoch-0 checkpoint, and a resume from it.
@@ -2935,6 +3002,7 @@ def phase_multi_view(card: str):
         print(f"  steps ms kernels {[round(v, 3) for v in tr.step_ms]}; "
               f"plain {[round(v, 3) for v in plain.step_ms]}")
         first = tr.losses[0]
+        out["step_flops"] = step_flops(plain)
         del plain
 
         # The epoch-0 checkpoint, and a resume from it.
@@ -4247,6 +4315,300 @@ def phase_dp_two_ranks(card: str):
             "step_ms": step_ms}
 
 
+NATIVE_ROUNDS = 3    # alternating (native, numpy) rounds of from-disk serving
+NATIVE_REPEATS = 10  # volumes per round and arm
+TRACE_VOLUMES = 10   # split 0.75: 7 train volumes x 2 crops = 7 steps
+TRACE_STEPS = (2, 6)  # the trainers' StepProfiler window (both included)
+WINDOW_ULPS = 1          # native windowing vs numpy: at most 1 fp32 ulp
+
+
+def phase_native_serve(model, card: str):
+    """The native data-path library (``data/native.py``): built from
+    ``native/miseg_native.cpp``, its four entries against numpy on the
+    seeded 320x320x24 volume (gunzip and decode bytes identical, windowing
+    within 1 fp32 ulp, the 27 windows' gather identical); the ``.nii.gz``
+    served from disk through ``serve_volumes`` with the native decoder
+    (12 B1 + 3 B2 per forward) and with the numpy one, labels equal to
+    each other and to the in-memory ``predict_device`` run; vol/s of the
+    two decoders in alternating repeated arms.  Returns launches, the
+    arms' vol/s and the build seconds."""
+    import numpy as np
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import load_nifti, native, save_nifti
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        .transforms import load_served, scale_intensity_range
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
+        import make_runner, predict_device, serve_volumes
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.parallel \
+        import window_starts
+    print("phase native-serve: the native data library against numpy, and "
+          "the 320x320x24 int16 volume served from disk with each decoder")
+    failures = []
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    print(f"  native library {lib.name} ready in {build_s:.3f} s (g++ "
+          f"{' '.join(native.CXXFLAGS)} {' '.join(native.LDFLAGS)})")
+    vol = serve_volume()
+    roi = (128, 128, 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "ct.nii.gz"
+        save_nifti(str(src), vol)
+        packed = src.read_bytes()
+        raw = native.gunzip(packed)
+        same_gz = raw.tobytes() == zlib.decompress(packed,
+                                                   16 + zlib.MAX_WBITS)
+        f32 = vol.astype(np.float32)
+        same_i16 = np.array_equal(native.decode_f32(
+            vol.tobytes(order="F"), 4, vol.shape, 1.0, 0.0), f32)
+        same_f32 = np.array_equal(native.decode_f32(
+            f32.tobytes(order="F"), 16, vol.shape, 1.0, 0.0), f32)
+        win = scale_intensity_range(f32)
+        plain_win = scale_intensity_range(f32, native=False)
+        ulps = int(np.abs(win.view(np.int32) - plain_win.view(np.int32))
+                   .max())
+        slices, starts, _ = window_starts(vol.shape, roi, 0.75)
+        crop = np.ascontiguousarray(win[slices])[..., None]
+        windows = native.extract_windows(crop, starts, roi)
+        same_win = len(starts) == BATCH and np.array_equal(windows, np.stack(
+            [crop[a:a + roi[0], b:b + roi[1], c:c + roi[2]]
+             for a, b, c in starts]))
+        print(f"  gunzip bytes identical {same_gz}; decode identical: int16 "
+              f"{same_i16}, float32 {same_f32}; windowing vs numpy at most "
+              f"{ulps} ulp (limit {WINDOW_ULPS}); {len(starts)} windows' gather "
+              f"identical {same_win}")
+        if not (same_gz and same_i16 and same_f32 and same_win):
+            failures.append("a native entry differs from numpy")
+        if ulps > WINDOW_ULPS:
+            failures.append(f"windowing {ulps} ulp from numpy")
+
+        conf = {"roi_size": list(roi)}
+        set_mode(model, "fused").set_kernels(True)
+        runner = make_runner(conf, model, chunk=None, stride=0.75,
+                             device_windowing=True, coverage="crop")
+        labels = {}
+        for native_dec in (True, False):
+            dst = Path(tmp) / f"seg_{native_dec}.nii.gz"
+            if serve_volumes(conf, None, [(src, dst)], runner=runner,
+                             native=native_dec) != (1, 0):
+                raise RuntimeError("phase native-serve failed: serve")
+            labels[native_dec] = load_nifti(str(dst))[0]
+        decoded = load_served(str(src), True)
+        pred, sl = predict_device(runner, roi, decoded)
+        mem = np.zeros(vol.shape, np.int16)
+        mem[sl] = pred.cpu().numpy()
+        same = {"numpy decoder": np.array_equal(labels[True], labels[False]),
+                "in memory": np.array_equal(labels[True], mem)}
+        print(f"  native-decoder labels equal to: {same}; foreground share "
+              f"{float((mem > 0).mean()):.4f}")
+        if not all(same.values()):
+            failures.append(f"labels differ: {same}")
+
+        rates = {True: [], False: []}
+        launches = None
+        for r in range(NATIVE_ROUNDS):
+            for native_dec in ((True, False) if r % 2 == 0
+                               else (False, True)):
+                pairs = [(src, Path(tmp) / f"r{r}_{native_dec}_{i}.nii.gz")
+                         for i in range(NATIVE_REPEATS)]
+                torch.cuda.synchronize()
+                reset_counters()
+                t0 = time.perf_counter()
+                done = serve_volumes(conf, None, pairs, runner=runner,
+                                     native=native_dec)
+                dt = time.perf_counter() - t0
+                got = read_counters()
+                if done != (NATIVE_REPEATS, 0):
+                    raise RuntimeError(f"phase native-serve failed: {done}")
+                want = expect({"B1": 12, "B2": 3}, NATIVE_REPEATS)
+                if got != want:
+                    failures.append(f"launches {got}, expected {want}")
+                if native_dec and launches is None:
+                    launches = got
+                rates[native_dec].append(NATIVE_REPEATS / dt)
+    for native_dec, name in ((True, "native"), (False, "numpy")):
+        v = rates[native_dec]
+        print(f"  from disk, {name} decoder: vol/s {[round(x, 4) for x in v]}"
+              f" (median {np.median(v):.4f}, spread {min(v):.4f}-"
+              f"{max(v):.4f}) on {card}")
+    print(f"  launches per {NATIVE_REPEATS} served volumes: {launches}")
+    if failures:
+        raise RuntimeError("phase native-serve failed: " + "; ".join(failures))
+    return {"launches": launches, "native_vps": rates[True],
+            "numpy_vps": rates[False], "build_s": build_s}
+
+
+def phase_segment_volume(model, card: str):
+    """``infer.segment_volume`` on the 320x320x24 volume windowed on the
+    host (stride 0.75, 27 windows, one forward): labels equal to
+    ``predict_device``'s argmax on the same input and runner settings,
+    12 B1 + 3 B2."""
+    import numpy as np
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        .transforms import scale_intensity_range
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
+        import make_runner, predict_device, segment_volume
+    print("phase segment-volume: infer.segment_volume of the host-windowed "
+          "320x320x24 volume, flagship model, fused blocks")
+    roi = (128, 128, 8)
+    conf = {"roi_size": list(roi)}
+    vol = scale_intensity_range(serve_volume().astype(np.float32))[..., None]
+    set_mode(model, "fused").set_kernels(True)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    labels = segment_volume(conf, model, vol, stride=0.75)
+    dt = time.perf_counter() - t0
+    launches = read_counters()
+    runner = make_runner(conf, model, stride=0.75, device_windowing=False,
+                         coverage="crop")
+    pred, sl = predict_device(runner, roi, vol)
+    want = np.zeros(vol.shape[:3], np.int16)
+    want[sl] = pred.cpu().numpy()
+    print(f"  labels {labels.shape} {labels.dtype} in {dt:.4f} s on {card}; "
+          f"equal to predict_device's {np.array_equal(labels, want)}; "
+          f"launches {launches}")
+    failures = []
+    if not np.array_equal(labels, want):
+        failures.append("labels differ from predict_device's")
+    if launches != expect({"B1": 12, "B2": 3}):
+        failures.append(f"launches {launches}")
+    if failures:
+        raise RuntimeError("phase segment-volume failed: "
+                           + "; ".join(failures))
+    return launches
+
+
+def trace_counts(path: Path):
+    """Kernel events by name part, and (busy us, span us) over the device
+    work (kernels, copies, fills) of a Chrome trace."""
+    trace = json.loads(path.read_text())
+    events = [e for e in trace["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK]
+    counts = {key: sum(1 for e in events if e.get("cat") == "kernel"
+                       and key in e["name"])
+              for key in ("fused_swin_block_kernel", "fused_block_bwd_kernel",
+                          "bwd_reduce_kernel")}
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events]
+    return counts, busy_and_span(spans) if spans else (0.0, 0.0)
+
+
+def phase_profile_trace(card: str):
+    """``main.main`` fits the flagship training config (batch 2, dropout
+    0.1/0.1) for 7 steps with ``profile_dir`` set: the trainer's
+    ``StepProfiler`` writes one Chrome trace of global steps 2-6, whose
+    B1 and B4 kernel events equal the launch counters over those steps
+    (5 x 12 each); the trace's busy share over kernels, copies and fills.
+    """
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import \
+        main as cli_main
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.train \
+        .common import StepProfiler
+    print("phase profile-trace: main.main fit with profile_dir, flagship "
+          f"training config, {TRACE_VOLUMES} volumes")
+    os.environ["MIVP_TENSORBOARD"] = "0"
+    window = {}
+    begin, end = StepProfiler.step_begin, StepProfiler.step_end
+
+    def step_begin(self, step):
+        if step == self.trace_start:
+            window["start"] = read_counters()
+        begin(self, step)
+
+    def step_end(self, step):
+        end(self, step)
+        if step == self.trace_stop:
+            window["stop"] = read_counters()
+
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_train_set(root, TRACE_VOLUMES)
+        hp = dp_hparams(root, "fit", profile_dir=str(root / "profile"))
+        StepProfiler.step_begin, StepProfiler.step_end = step_begin, step_end
+        try:
+            torch.cuda.synchronize()
+            reset_counters()
+            tr = cli_main.main("fit", hp)
+            torch.cuda.synchronize()
+        finally:
+            StepProfiler.step_begin, StepProfiler.step_end = begin, end
+        launches = read_counters()
+        steps = len(tr.losses)
+        traces = sorted((root / "profile").iterdir())
+        print(f"  {steps} steps, launches {launches}; trace files "
+              f"{[p.name for p in traces]} "
+              f"({sum(p.stat().st_size for p in traces)} bytes)")
+        if (tr.profiler.trace_start, tr.profiler.trace_stop) != TRACE_STEPS \
+                or steps < TRACE_STEPS[1] + 1 or len(traces) != 1:
+            raise RuntimeError(f"phase profile-trace failed: {steps} steps, "
+                               f"{len(traces)} trace files")
+        counts, (busy, span) = trace_counts(traces[0])
+    n = TRACE_STEPS[1] - TRACE_STEPS[0] + 1
+    delta = {k: window["stop"][k] - window["start"][k] for k in ("B1", "B4")}
+    print(f"  trace of steps {TRACE_STEPS[0]}-{TRACE_STEPS[1]}: kernel events "
+          f"{counts}; launch counters over the same steps {delta}")
+    print(f"  trace device work (kernels, copies, fills): busy "
+          f"{busy / 1e3 / n:.3f} ms per step of a {span / 1e3 / n:.3f} ms "
+          f"span, busy share {busy / max(span, 1e-9):.4f} on {card}")
+    want = {"B1": 12 * n, "B4": 12 * n}
+    got = {"B1": counts["fused_swin_block_kernel"],
+           "B4": counts["fused_block_bwd_kernel"]}
+    if not (got == delta == want):
+        failures.append(f"trace events {got}, launch counters {delta}, "
+                        f"expected {want}")
+    if counts["bwd_reduce_kernel"] != want["B4"]:
+        failures.append(f"{counts['bwd_reduce_kernel']} B4 reductions in "
+                        f"the trace, expected {want['B4']}")
+    if failures:
+        raise RuntimeError("phase profile-trace failed: "
+                           + "; ".join(failures))
+    return {"launches": launches, "trace_events": got,
+            "busy_share": busy / span, "busy_ms": busy / 1e3 / n}
+
+
+def phase_flops(card: str, serve_vps_mem: float, phase2: dict,
+                phase1: dict):
+    """Model FLOPs per flagship window (``utils/flops.py``) beside the JAX
+    package's 24.43 GFLOP cost analysis, the card's peak, and the shares
+    of it that the in-memory serving rate and the phase-2 / phase-1 steps
+    reach (their plain steps' products over their kernel step medians).
+    """
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import flagship_conf
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .flops import chip_peak_tflops, forward_flops
+    print("phase flops: FLOP counts and shares of the card's peak")
+    count = forward_flops(flagship_conf(), 1, roi=(128, 128, 8))
+    peak = chip_peak_tflops() * 1e12
+    print(f"  flagship, one 128x128x8 window: model {count.model / 1e9:.3f} "
+          f"GFLOP (as the port executes it {count.port / 1e9:.3f}, the JAX "
+          f"forward's products {count.jax / 1e9:.3f}); the JAX package's XLA "
+          "cost analysis 24.43 (bench.py)")
+    print(f"  {torch.cuda.get_device_name(0)}: dense bf16 peak "
+          f"{peak / 1e12:.1f} TFLOP/s ({card})")
+    serve = count.model * BATCH * serve_vps_mem / peak
+    print(f"  in-memory serving: {count.model / 1e9:.3f} GFLOP x {BATCH} "
+          f"windows x {serve_vps_mem:.4f} vol/s = {serve:.6f} of the peak "
+          f"(MFU) on {card}")
+    out = {"model_gflop": count.model / 1e9, "port_gflop": count.port / 1e9,
+           "jax_gflop": count.jax / 1e9, "peak_tflops": peak / 1e12,
+           "serve_mfu": serve}
+    for name, r in (("phase-2 (supervised_learning_all)", phase2),
+                    ("phase-1 (batch 2)", phase1)):
+        share = r["step_flops"] / (r["step_ms"] / 1e3) / peak
+        print(f"  {name} step: {r['step_flops'] / 1e9:.3f} GFLOP of products "
+              f"(plain step) in a {r['step_ms']:.3f} ms median kernel step = "
+              f"{share:.6f} of the peak on {card}")
+        out[name.split()[0]] = share
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, **extra):
     bound = m["bound"]
     return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -4257,6 +4619,7 @@ def kernel_entry(name, source, replaces, launches, by_path, m, **extra):
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card only",
@@ -4298,6 +4661,9 @@ def main() -> int:
     fwd_ms, _ = phase_model(model, fused)
     serve_launches, vps, vps_mem = phase_serve(model, card, fused)
     clock("model, serve done")
+    nat = phase_native_serve(model, card)
+    seg_launches = phase_segment_volume(model, card)
+    clock("native-serve, segment-volume done")
     ufwd_ms, _ = phase_model(model, UNFUSED_LAUNCHES, "unfused")
     unfused_launches, uvps, uvps_mem = phase_serve(
         model, card, UNFUSED_LAUNCHES, "unfused")
@@ -4312,6 +4678,8 @@ def main() -> int:
     tpair_launches, _, pstep_ms, _ = phase_train(card, True,
                                                  (losses, step_ms))
     clock("train-pair done")
+    trace = phase_profile_trace(card)
+    clock("profile-trace done")
     model = example_model()
     # Seeded random weights without prompts leave this model's two logits
     # close on many voxels of the noise batch (narrower margins than the
@@ -4340,6 +4708,7 @@ def main() -> int:
     mv = phase_multi_view(card)
     mvm = phase_multi_view_mutual(card)
     clock("multi-view, multi-view-mutual done")
+    fl = phase_flops(card, vps_mem, st, mv)
     ugrad = phase_unfused_grads()
     clock("unfused-grads done")
     tu = phase_train_unfused(card)
@@ -4442,8 +4811,20 @@ def main() -> int:
           f"two gloo ranks on one card (no scaling) "
           f"{[round(v, 3) for v in dpt['step_ms']]} ms per step")
 
+    print(f"native data library: from-disk vol/s native decoder median "
+          f"{np.median(nat['native_vps']):.4f} vs numpy "
+          f"{np.median(nat['numpy_vps']):.4f}; profile trace of steps 2-6: "
+          f"B1/B4 events {trace['trace_events']}, busy share "
+          f"{trace['busy_share']:.4f}; flagship model "
+          f"{fl['model_gflop']:.3f} GFLOP per window, serving MFU "
+          f"{fl['serve_mfu']:.6f}, phase-2 step {fl['phase-2']:.6f}, phase-1 "
+          f"step {fl['phase-1']:.6f} of {fl['peak_tflops']:.1f} TFLOP/s")
+
     def paths(key):
         return {"serve": serve_launches[key],
+                "native-serve": nat["launches"][key],
+                "segment-volume": seg_launches[key],
+                "profile-trace": trace["launches"][key],
                 "serve_unfused": unfused_launches[key],
                 "train": train_launches[key],
                 "serve_pair": pair_launches[key],

@@ -22,9 +22,9 @@ import numpy as np
 from medical_image_segmentation_with_visual_prompts_tpu_torch.config import \
     get_full_configs
 from medical_image_segmentation_with_visual_prompts_tpu_torch.data import (
-    load_served, save_nifti)
+    load_image, save_nifti, scale_intensity_range)
 from medical_image_segmentation_with_visual_prompts_tpu_torch.infer import (
-    load_model, make_runner, predict_device)
+    load_model, segment_volume)
 from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
     .initialization import setup_fitting
 
@@ -72,10 +72,8 @@ def main():
 
     # --- serve: load the checkpoint into a fresh model and segment
     model = load_model(vars(conf), tmp / "prompt.ckpt", device)
-    runner = make_runner(vars(conf), model, chunk=4)
-    volume = load_served(str(tmp / "img" / "case0.nii.gz"), raw=True)
-    labels, _ = predict_device(runner, tuple(conf.roi_size), volume)
-    labels = labels.cpu().numpy()
+    vol = scale_intensity_range(load_image(str(tmp / "img" / "case0.nii.gz")))
+    labels = segment_volume(conf, model, vol, chunk=4)
     print("label volume:", labels.shape,
           "classes:", sorted(int(v) for v in np.unique(labels)))
 

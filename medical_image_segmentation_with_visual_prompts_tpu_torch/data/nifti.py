@@ -1,10 +1,12 @@
-"""NIfTI-1 reader and writer (.nii / .nii.gz) in numpy.
+"""NIfTI-1 reader and writer (.nii / .nii.gz).
 
 Counterpart of the JAX package's ``data/nifti.py`` (same header subset,
-affines, scaling and output layout), without its optional native decode
-library: gzip and numpy only.  Scalar 3D/4D volumes, sform/qform
+affines, scaling and output layout).  Scalar 3D/4D volumes, sform/qform
 affines and scl_slope/scl_inter scaling, which is what CT and MR
-segmentation datasets use.
+segmentation datasets use.  :func:`load_nifti` takes the native library
+(``data/native.py``) where the JAX reader does: its gunzip for
+``.nii.gz``, and its one-pass decode for 3D little-endian float32
+payloads; ``native=False`` is the plain version, gzip and numpy only.
 """
 
 from __future__ import annotations
@@ -82,14 +84,17 @@ def _affine(hdr: dict) -> np.ndarray:
     return np.diag([pix[1] or 1.0, pix[2] or 1.0, pix[3] or 1.0, 1.0])
 
 
-def load_nifti(path) -> Tuple[np.ndarray, np.ndarray]:
+def load_nifti(path, native: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """Read a volume: ``(data, affine)``, data C-contiguous with the
     header's spatial shape (trailing singleton axes squeezed), affine the
     4x4 voxel-to-world transform.  Integer payloads keep their dtype
-    unless the header scales them."""
+    unless the header scales them.  ``native``: the native library's
+    gunzip and float32 decode (module docstring), else numpy's."""
+    from . import native as lib
     path = Path(path)
-    raw = gzip.decompress(path.read_bytes()) if path.name.endswith(".gz") \
-        else path.read_bytes()
+    raw = path.read_bytes()
+    if path.name.endswith(".gz"):
+        raw = lib.gunzip(raw) if native else gzip.decompress(raw)
     hdr = _header(raw)
     shape = tuple(int(s) for s in hdr["dim"][1:1 + hdr["dim"][0]])
     if hdr["datatype"] not in _DTYPES:
@@ -97,10 +102,16 @@ def load_nifti(path) -> Tuple[np.ndarray, np.ndarray]:
     dtype = np.dtype(_DTYPES[hdr["datatype"]]).newbyteorder(hdr["endian"])
     offset = int(hdr["vox_offset"]) if hdr["magic"].startswith(b"n+1") \
         else 0
-    data = np.frombuffer(raw, dtype=dtype, count=int(np.prod(shape)),
-                         offset=offset or _VOX_OFFSET).reshape(shape,
-                                                               order="F")
+    offset = offset or _VOX_OFFSET
+    count = int(np.prod(shape))
     slope, inter = hdr["scl"]
+    if native and len(shape) == 3 and hdr["endian"] == "<" \
+            and hdr["datatype"] == 16:
+        payload = raw[offset: offset + count * dtype.itemsize]
+        return lib.decode_f32(payload, 16, shape, slope or 1.0,
+                              inter), _affine(hdr)
+    data = np.frombuffer(raw, dtype=dtype, count=count,
+                         offset=offset).reshape(shape, order="F")
     if slope not in (0.0, 1.0) or inter != 0.0:
         data = data.astype(np.float32) * (slope or 1.0) + inter
     while data.ndim > 3 and data.shape[-1] == 1:

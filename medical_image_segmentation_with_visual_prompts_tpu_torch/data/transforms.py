@@ -4,12 +4,13 @@ Counterpart of the part of the JAX package's ``data/transforms.py`` that
 serving uses: RAS reorientation from the NIfTI affine (MONAI
 ``Orientationd(axcodes="RAS")``), the raw-dtype loader whose int16
 payload is uploaded and windowed on the device, and host-side intensity
-windowing (``ScaleIntensityRanged(-1000..1000 -> 0..1, clip)``).
+windowing (``ScaleIntensityRanged(-1000..1000 -> 0..1, clip)``; in the
+native library, ``data/native.py``, as the JAX package windows).
 Outputs are channels-last ``[H, W, D, C]`` numpy arrays.
 
 :func:`load_served` and :func:`write_labels` are the two ends of a served
-volume; they import numpy only, so that serving can run them in worker
-processes.
+volume; they import numpy and the native library only, so that serving
+can run them in worker processes.
 
 The training side (:func:`transform_downstream_fit`: optional random
 orientation and resize, random spatial crops, symmetric pad) draws from
@@ -37,7 +38,18 @@ from .nifti import load_nifti, save_nifti
 
 def scale_intensity_range(x: np.ndarray, a_min: float = -1000.0,
                           a_max: float = 1000.0, b_min: float = 0.0,
-                          b_max: float = 1.0, clip: bool = True) -> np.ndarray:
+                          b_max: float = 1.0, clip: bool = True,
+                          native: bool = True) -> np.ndarray:
+    """``ScaleIntensityRanged``: a float32 copy of ``x`` windowed in one
+    pass of the native library (``data/native.py``), as the JAX package
+    does; ``native=False``: the numpy version, within one fp32 ulp of
+    it (it divides by ``a_max - a_min`` where the library multiplies by
+    the ratio)."""
+    if native:
+        from . import native as lib
+        x = np.array(x, dtype=np.float32, order="C", copy=True)
+        lib.scale_intensity(x, a_min, a_max, b_min, b_max, clip)
+        return x
     x = (np.asarray(x, np.float32) - a_min) / (a_max - a_min)
     x = x * (b_max - b_min) + b_min
     return np.clip(x, b_min, b_max) if clip else x
@@ -57,24 +69,28 @@ def orient_ras(data: np.ndarray, affine: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.flip(out, flips) if flips else out)
 
 
-def load_image_raw(path, ensure_channel: bool = True) -> np.ndarray:
+def load_image_raw(path, ensure_channel: bool = True,
+                   native: bool = True) -> np.ndarray:
     """RAS-oriented volume in its stored dtype (int16 for typical CT)."""
-    data, affine = load_nifti(path)
+    data, affine = load_nifti(path, native=native)
     data = orient_ras(data, affine)
     if ensure_channel and data.ndim == 3:
         data = data[..., None]
     return np.ascontiguousarray(data)
 
 
-def load_image(path, ensure_channel: bool = True) -> np.ndarray:
-    return load_image_raw(path, ensure_channel).astype(np.float32)
+def load_image(path, ensure_channel: bool = True,
+               native: bool = True) -> np.ndarray:
+    return load_image_raw(path, ensure_channel, native).astype(np.float32)
 
 
-def load_served(path, raw: bool) -> np.ndarray:
+def load_served(path, raw: bool, native: bool = True) -> np.ndarray:
     """A volume as serving uploads it: in its stored dtype, to be windowed
-    on the device (``raw``), or windowed here."""
-    return load_image_raw(path) if raw else \
-        scale_intensity_range(load_image(path))
+    on the device (``raw``), or windowed here; decoded (and windowed)
+    by the native library unless ``native`` is False."""
+    return load_image_raw(path, native=native) if raw else \
+        scale_intensity_range(load_image(path, native=native),
+                              native=native)
 
 
 def write_labels(path, crop: np.ndarray, slices, shape) -> List[int]:
@@ -377,4 +393,18 @@ def transform_pretrain_fit(item: Dict, conf,
                                                 start=st_start)
                 students[key] = spatial_pad(c, size)
         out.append({**crops, **students, "name": item["name"]})
+    return out
+
+
+def load_pseudo_bg_mask(sample: Dict[str, np.ndarray],
+                        image_key: str = "image", name: str = "pseudo_bg",
+                        threshold: float = 0.0025) -> Dict[str, np.ndarray]:
+    """The reference's ``LoadPseudoBgMaskd``: for every key of ``sample``
+    that contains ``image_key``, a boolean mask ``image > threshold``
+    under that key with ``image_key`` replaced by ``name``.  No
+    pipeline of the reference uses it."""
+    out = dict(sample)
+    for key in sample:
+        if image_key in key:
+            out[key.replace(image_key, name)] = sample[key] > threshold
     return out

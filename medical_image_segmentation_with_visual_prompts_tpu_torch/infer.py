@@ -10,6 +10,9 @@ crop, while the device runs the current volume.  The upload is the raw
 (typically int16 HU) volume, windowed on the device; the argmax is taken
 on the device too.
 
+:func:`segment_volume` is the Python API of one preprocessed volume in
+memory (the JAX package's ``segment_volume``).
+
 ``--watch`` polls one input directory and serves each new volume as it
 arrives, with the model, the runner and the IO workers kept warm across
 polls (:func:`watch_directory`).
@@ -46,6 +49,7 @@ import torch
 
 from .config import ModelConfig, load_conf
 from .data import load_served, write_labels
+from .data import native as native_lib
 from .models import SwinUnetR
 from .parallel import (BucketedInference, maybe_initialize_distributed,
                        window_starts)
@@ -97,6 +101,25 @@ def predict_device(runner: BucketedInference, roi, volume: np.ndarray):
         probs = runner(cropped)
         dtype = torch.uint8 if probs.shape[-1] <= 256 else torch.int16
         return torch.argmax(probs, dim=-1).to(dtype), slices
+
+
+def segment_volume(conf, model: SwinUnetR, volume: np.ndarray,
+                   chunk: Optional[int] = None, stride=None) -> np.ndarray:
+    """The Python API of the JAX package's ``segment_volume``: a
+    preprocessed (host-windowed) ``[H, W, D, 1]`` volume -> ``[H, W, D]``
+    int16 labels, on the device ``model`` is on.  Gaussian-stitched
+    bucketed windows (:class:`BucketedInference`) over the stride-aligned
+    centre crop, as the JAX function's runner crops; voxels outside the
+    crop stay background 0.  ``mesh_data`` in ``conf`` (a mapping or a
+    namespace) splits the window chunks over the data group."""
+    conf = conf if isinstance(conf, dict) else vars(conf)
+    roi = tuple(conf["roi_size"])
+    runner = make_runner(conf, model, chunk, stride=stride,
+                         device_windowing=False, coverage="crop")
+    crop, slices = predict_device(runner, roi, volume)
+    labels = np.zeros(volume.shape[:3], np.int16)
+    labels[slices] = crop.cpu().numpy()
+    return labels
 
 
 def resolve_io(inputs: List[str], output: str) -> List[Tuple[Path, Path]]:
@@ -172,10 +195,13 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
                   pairs: List[Tuple[Path, Path]], chunk: Optional[int] = None,
                   runner: Optional[BucketedInference] = None, stride=None,
                   device_windowing: bool = True,
-                  coverage: str = "pad") -> Tuple[int, int]:
+                  coverage: str = "pad",
+                  native: bool = True) -> Tuple[int, int]:
     """Segment a batch of volumes with pipelined host IO.  Per-volume
     load, inference or write failures are reported and counted.  Returns
-    ``(n_done, n_failed)``.
+    ``(n_done, n_failed)``.  ``native``: the workers decode with the
+    native library (``data/native.py``, built here before they start),
+    else with numpy.
 
     The IO workers are spawned processes, which import the caller's main
     module: a script that calls this runs its work under
@@ -185,6 +211,8 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
         runner = make_runner(conf, model, chunk, stride=stride,
                              device_windowing=device_windowing,
                              coverage=coverage)
+    if native:
+        native_lib.library()
     pool = io_pool()
     raw_feed = runner.preprocess is not None
     # Data parallel: every rank serves every volume; rank 0 writes.
@@ -230,7 +258,7 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
             if sd is None:
                 return
             decoding.append((*sd, pool.submit(load_served, str(sd[0]),
-                                              raw_feed)))
+                                              raw_feed, native)))
 
     wt = threading.Thread(target=writer, daemon=True)
     wt.start()

@@ -13,6 +13,11 @@ trainable subtree, ``[count, lr, weight_decay, adam count, mu..., nu...]``
 with one ``mu`` and one ``nu`` per trainable flax leaf in the tree's leaf
 order (``utils/torch_import.py::flax_paths``).
 
+:class:`StepProfiler` times every training step of the three trainers
+(``perf/step_ms``) and, when the config sets ``profile_dir``, records a
+``torch.profiler`` trace of global steps 2-6, as the JAX package's
+``StepProfiler`` records a device trace.
+
 The pretraining trainers' optimizer is :func:`grouped_adamw`: one torch
 param group per optax group of the JAX trainer's ``optax.multi_transform``
 of schedule-driven ``adamw``s (phase 2: ``"base"`` and ``"prompt"``;
@@ -28,6 +33,10 @@ leaves); an empty group keeps its two counts.
 
 from __future__ import annotations
 
+import os
+import socket
+import time
+from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -286,6 +295,81 @@ def ema_update(teacher: torch.nn.Module, student: torch.nn.Module,
         raise ValueError("teacher and student differ in parameters")
     torch._foreach_mul_(t, tau)
     torch._foreach_add_(t, s, alpha=1.0 - tau)
+
+
+def count_params(params: Iterable[torch.Tensor]) -> int:
+    """Elements in ``params``."""
+    return int(sum(p.numel() for p in params))
+
+
+class StepProfiler:
+    """Wall time of every training step, and a ``torch.profiler`` trace
+    of a few of them.
+
+    ``step_begin`` / ``step_end`` bracket a step (its end once the loss
+    has been read, so the device's work is in it); :meth:`mean_ms` is the
+    mean of the last ``last`` steps.  With ``profile_dir`` set, global
+    steps ``trace_steps[0]`` to ``trace_steps[1]`` (both included) run
+    under ``torch.profiler.profile`` with CPU and, on a CUDA device, CUDA
+    activities, and ``torch.profiler.tensorboard_trace_handler`` writes
+    the Chrome trace ``<worker>.<ns>.pt.trace.json`` into ``profile_dir``
+    when the last one ends.  The worker name is the host and the process,
+    with ``rank<r>`` under a data group: each rank writes its own file.
+    """
+
+    def __init__(self, logger, profile_dir=None, trace_steps=(2, 6),
+                 device=None, rank: Optional[int] = None):
+        self.logger = logger
+        self.profile_dir = Path(profile_dir) if profile_dir else None
+        self.trace_start, self.trace_stop = trace_steps
+        self.cuda = torch.device(device or "cpu").type == "cuda"
+        self.worker = f"{socket.gethostname()}_{os.getpid()}" + (
+            "" if rank is None else f"_rank{rank}")
+        self.trace_path: Optional[Path] = None
+        self._prof = None
+        self._t_last = None
+        self.durations: List[float] = []
+
+    def step_begin(self, global_step: int) -> None:
+        if self.profile_dir and self._prof is None \
+                and global_step == self.trace_start:
+            from torch.profiler import (ProfilerActivity, profile,
+                                        tensorboard_trace_handler)
+            acts = [ProfilerActivity.CPU] + \
+                ([ProfilerActivity.CUDA] if self.cuda else [])
+            self._prof = profile(activities=acts,
+                                 on_trace_ready=tensorboard_trace_handler(
+                                     str(self.profile_dir), self.worker))
+            self._prof.start()
+        self._t_last = time.perf_counter()
+
+    def step_end(self, global_step: int) -> None:
+        if self._t_last is not None:
+            self.durations.append(time.perf_counter() - self._t_last)
+        if self._prof is not None and global_step >= self.trace_stop:
+            self._stop()
+
+    def _stop(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+        self._prof.stop()
+        self._prof = None
+        traces = sorted(self.profile_dir.glob(f"{self.worker}.*.json"),
+                        key=lambda p: p.stat().st_mtime)
+        self.trace_path = traces[-1] if traces else None
+        self.logger.info(f"Profiler trace written to {self.trace_path}.")
+
+    def mean_ms(self, last: int = 50) -> float:
+        if not self.durations:
+            return 0.0
+        window = self.durations[-last:]
+        return 1e3 * sum(window) / len(window)
+
+    def close(self) -> None:
+        """End a trace that is still recording (a run shorter than its
+        last step)."""
+        if self._prof is not None:
+            self._stop()
 
 
 class AvgLosses:

@@ -59,7 +59,6 @@ alone writes.
 from __future__ import annotations
 
 import logging
-import time
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -81,8 +80,8 @@ from ..utils.schedules import warmup_cosine
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
 from ..utils.visualization import view_reconstruction
-from .common import (AvgLosses, DeviceCtx, fill_missing_grads,
-                     grouped_adamw, grouped_adamw_leaves,
+from .common import (AvgLosses, DeviceCtx, StepProfiler, count_params,
+                     fill_missing_grads, grouped_adamw, grouped_adamw_leaves,
                      load_grouped_adamw_leaves, set_scheduled_lr)
 
 SAVE_EVERY = 10        # epochs between backbone checkpoints
@@ -148,11 +147,20 @@ class MultiViewTrainer:
         self.schedule = None
         self.start_epoch = None      # set by prepare_fit()
         self.step_count = 0          # optimizer steps taken
-        self.step_ms: list = []      # host time of every training step
+        # Step times (perf/step_ms) and the profile_dir trace.
+        self.profiler = StepProfiler(
+            self.logger, getattr(hparams, "profile_dir", None),
+            device=self.device,
+            rank=None if self.dp is None else self.dp.rank)
         self.losses: list = []       # {name: value} of every training step
         self.val_losses: list = []   # {name: value} of every validation step
 
     # ------------------------------------------------------------- setup
+    @property
+    def step_ms(self) -> list:
+        """Host time of every training step so far, in ms."""
+        return [1e3 * d for d in self.profiler.durations]
+
     def configure_optimizers(self):
         """Freeze all but the encoder, its heads and the encoder prompts;
         AdamW in the body and (with encoder prompting) prompt groups,
@@ -175,7 +183,7 @@ class MultiViewTrainer:
             groups["prompt" if prompt else "body"][0].append(p)
         self.optimizer = grouped_adamw(groups)
         self.schedule = groups["body"][1]
-        n = sum(p.numel() for _, p in trainable)
+        n = count_params(p for _, p in trainable)
         self.logger.info(f"{n} parameters trainable.")
         for name, loader in (("training", self.train_loader),
                              ("validation", self.val_loader)):
@@ -359,13 +367,15 @@ class MultiViewTrainer:
             f"Scalar summaries: {getattr(conf, 'summary_dir', None)}")
         self.logger.info(f"Using device: {self.device}.")
         self.logger.info(f"Start training from epoch {start_epoch:04d}.")
+        global_step = 0
         for epoch in range(start_epoch, conf.max_epochs_multi_view + 1):
             self.model.train()
             for step, batch in enumerate(self.train_loader):
-                t0 = time.perf_counter()
+                self.profiler.step_begin(global_step)
                 parts = self.train_step(batch)
                 parts = {k: float(v) for k, v in parts.items()}  # waits
-                self.step_ms.append(1e3 * (time.perf_counter() - t0))
+                self.profiler.step_end(global_step)
+                global_step += 1
                 self.losses.append(parts)
                 for name, val in parts.items():
                     avg.append(name, val)
@@ -383,8 +393,7 @@ class MultiViewTrainer:
                             self.logger.info(
                                 f"{label} training loss in step {step} "
                                 f"epoch {epoch}: {parts[name]:.5f}.")
-            recent = self.step_ms[-50:]
-            mean_ms = float(np.mean(recent)) if recent else 0.0
+            mean_ms = self.profiler.mean_ms()
             self.logger.info(f"Mean train step time epoch {epoch}: "
                              f"{mean_ms:.1f} ms.")
             self._scalar("perf/step_ms", mean_ms, epoch)
@@ -408,4 +417,5 @@ class MultiViewTrainer:
                     self.logger.info(
                         f"Best {name}_loss_val improved in epoch {epoch}.")
                 self._scalar(f"val_loss/{name}", val, epoch)
+        self.profiler.close()
         self.final_state = self.model.state_dict()

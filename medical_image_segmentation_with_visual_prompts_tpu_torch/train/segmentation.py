@@ -57,7 +57,6 @@ Counterpart of the JAX package's ``train/segmentation.py``
 from __future__ import annotations
 
 import logging
-import time
 from pathlib import Path
 
 import numpy as np
@@ -78,8 +77,9 @@ from ..utils.schedules import step_decay
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
 from ..utils.visualization import view_segmentation
-from .common import (AvgLosses, DeviceCtx, adamw, adamw_leaves,
-                     fill_missing_grads, load_adamw_leaves, valid_of)
+from .common import (AvgLosses, DeviceCtx, StepProfiler, adamw,
+                     adamw_leaves, count_params, fill_missing_grads,
+                     load_adamw_leaves, valid_of)
 
 TEST_CHUNK = 10        # windows per forward of the per-window test
 SAVE_EVERY = 20        # epochs between prompt-token checkpoints
@@ -119,7 +119,11 @@ class SegmentationTrainer:
         self.num_classes = hparams.output_channels_downstream
         self.optimizer = None
         self.start_epoch = None      # set by prepare_fit()
-        self.step_ms: list = []      # host time of every training step
+        # Step times (perf/step_ms) and the profile_dir trace.
+        self.profiler = StepProfiler(
+            self.logger, getattr(hparams, "profile_dir", None),
+            device=self.device,
+            rank=None if self.dp is None else self.dp.rank)
         self.losses: list = []       # loss of every training step
         self.metric_vals = None      # test(): per-volume IoU and Dice
 
@@ -147,11 +151,16 @@ class SegmentationTrainer:
         load_flax_variables(self.model, restore_like(
             to_flax_variables(self.model), ckpt["model_state_dict"]))
 
+    @property
+    def step_ms(self) -> list:
+        """Host time of every training step so far, in ms."""
+        return [1e3 * d for d in self.profiler.durations]
+
     def configure_optimizers(self):
         """Freeze all but the downstream set; AdamW and its schedule."""
         trainable = set_trainable(self.model,
                                   downstream_labels(self.model_conf))
-        n = sum(p.numel() for _, p in trainable)
+        n = count_params(p for _, p in trainable)
         self.logger.info(f"{n} parameters trainable.")
         lr = float(self.hparams.lr_downstream)
         self.optimizer = adamw([p for _, p in trainable], lr,
@@ -244,16 +253,18 @@ class SegmentationTrainer:
             f"Scalar summaries: {getattr(conf, 'summary_dir', None)}")
         self.logger.info(f"Using device: {self.device}.")
         self.logger.info(f"Start training from epoch {start_epoch:04d}.")
+        global_step = 0
         for epoch in range(start_epoch, conf.max_epochs_downstream + 1):
             lr = self.schedule(epoch)
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
             self.model.train()
             for step, batch in enumerate(self.train_loader):
-                t0 = time.perf_counter()
+                self.profiler.step_begin(global_step)
                 loss, stats = self.train_step(batch)
                 loss = float(loss)      # waits for the step
-                self.step_ms.append(1e3 * (time.perf_counter() - t0))
+                self.profiler.step_end(global_step)
+                global_step += 1
                 self.losses.append(loss)
                 avg.append("seg", loss)
                 avg.append("tot", loss)
@@ -274,8 +285,7 @@ class SegmentationTrainer:
                     self.logger.info(
                         f"Segmentation training score in step {step} epoch "
                         f"{epoch}: {metrics.compute():.5f}.")
-            recent = self.step_ms[-50:]
-            mean_ms = float(np.mean(recent)) if recent else 0.0
+            mean_ms = self.profiler.mean_ms()
             self.logger.info(f"Mean train step time epoch {epoch}: "
                              f"{mean_ms:.1f} ms.")
             self._scalar("perf/step_ms", mean_ms, epoch)
@@ -315,6 +325,7 @@ class SegmentationTrainer:
                 self._scalar(f"val_loss/{name}", val, epoch)
             self._scalar("val_metric/seg", metrics.compute(), epoch)
             metrics.reset()
+        self.profiler.close()
         self.final_state = self.model.state_dict()
         return self.final_state
 

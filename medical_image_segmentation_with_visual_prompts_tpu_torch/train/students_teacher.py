@@ -59,10 +59,8 @@ alone writes.
 from __future__ import annotations
 
 import logging
-import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from ..config import SUPERVISED_MODES, ModelConfig
@@ -79,8 +77,9 @@ from ..utils.schedules import warmup_cosine
 from ..utils.summary import model_summary
 from ..utils.torch_import import load_flax_variables, to_flax_variables
 from ..utils.visualization import view_prototype_students_teacher
-from .common import (AvgLosses, DeviceCtx, ema_update, fill_missing_grads,
-                     grouped_adamw, grouped_adamw_leaves,
+from .common import (AvgLosses, DeviceCtx, StepProfiler, count_params,
+                     ema_update, fill_missing_grads, grouped_adamw,
+                     grouped_adamw_leaves,
                      load_grouped_adamw_leaves, set_scheduled_lr)
 
 SAVE_EVERY = 10        # epochs between backbone checkpoints
@@ -138,11 +137,20 @@ class StudentsTeacherTrainer:
         self.schedule = None
         self.start_epoch = None      # set by prepare_fit()
         self.step_count = 0          # optimizer steps taken
-        self.step_ms: list = []      # host time of every training step
+        # Step times (perf/step_ms) and the profile_dir trace.
+        self.profiler = StepProfiler(
+            self.logger, getattr(hparams, "profile_dir", None),
+            device=self.device,
+            rank=None if self.dp is None else self.dp.rank)
         self.losses: list = []       # {name: value} of every training step
         self.val_losses: list = []   # {name: value} of every validation step
 
     # ------------------------------------------------------------- setup
+    @property
+    def step_ms(self) -> list:
+        """Host time of every training step so far, in ms."""
+        return [1e3 * d for d in self.profiler.durations]
+
     def configure_optimizers(self):
         """Freeze all but the mode's trainable set; AdamW in the base and
         prompt groups, each with its warmup-cosine schedule."""
@@ -165,7 +173,7 @@ class StudentsTeacherTrainer:
             groups["prompt" if prompt else "base"][0].append(p)
         self.optimizer = grouped_adamw(groups)
         self.schedule = groups["base"][1]
-        n = sum(p.numel() for _, p in trainable)
+        n = count_params(p for _, p in trainable)
         self.logger.info(f"{n} parameters trainable.")
         for name, loader in (("training", self.train_loader),
                              ("validation", self.val_loader)):
@@ -309,14 +317,16 @@ class StudentsTeacherTrainer:
             f"Scalar summaries: {getattr(conf, 'summary_dir', None)}")
         self.logger.info(f"Using device: {self.device}.")
         self.logger.info(f"Start training from epoch {start_epoch:04d}.")
+        global_step = 0
         for epoch in range(start_epoch, conf.max_epochs_students_teacher + 1):
             self.model.train()
             self.teacher.train()
             for step, batch in enumerate(self.train_loader):
-                t0 = time.perf_counter()
+                self.profiler.step_begin(global_step)
                 parts, stats = self.train_step(batch)
                 parts = {k: float(v) for k, v in parts.items()}  # waits
-                self.step_ms.append(1e3 * (time.perf_counter() - t0))
+                self.profiler.step_end(global_step)
+                global_step += 1
                 self.losses.append(parts)
                 for name, val in parts.items():
                     avg.append(name, val)
@@ -341,8 +351,7 @@ class StudentsTeacherTrainer:
                         self.logger.info(
                             f"Segmentation training loss in step {step} "
                             f"epoch {epoch}: {parts['seg']:.4f}.")
-            recent = self.step_ms[-50:]
-            mean_ms = float(np.mean(recent)) if recent else 0.0
+            mean_ms = self.profiler.mean_ms()
             self.logger.info(f"Mean train step time epoch {epoch}: "
                              f"{mean_ms:.1f} ms.")
             self._scalar("perf/step_ms", mean_ms, epoch)
@@ -375,6 +384,7 @@ class StudentsTeacherTrainer:
             if metrics is not None:
                 self._scalar("val_metric/seg", metrics.compute(), epoch)
                 metrics.reset()
+        self.profiler.close()
         self.final_state = self.model.state_dict()
         self.final_teacher = self.teacher.state_dict()
         return self.final_state

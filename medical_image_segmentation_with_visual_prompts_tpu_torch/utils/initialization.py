@@ -24,7 +24,7 @@ from ..parallel import maybe_initialize_distributed
 from ..parallel.mesh import mesh_of, world
 from ..train import (MultiViewTrainer, SegmentationTrainer,
                      StudentsTeacherTrainer)
-from .loggers import SummaryWriter, get_logger
+from .loggers import get_logger, get_summary_writer
 
 
 def _check_mode(hparams) -> None:
@@ -45,7 +45,7 @@ def prepare_process(hparams, device="cpu") -> bool:
 def _sinks(hparams, device):
     main = prepare_process(hparams, device)
     return (get_logger(hparams.log_dir, to_file=main),
-            SummaryWriter(hparams.summary_dir) if main else None)
+            get_summary_writer(hparams.summary_dir) if main else None)
 
 
 def setup_fitting(hparams, device=None):

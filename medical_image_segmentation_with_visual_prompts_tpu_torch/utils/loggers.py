@@ -71,3 +71,8 @@ class SummaryWriter:
         if self._tb is not None:
             self._tb.close()
 
+
+
+def get_summary_writer(summary_dir) -> SummaryWriter:
+    """The run's scalar summary writer (the JAX package's factory)."""
+    return SummaryWriter(summary_dir)

@@ -15,7 +15,10 @@ volumes, on the CPU.
   to 1e-3 absolute (argmax ties at reassociation noise may flip a few
   voxels), with the same ``+/-`` lines in the port's log.
 * The port's summaries decode with the JAX TensorBoard reader and carry
-  the JAX trainer's tags.
+  the JAX trainer's tags; a port-written ``scalars.jsonl`` converted by
+  the port's ``utils.tb_events`` command decodes with the JAX reader to
+  the same (tag, value, step), and a JAX-converted one with the port's.
+* ``load_pseudo_bg_mask`` gives the JAX masks.
 * Fault C5: the port's ``infer --ckpt`` serves the JAX trainer's
   checkpoint; its labels agree with the JAX model served by JAX
   ``BucketedInference`` from the same file on at least 99.9% of voxels.
@@ -505,6 +508,64 @@ def test_summaries_decode_with_the_jax_reader(runs):
     assert tags == {r["tag"] for r in _scalars(jtr.hparams.summary_dir)}
     assert {"perf/step_ms", "train_loss/seg", "train_metric/seg",
             "val_loss/seg", "val_metric/seg"} <= tags
+
+
+def test_tb_events_command_round_trips_with_jax(tmp_path, monkeypatch):
+    import subprocess
+    import sys
+    from medical_image_segmentation_with_visual_prompts_tpu.utils import \
+        tb_events as jax_tb
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import loggers, tb_events
+    monkeypatch.setenv("MIVP_TENSORBOARD", "0")
+    rows = [("train_loss/seg", 0.75, 0), ("perf/step_ms", 123.5, 0),
+            ("train_loss/seg", 0.5, 1), ("val_metric/seg", 1e-8, 7)]
+    for side in ("port", "jax"):
+        summary = tmp_path / side
+        writer = loggers.get_summary_writer(summary)
+        for tag, value, step in rows:
+            writer.add_scalar(tag, value, step)
+        writer.close()
+        assert not list(summary.glob("events.out.tfevents.*"))
+    out = subprocess.run(
+        [sys.executable, "-m", tb_events.__name__, str(tmp_path / "port")],
+        cwd=Path(__file__).resolve().parent.parent, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    port_events = Path(out.stdout.strip())
+    jax_events = jax_tb.convert_jsonl(tmp_path / "jax")
+    for path, read, decode in (
+            (port_events, jax_tb.read_records, jax_tb.decode_scalar_event),
+            (jax_events, tb_events.read_records,
+             tb_events.decode_scalar_event)):
+        assert path.parent.exists() and path.name.startswith(
+            "events.out.tfevents.")
+        decoded = [decode(p) for p in read(path)]
+        assert decoded[0] is None              # the file-version record
+        assert [(t, s) for t, _, s, _ in decoded[1:]] == \
+            [(t, s) for t, _, s in rows]
+        np.testing.assert_array_equal(
+            [v for _, v, _, _ in decoded[1:]],
+            np.float32([v for _, v, _ in rows]))
+    assert tb_events.file_version_event(1.5) == \
+        jax_tb.file_version_event(1.5)
+
+
+def test_load_pseudo_bg_mask_matches_jax():
+    from medical_image_segmentation_with_visual_prompts_tpu.data import \
+        transforms as jax_tf
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.data \
+        import transforms
+    rng = np.random.default_rng(11)
+    sample = {"image": rng.uniform(0, 0.005, (6, 5, 4, 1)).astype(
+        np.float32), "image_st_0": rng.uniform(0, 0.005, (4, 4, 4, 1)),
+        "mask": np.ones((6, 5, 4, 1))}
+    got, want = transforms.load_pseudo_bg_mask(sample), \
+        jax_tf.load_pseudo_bg_mask(sample)
+    assert sorted(got) == sorted(want) == sorted(
+        [*sample, "pseudo_bg", "pseudo_bg_st_0"])
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
 
 
 def test_infer_serves_a_jax_trainer_checkpoint(runs, tmp_path):

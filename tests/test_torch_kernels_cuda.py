@@ -1460,3 +1460,26 @@ def test_block_backward_at_a_window_base(dev, c, heads, m, fold_mode,
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
             assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_flop_counts_match_the_bf16_plain_forward_on_the_card(dev):
+    """``utils/flops.py`` at the flagship, one 128x128x8 window: the
+    port's count as executed is ``FlopCounterMode``'s of the bf16 plain
+    forward on the card (fresh operand caches), the model count is what
+    ``model_flops`` returns."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import flagship_conf
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import flops
+    model = SwinUnetR(flagship_conf())
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval().set_kernels(False)
+    x = torch.rand((1, 128, 128, 8, 1), generator=torch.Generator()
+                   .manual_seed(1)).to(dev)
+    count = flops.forward_flops(flagship_conf(), 1, roi=(128, 128, 8))
+    assert flops.counted_flops(model, x) == count.port
+    assert flops.model_flops(flagship_conf(), roi=(128, 128, 8)) == \
+        count.model

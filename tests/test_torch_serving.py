@@ -11,6 +11,10 @@ package.
   model served through JAX ``BucketedInference`` on the same volume and
   weights (fp32 both): at least 99.9% equal voxels (argmax ties at fp32
   reassociation noise may flip).
+* ``infer.segment_volume`` (the Python API) against the JAX package's on
+  the same preprocessed volume and weights: the same 99.9%, background
+  outside the centre crop; ``serve_volumes`` gives the same labels with
+  the native and the numpy decoder.
 """
 
 import sys
@@ -165,6 +169,32 @@ def test_infer_main_end_to_end_matches_jax_serving(tmp_path, tiny_jax):
     assert 0 < (want > 0).mean() < 1       # both classes present
 
 
+def test_segment_volume_matches_jax(tiny_jax):
+    from argparse import Namespace
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import ModelConfig
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        .torch_import import load_flax_variables
+    conf, _, _, variables = tiny_jax
+    model = SwinUnetR(ModelConfig.from_mapping(conf))
+    load_flax_variables(model, variables)
+    rng = np.random.default_rng(9)
+    vol = rng.uniform(0, 0.6, size=(30, 26, 11, 1)).astype(np.float32)
+    vol[8:20, 6:18, 2:8] += 0.4
+    got = infer.segment_volume(conf, model, vol)
+    want = jax_infer.segment_volume(Namespace(**conf), variables, vol)
+    assert got.shape == want.shape == vol.shape[:3]
+    assert got.dtype == np.int16
+    assert (got == want).mean() >= 0.999
+    slices, _, _ = sw.window_starts(vol.shape[:3], tuple(conf["roi_size"]),
+                                    None)
+    inside = np.zeros(vol.shape[:3], bool)
+    inside[slices] = True
+    assert not got[~inside].any() and 0 < (got[inside] > 0).mean() < 1
+
+
 def test_per_window_mode_matches_jax(tiny_jax):
     from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
         import ModelConfig
@@ -261,6 +291,28 @@ def test_serve_volumes_counts_failures(tmp_path):
                                stride=1.0)
     assert done == (1, 1)
     assert (tmp_path / "g_seg.nii").exists()
+
+
+def test_serve_volumes_native_and_numpy_decoders_agree(tmp_path):
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import ModelConfig
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import init_weights
+    conf = tiny_conf()
+    model = init_weights(SwinUnetR(ModelConfig.from_mapping(conf)),
+                         torch.Generator().manual_seed(1))
+    src = tmp_path / "ct.nii.gz"
+    save_nifti(str(src), np.random.default_rng(10).normal(
+        0, 400, size=(22, 19, 9)).astype(np.float32))
+    outs = []
+    for native in (True, False):
+        dst = tmp_path / f"seg_{native}.nii.gz"
+        assert infer.serve_volumes(conf, model, [(src, dst)], stride=0.75,
+                                   native=native) == (1, 0)
+        outs.append(load_nifti(str(dst))[0])
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def _jax_conf(configs, **cli):

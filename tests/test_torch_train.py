@@ -3,9 +3,8 @@
 * ``dice_focal_loss`` and ``seg_stats`` against the JAX functions: 1e-5
   relative (fp32, the same formulas); the stats are counts, exact.
 * ``get_fit_loader_downstream``: the same batches (names, crops) as the
-  JAX loader at the same seed: masks bit for bit, images to 1e-6 (the
-  JAX loader may window intensities in its native C++ helper, one fp32
-  ulp away from numpy).
+  JAX loader at the same seed, bit for bit (both window intensities in
+  the native C++ loop of ``native/miseg_native.cpp``).
 * Three train steps on ``configurations/tiny_cpu.yml`` (downstream, both
   prompt sets, dropout 0, weight decay 0.1) from the same weights and
   batches: the port's ``SegmentationTrainer.train_step`` against the JAX
@@ -150,8 +149,7 @@ def test_fit_loader_gives_the_jax_batches(tmp_path):
             assert len(got) == len(want) > 0, epoch
             for a, b in zip(got, want):
                 assert a["name"] == b["name"]
-                np.testing.assert_allclose(a["image"], b["image"], atol=1e-6,
-                                           rtol=0)
+                np.testing.assert_array_equal(a["image"], b["image"])
                 np.testing.assert_array_equal(a["mask"], b["mask"])
 
 
