@@ -4632,6 +4632,8 @@ def main() -> int:
                             Path(arg["--dp-root"]))
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         import kernels
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.utils \
+        import trace as tracer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     start = time.perf_counter()
@@ -4639,9 +4641,15 @@ def main() -> int:
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
+    tracer.enable()
     lib = kernels.library()
+    built = tracer.collect()
+    tracer.disable()
+    build_ms = [s["host_ms"] for s in built["spans"]
+                if s["name"] == "kernels.build"]
     print(f"kernels ready in {time.perf_counter() - start:.2f} s "
-          f"(nvcc build {kernels.build_seconds} s): {lib._name}")
+          f"(kernels.build {build_ms} ms, kernels.builds "
+          f"{built['counters'].get('kernels.builds')}): {lib._name}")
 
     def clock(phase):
         print(f"[{time.perf_counter() - start:.1f} s] {phase}")

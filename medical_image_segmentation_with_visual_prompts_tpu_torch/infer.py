@@ -54,7 +54,7 @@ from .models import SwinUnetR
 from .parallel import (BucketedInference, maybe_initialize_distributed,
                        window_starts)
 from .parallel.mesh import mesh_of
-from .utils import load_reference_checkpoint
+from .utils import load_reference_checkpoint, trace
 from .utils.checkpoint import load_checkpoint, restore_like
 from .utils.device import resolve_device
 from .utils.torch_import import load_flax_variables, to_flax_variables
@@ -89,18 +89,26 @@ def device_scale_intensity(a_min: float = -1000.0, a_max: float = 1000.0,
 
 def predict_device(runner: BucketedInference, roi, volume: np.ndarray):
     """Stitched inference + argmax on the device.  Returns the label crop
-    (uint8 device tensor) and the crop slices within the volume."""
+    (uint8 device tensor) and the crop slices within the volume.  One
+    unit of the tracer (``serve.volume``)."""
+    with trace.unit("serve.volume", runner.device):
+        return _predict(runner, roi, volume)
+
+
+def _predict(runner: BucketedInference, roi, volume: np.ndarray):
     if runner.coverage == "pad":
         slices = tuple(slice(0, d) for d in volume.shape[:3])
         cropped = np.ascontiguousarray(volume)
     else:
         slices, _, _ = window_starts(volume.shape[:3], roi, runner.stride)
-        cropped = np.ascontiguousarray(
-            volume[slices[0], slices[1], slices[2]])
+        with trace.span("serve.crop"):
+            cropped = np.ascontiguousarray(
+                volume[slices[0], slices[1], slices[2]])
     with torch.inference_mode():
         probs = runner(cropped)
-        dtype = torch.uint8 if probs.shape[-1] <= 256 else torch.int16
-        return torch.argmax(probs, dim=-1).to(dtype), slices
+        with trace.span("serve.argmax"):
+            dtype = torch.uint8 if probs.shape[-1] <= 256 else torch.int16
+            return torch.argmax(probs, dim=-1).to(dtype), slices
 
 
 def segment_volume(conf, model: SwinUnetR, volume: np.ndarray,
@@ -235,9 +243,10 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
             item = to_write.get()
             if item is None:
                 break
-            dst, src_name, pred_dev, slices, shape = item
+            dst, src_name, pred_dev, slices, shape, volume_unit = item
             try:
-                crop = pred_dev.cpu().numpy()
+                with trace.span("serve.download", parent=volume_unit):
+                    crop = pred_dev.cpu().numpy()
                 written.append((dst, src_name, pool.submit(
                     write_labels, str(dst), crop, slices, shape)))
             except Exception as e:
@@ -275,13 +284,15 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
             n_failed += 1
             continue
         try:
-            pred_dev, slices = predict_device(runner, roi, vol)
+            with trace.unit("serve.volume", runner.device) as volume_unit:
+                pred_dev, slices = _predict(runner, roi, vol)
         except Exception as e:  # e.g. volume smaller than the roi
             print(f"FAILED inference {src}: {e}")
             n_failed += 1
             continue
         if writes:
-            to_write.put((dst, src.name, pred_dev, slices, vol.shape[:3]))
+            to_write.put((dst, src.name, pred_dev, slices, vol.shape[:3],
+                          volume_unit))
         n_done += 1
     to_write.put(None)
     wt.join()

@@ -20,8 +20,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
+
+from ..utils import trace
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -71,7 +72,6 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None   # wall time of the build this process did, if any
 
 
 def _nvcc() -> str:
@@ -109,15 +109,22 @@ def _run(procs) -> None:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists:
-    one ``nvcc -c`` per source, all started together, then one link."""
-    global build_seconds
-    lib = library_path()
-    if lib.exists():
+    """Compile the kernels unless a library for these sources exists
+    (tracer unit ``kernels.build``; counter ``kernels.builds``: 0 or 1)."""
+    with trace.unit("kernels.build"):
+        lib = library_path()
+        built = not lib.exists()
+        if built:
+            _compile(lib)
+        trace.count("kernels.builds", int(built))
         return lib
+
+
+def _compile(lib: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link
+    into ``lib``."""
     _BUILD.mkdir(parents=True, exist_ok=True)
     tag = f"{lib.stem}.{os.getpid()}"
-    t0 = time.perf_counter()
     compiles, objs = [], []
     for src in _sources():
         obj = _BUILD / f"{tag}.{src.stem}.o"
@@ -134,8 +141,6 @@ def build() -> Path:
     os.replace(tmp, lib)
     for obj in objs:
         obj.unlink()
-    build_seconds = time.perf_counter() - t0
-    return lib
 
 
 def library() -> ctypes.CDLL:

@@ -19,6 +19,12 @@ each chunk is rounded up to a multiple of the world size, its windows
 are split over the ranks (``ceil(n / world)`` each, the last padded with
 zero windows), and the logits are gathered, so that every rank stitches
 the same volume.
+
+A call's steps are spans of ``utils/trace.py`` (``serve.pad``,
+``serve.upload``, ``serve.preprocess``, ``serve.blend_weights``, per
+chunk ``serve.gather``, ``serve.forward`` and ``serve.stitch``, then
+``serve.divide``), with the counters ``serve.windows`` and
+``serve.forwards``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import resolve_device
 
 
@@ -177,15 +184,20 @@ class BucketedInference:
         wh, ww, wd = self.window
         group = self.group
         if group is None or not group.splits:
-            return self.apply_fn(torch.stack(
-                [vol[s[0]:s[0] + wh, s[1]:s[1] + ww, s[2]:s[2] + wd]
-                 for s in part]))
+            with trace.span("serve.gather"):
+                batch = torch.stack(
+                    [vol[s[0]:s[0] + wh, s[1]:s[1] + ww, s[2]:s[2] + wd]
+                     for s in part])
+            with trace.span("serve.forward"):
+                return self.apply_fn(batch)
         per = -(-len(part) // group.world)
         mine = part[group.rank * per:(group.rank + 1) * per]
-        batch = vol.new_zeros((per, wh, ww, wd, vol.shape[-1]))
-        for i, s in enumerate(mine):
-            batch[i] = vol[s[0]:s[0] + wh, s[1]:s[1] + ww, s[2]:s[2] + wd]
-        return group.gather(self.apply_fn(batch))[:len(part)]
+        with trace.span("serve.gather"):
+            batch = vol.new_zeros((per, wh, ww, wd, vol.shape[-1]))
+            for i, s in enumerate(mine):
+                batch[i] = vol[s[0]:s[0] + wh, s[1]:s[1] + ww, s[2]:s[2] + wd]
+        with trace.span("serve.forward"):
+            return group.gather(self.apply_fn(batch))[:len(part)]
 
     def plan(self, dims: Sequence[int]):
         """(bucket shape, starts [N, 3], validity [N]) for a volume."""
@@ -219,31 +231,40 @@ class BucketedInference:
         dims = tuple(cropped.shape[:3])
         bucket, starts, valid = self.plan(dims)
         self._buckets.add(bucket)
-        pads = [(0, b - d) for b, d in zip(bucket, dims)] + [(0, 0)]
-        vol = np.pad(np.asarray(cropped), pads, constant_values=np.asarray(
-            self.pad_value, np.asarray(cropped).dtype))
-        vol = torch.from_numpy(vol).to(self.device, non_blocking=True)
+        with trace.span("serve.pad"):
+            pads = [(0, b - d) for b, d in zip(bucket, dims)] + [(0, 0)]
+            vol = np.pad(np.asarray(cropped), pads,
+                         constant_values=np.asarray(
+                             self.pad_value, np.asarray(cropped).dtype))
+        with trace.span("serve.upload"):
+            vol = torch.from_numpy(vol).to(self.device, non_blocking=True)
         if self.preprocess is not None:
-            vol = self.preprocess(vol)
+            with trace.span("serve.preprocess"):
+                vol = self.preprocess(vol)
         per_window = self.mode == "per_window"
         if not per_window:
-            wacc = self._weights(bucket, dims, starts, valid)
+            with trace.span("serve.blend_weights"):
+                wacc = self._weights(bucket, dims, starts, valid)
             acc = torch.zeros((*bucket, self.num_classes),
                               dtype=torch.float32, device=self.device)
         starts = starts[valid]
+        trace.count("serve.windows", len(starts))
         preds = []
         wh, ww, wd = self.window
         chunk = self.resolve_chunk(len(starts))
         for c0 in range(0, len(starts), chunk):
             part = starts[c0:c0 + chunk]
             logits = self._logits(vol, part)
+            trace.count("serve.forwards")
             if per_window:
                 preds.append(torch.argmax(logits, dim=-1))
                 continue
-            probs = torch.softmax(logits.float(), dim=-1) * self.gauss
-            for s, p in zip(part, probs):
-                acc[s[0]:s[0] + wh, s[1]:s[1] + ww, s[2]:s[2] + wd] += p
+            with trace.span("serve.stitch"):
+                probs = torch.softmax(logits.float(), dim=-1) * self.gauss
+                for s, p in zip(part, probs):
+                    acc[s[0]:s[0] + wh, s[1]:s[1] + ww, s[2]:s[2] + wd] += p
         if per_window:
             return torch.cat(preds)
-        probs = acc / torch.clamp(wacc, min=1e-8)
+        with trace.span("serve.divide"):
+            probs = acc / torch.clamp(wacc, min=1e-8)
         return probs[:dims[0], :dims[1], :dims[2]]

@@ -28,6 +28,7 @@ import torch
 
 from ..losses import dice_focal_loss
 from ..ops.augment import map_label_indices
+from ..utils import trace
 from .mesh import DataGroup, shard_batch
 
 
@@ -48,7 +49,11 @@ class Forwards(torch.nn.Module):
         self.model = model
 
     def forward(self, *xs):
-        return [self.model(x) for x in xs]
+        out = []
+        for x in xs:
+            with trace.span("train.forward"):
+                out.append(self.model(x))
+        return out
 
 
 def data_parallel(model: torch.nn.Module, group: DataGroup):

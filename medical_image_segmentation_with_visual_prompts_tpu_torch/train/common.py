@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import DataGroup, mesh_of
+from ..utils import trace
 from ..utils.checkpoint import restore_like
 from ..utils.torch_import import flax_paths, from_flax, to_flax
 
@@ -98,7 +99,12 @@ class DeviceCtx:
     def stage(self, batch: Dict, exclude: Tuple[str, ...] = ("name",)
               ) -> Dict:
         """Host batch -> tensors on the device: this rank's rows of the
-        (padded) global batch, plus ``_valid`` where padded."""
+        (padded) global batch, plus ``_valid`` where padded.  Span
+        ``train.stage``."""
+        with trace.span("train.stage"):
+            return self._stage(batch, exclude)
+
+    def _stage(self, batch: Dict, exclude: Tuple[str, ...]) -> Dict:
         out, padded, rows = {}, 0, slice(None)
         n = self.n_devices
         for k, v in batch.items():
@@ -313,8 +319,11 @@ class StepProfiler:
     under ``torch.profiler.profile`` with CPU and, on a CUDA device, CUDA
     activities, and ``torch.profiler.tensorboard_trace_handler`` writes
     the Chrome trace ``<worker>.<ns>.pt.trace.json`` into ``profile_dir``
-    when the last one ends.  The worker name is the host and the process,
-    with ``rank<r>`` under a data group: each rank writes its own file.
+    when the last one ends.  The port's tracer (``utils/trace.py``) is on
+    for those steps, unless it already was, so that the trace shows the
+    ``train.*`` spans over the ops and kernels.  The worker name is the
+    host and the process, with ``rank<r>`` under a data group: each rank
+    writes its own file.
     """
 
     def __init__(self, logger, profile_dir=None, trace_steps=(2, 6),
@@ -327,6 +336,7 @@ class StepProfiler:
             "" if rank is None else f"_rank{rank}")
         self.trace_path: Optional[Path] = None
         self._prof = None
+        self._tracing = False        # the tracer was turned on here
         self._t_last = None
         self.durations: List[float] = []
 
@@ -340,6 +350,9 @@ class StepProfiler:
             self._prof = profile(activities=acts,
                                  on_trace_ready=tensorboard_trace_handler(
                                      str(self.profile_dir), self.worker))
+            self._tracing = not trace.enabled()
+            if self._tracing:
+                trace.enable()
             self._prof.start()
         self._t_last = time.perf_counter()
 
@@ -354,6 +367,11 @@ class StepProfiler:
             torch.cuda.synchronize()
         self._prof.stop()
         self._prof = None
+        if self._tracing:
+            # The spans are in the written trace.
+            trace.disable()
+            trace.collect()
+            self._tracing = False
         traces = sorted(self.profile_dir.glob(f"{self.worker}.*.json"),
                         key=lambda p: p.stat().st_mtime)
         self.trace_path = traces[-1] if traces else None

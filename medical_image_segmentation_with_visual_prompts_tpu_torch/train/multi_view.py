@@ -73,7 +73,7 @@ from ..ops.augment import (draw_mask_rank, draw_rotations, mask_by,
                            mask_shape, permute_inverse, permuted_shape,
                            random_permute, rotate_by)
 from ..parallel.train_parallel import Forwards, data_parallel
-from ..utils import init_weights
+from ..utils import init_weights, trace
 from ..utils.checkpoint import load_checkpoint, restore_like, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.schedules import warmup_cosine
@@ -271,67 +271,75 @@ class MultiViewTrainer:
         in its current mode, through ``forwards``: :class:`Forwards` of
         the model or its DDP wrapper)."""
         conf = self.hparams
-        x_i, keep_i = mask_by(rotate_by(image, draws.rot_i), draws.rank_i,
-                              self.roi, self.patch, self.ratio)
-        x_j, keep_j = mask_by(rotate_by(image, draws.rot_j), draws.rank_j,
-                              self.roi, self.patch, self.ratio)
-        views = [x_i, x_j]
-        if conf.use_mutual_learning:
-            c = int(draws.permute)
-            views.append(random_permute(x_i, c).contiguous())
+        with trace.span("train.views"):
+            x_i, keep_i = mask_by(rotate_by(image, draws.rot_i),
+                                  draws.rank_i, self.roi, self.patch,
+                                  self.ratio)
+            x_j, keep_j = mask_by(rotate_by(image, draws.rot_j),
+                                  draws.rank_j, self.roi, self.patch,
+                                  self.ratio)
+            views = [x_i, x_j]
+            if conf.use_mutual_learning:
+                c = int(draws.permute)
+                views.append(random_permute(x_i, c).contiguous())
         outs = forwards(*views)
-        out_i, out_j = outs[:2]
-        mi = keep_i[None, ..., None].float()
-        mj = keep_j[None, ..., None].float()
-        parts = {}
-        total = image.new_zeros((), dtype=torch.float32)
-        if conf.use_reconstruction:
-            img = torch.cat([x_i * mi, x_j * mj])
-            rec = torch.cat([out_i["reconstruction"] * mi,
-                             out_j["reconstruction"] * mj])
-            parts["rec"] = self._mean((rec - img) ** 2) / (1 - self.ratio)
-            total = total + float(conf.weight_rec) * parts["rec"]
-            if self.view:
-                self.view_data = ((x_i * mi).detach(),
-                                  (out_i["reconstruction"] * mi).detach())
-        if conf.use_rotation_prediction:
-            logits = torch.cat([out_i["rotation_prediction"],
-                                out_j["rotation_prediction"]])
-            labels = torch.cat([draws.rot_i, draws.rot_j]).to(
-                logits.device, torch.int64)
-            parts["rot"] = F.cross_entropy(logits, labels) \
-                if self.dp is None or not self.dp.splits else self._mean(
-                    F.cross_entropy(logits, labels, reduction="none"))
-            total = total + float(conf.weight_rot) * parts["rot"]
-        if conf.use_contrastive_learning:
-            parts["con"] = contrastive_pair_loss(
-                out_i["contrastive_coding"], out_j["contrastive_coding"],
-                group=self.dp)
-            total = total + float(conf.weight_con) * parts["con"]
-        if conf.use_mutual_learning:
-            rec_perm = permute_inverse(outs[2]["reconstruction"], c)
-            parts["mut"] = self._mean(
-                ((rec_perm - out_i["reconstruction"]) * mi) ** 2
-            ) / (1 - self.ratio)
-            total = total + parts["mut"]
-        parts["tot"] = total
-        return parts
+        with trace.span("train.loss"):
+            out_i, out_j = outs[:2]
+            mi = keep_i[None, ..., None].float()
+            mj = keep_j[None, ..., None].float()
+            parts = {}
+            total = image.new_zeros((), dtype=torch.float32)
+            if conf.use_reconstruction:
+                img = torch.cat([x_i * mi, x_j * mj])
+                rec = torch.cat([out_i["reconstruction"] * mi,
+                                 out_j["reconstruction"] * mj])
+                parts["rec"] = self._mean((rec - img) ** 2) / (1 - self.ratio)
+                total = total + float(conf.weight_rec) * parts["rec"]
+                if self.view:
+                    self.view_data = ((x_i * mi).detach(),
+                                      (out_i["reconstruction"] * mi).detach())
+            if conf.use_rotation_prediction:
+                logits = torch.cat([out_i["rotation_prediction"],
+                                    out_j["rotation_prediction"]])
+                labels = torch.cat([draws.rot_i, draws.rot_j]).to(
+                    logits.device, torch.int64)
+                parts["rot"] = F.cross_entropy(logits, labels) \
+                    if self.dp is None or not self.dp.splits else self._mean(
+                        F.cross_entropy(logits, labels, reduction="none"))
+                total = total + float(conf.weight_rot) * parts["rot"]
+            if conf.use_contrastive_learning:
+                parts["con"] = contrastive_pair_loss(
+                    out_i["contrastive_coding"], out_j["contrastive_coding"],
+                    group=self.dp)
+                total = total + float(conf.weight_con) * parts["con"]
+            if conf.use_mutual_learning:
+                rec_perm = permute_inverse(outs[2]["reconstruction"], c)
+                parts["mut"] = self._mean(
+                    ((rec_perm - out_i["reconstruction"]) * mi) ** 2
+                ) / (1 - self.ratio)
+                total = total + parts["mut"]
+            parts["tot"] = total
+            return parts
 
     # ------------------------------------------------------------- steps
     def train_step(self, batch, draws: Optional[ViewDraws] = None) -> dict:
         """One step on a batch (its ``image``, host or device): the views,
         the forwards, the losses, the backward and the update; returns
         {name: loss} on the device.  ``draws``: the step's
-        :class:`ViewDraws`, else drawn from :attr:`view_generator`."""
-        image, draws = self._image_and_draws(batch, draws)
-        parts = self._losses(image, draws, self.views)
-        self.optimizer.zero_grad(set_to_none=True)
-        parts["tot"].backward()
-        fill_missing_grads(self.optimizer)
-        set_scheduled_lr(self.optimizer, self.step_count)
-        self.optimizer.step()
-        self.step_count += 1
-        return {k: self.dctx.sum(v.detach()) for k, v in parts.items()}
+        :class:`ViewDraws`, else drawn from :attr:`view_generator`.  One
+        unit of the tracer (``train.step``)."""
+        with trace.unit("train.step", self.device):
+            image, draws = self._image_and_draws(batch, draws)
+            parts = self._losses(image, draws, self.views)
+            with trace.span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                parts["tot"].backward()
+            with trace.span("train.optimizer"):
+                fill_missing_grads(self.optimizer)
+                set_scheduled_lr(self.optimizer, self.step_count)
+                self.optimizer.step()
+            self.step_count += 1
+            return {k: self.dctx.sum(v.detach()) for k, v in parts.items()}
 
     @torch.no_grad()
     def eval_step(self, batch, draws: Optional[ViewDraws] = None) -> dict:

@@ -68,7 +68,7 @@ from ..models.partition import downstream_labels, set_trainable
 from ..ops.augment import map_label_indices
 from ..parallel import BucketedInference, window_starts
 from ..parallel.train_parallel import data_parallel
-from ..utils import init_weights, load_reference_checkpoint
+from ..utils import init_weights, load_reference_checkpoint, trace
 from ..utils.checkpoint import (load_checkpoint, merge_state, restore_like,
                                 save_checkpoint)
 from ..utils.device import resolve_device
@@ -218,17 +218,23 @@ class SegmentationTrainer:
 
     def train_step(self, batch):
         """One optimizer step on a host batch; returns (loss, stats)
-        tensors on the device, both of the global batch."""
-        image, seg_true, weights = self._staged(batch)
-        logits = (self.ddp or self.model)(image)
-        loss, stats = self._loss_and_stats(logits, seg_true, weights)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        fill_missing_grads(self.optimizer)
-        self.optimizer.step()
-        if self.view:
-            self.view_data = (logits.detach(), seg_true)
-        return self.dctx.sum(loss.detach()), stats
+        tensors on the device, both of the global batch.  One unit of the
+        tracer (``train.step``)."""
+        with trace.unit("train.step", self.device):
+            image, seg_true, weights = self._staged(batch)
+            with trace.span("train.forward"):
+                logits = (self.ddp or self.model)(image)
+            with trace.span("train.loss"):
+                loss, stats = self._loss_and_stats(logits, seg_true, weights)
+            with trace.span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with trace.span("train.optimizer"):
+                fill_missing_grads(self.optimizer)
+                self.optimizer.step()
+            if self.view:
+                self.view_data = (logits.detach(), seg_true)
+            return self.dctx.sum(loss.detach()), stats
 
     @torch.no_grad()
     def eval_step(self, batch):

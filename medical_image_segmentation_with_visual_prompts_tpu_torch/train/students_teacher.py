@@ -68,7 +68,7 @@ from ..losses import clustered_prototype_loss, dice_loss, draw_jitters
 from ..models.partition import label_of, set_trainable, trainable_labels
 from ..ops.augment import map_label_indices
 from ..parallel.train_parallel import Forwards, data_parallel
-from ..utils import init_weights
+from ..utils import init_weights, trace
 from ..utils.checkpoint import (load_checkpoint, merge_state, restore_like,
                                 save_checkpoint)
 from ..utils.device import resolve_device
@@ -225,7 +225,7 @@ class StudentsTeacherTrainer:
         batch."""
         outs = students(*(batch[f"image_st_{i}"]
                           for i in range(self.n_students)))
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("train.forward"):
             teacher = self.teacher(batch["image"])
         return outs, teacher
 
@@ -265,24 +265,29 @@ class StudentsTeacherTrainer:
         """One step on a host batch (the EMA, the forwards, the losses,
         the backward and the update); returns ({name: loss}, stats) on
         the device.  ``jitters``: the students' loss jitters, else drawn
-        from :attr:`jitter_generator`."""
-        ema_update(self.teacher, self.model, float(self.hparams.tau))
-        staged = self.dctx.stage(batch)
-        outs, teacher = self._forwards(staged, self.students)
-        parts, stats = self._losses(outs, teacher, staged, jitters)
-        if self.view:
-            self.view_data = (
-                teacher["latent_outputs"], batch["image"],
-                [o["latent_outputs"].detach() for o in outs],
-                [batch[f"image_st_{i}"] for i in range(self.n_students)])
-        self.optimizer.zero_grad(set_to_none=True)
-        parts["tot"].backward()
-        fill_missing_grads(self.optimizer)
-        set_scheduled_lr(self.optimizer, self.step_count)
-        self.optimizer.step()
-        self.step_count += 1
-        return {k: self.dctx.sum(v.detach()) for k, v in parts.items()}, \
-            stats
+        from :attr:`jitter_generator`.  One unit of the tracer
+        (``train.step``)."""
+        with trace.unit("train.step", self.device):
+            ema_update(self.teacher, self.model, float(self.hparams.tau))
+            staged = self.dctx.stage(batch)
+            outs, teacher = self._forwards(staged, self.students)
+            with trace.span("train.loss"):
+                parts, stats = self._losses(outs, teacher, staged, jitters)
+            if self.view:
+                self.view_data = (
+                    teacher["latent_outputs"], batch["image"],
+                    [o["latent_outputs"].detach() for o in outs],
+                    [batch[f"image_st_{i}"] for i in range(self.n_students)])
+            with trace.span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                parts["tot"].backward()
+            with trace.span("train.optimizer"):
+                fill_missing_grads(self.optimizer)
+                set_scheduled_lr(self.optimizer, self.step_count)
+                self.optimizer.step()
+            self.step_count += 1
+            return {k: self.dctx.sum(v.detach())
+                    for k, v in parts.items()}, stats
 
     @torch.no_grad()
     def eval_step(self, batch, jitters=None):

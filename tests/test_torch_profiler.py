@@ -7,9 +7,10 @@ the ``profile_dir`` trace of the three trainers.
   open written by ``close``.
 * Through ``main --mode fit`` on ``configurations/tiny_cpu.yml`` (CPU):
   the downstream fit of 8 steps with ``profile_dir`` in the YAML writes
-  one trace of steps 2-6, logs where it went and writes ``perf/step_ms``
-  each epoch; a phase-2 and a phase-1 fit of 3 steps each write the
-  trace of their step 2 when they end.
+  one trace of steps 2-6 with the tracer's ``train.*`` spans, logs where
+  it went and writes ``perf/step_ms`` each epoch; a phase-2 and a
+  phase-1 fit of 3 steps each write the trace of their step 2 when they
+  end.
 """
 
 import json
@@ -109,6 +110,7 @@ def test_downstream_fit_writes_one_trace_of_steps_two_to_six(roots):
     assert trace.name.endswith(".pt.trace.json")
     names = _trace_names(trace)
     assert "aten::mm" in names or "aten::addmm" in names
+    assert "train.step" in names          # the tracer's spans
     rows = [r for r in _scalars(tr.hparams.summary_dir)
             if r["tag"] == "perf/step_ms"]
     assert [r["step"] for r in rows] == [0, 1]
