@@ -142,6 +142,18 @@ the port's paths:
   over them; model FLOPs per window (``utils/flops.py``) and the shares
   of the card's peak that serving and the pretraining steps reach.
 
+* the serving decoder's upsample kernel (phase ``upsample``): its plain
+  form at the three up blocks' upsamples and crops and its head form
+  (the final x2 upsample with the seg head as its epilogue, 2 classes)
+  at the window batches of the two serving cells of ``BENCHMARK.json``
+  (128 and 27), against its plain version (the einsum chain), timed
+  beside its bound, the plain version and ``F.interpolate(mode=
+  "trilinear")`` with the same crop, BatchNorm, cast and cuDNN conv.
+  Every path counts its launches: 4 per serving forward of the flagship
+  (3 plain, 1 head; ``full``/``swin`` and ``simple``/``swin`` 4 plain,
+  ``none``/``unetr`` 1 head, ``simple``/``unetr`` 0, a phase-2 forward
+  4 plain), 0 per training step.
+
 Device busy shares (``print_profile`` and the trace) count kernels,
 copies and fills only, not user-annotation spans.  The peaks that
 ``Bound`` divides by come from the card's name (``utils/flops.py``).
@@ -244,7 +256,7 @@ BLOCK_GEOMETRIES = (
 # Unfused serving: the 12 blocks pad the depth-2 stages to 4 (no pad
 # folding), so every call has M 256 and N 320; B6 runs at C <= 128 (8 per
 # forward), B8 at C 192 (4 per forward).
-UNFUSED_LAUNCHES = {"B6": 8, "B8": 4, "B2": 3}
+UNFUSED_LAUNCHES = {"B6": 8, "B8": 4, "B2": 3, "upsample": 4}
 # (name, Ca, Cb, Co, spatial dims) of the 3 decoder pair convs.
 CONV_SHAPES = (
     ("dec0", 384, 192, 192, (16, 16, 2)),
@@ -495,6 +507,103 @@ def phase_convs(gen_seed: int = SEED + 1, shapes=CONV_SHAPES,
         raise RuntimeError("phase B2 failed: " + "; ".join(failures))
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound": bound, "cudnn_ms": cudnn_ms, "tiles": tiles}, b3
+
+
+# (name, per-sample input shape, scale, crop) of the serving forward's
+# upsamples: the three up blocks' (plain form, cropped to the skip), then
+# the final one with the 2-class head as its epilogue (crop None).
+UPSAMPLE_SHAPES = (("dec0", (8, 8, 2, 384), (2, 2, 1), (16, 16, 2)),
+                   ("dec1", (16, 16, 2, 192), (2, 2, 1), (32, 32, 2)),
+                   ("dec2", (32, 32, 2, 96), (2, 2, 2), (64, 64, 4)),
+                   ("head", (64, 64, 4, 48), (2, 2, 2), None))
+# Window batches of the serving cells: serve_ct512x64_s050's forward of
+# 128 windows, serve_ct320x24_s075's 27.
+UPSAMPLE_BATCHES = (128, BATCH)
+
+
+def upsample_library(x, scale, crop, head):
+    """``F.interpolate(mode="trilinear")`` on the channels-first view,
+    the crop written channels-last contiguous, and for the head form the
+    head's BatchNorm and ``head_conv`` (cast, cuDNN conv, ``.float()``):
+    the same function from library calls (timed as ``library_ms``)."""
+    import torch.nn.functional as F
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .upsample import head_conv
+    y = F.interpolate(x.permute(0, 4, 1, 2, 3), scale_factor=scale,
+                      mode="trilinear", align_corners=False).permute(
+                          0, 2, 3, 4, 1)
+    if head is None:
+        return y[:, :crop[0], :crop[1], :crop[2]].contiguous()
+    return head_conv(y.float() * head.scale + head.shift, head.weight,
+                     head.bias, head.dtype)
+
+
+def phase_upsample(gen_seed: int = SEED + 23):
+    """The upsample kernel at the serving forward's 4 calls, at each
+    serving cell's window batch: against its plain version, timed beside
+    its bound, the plain version and :func:`upsample_library`."""
+    import torch
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import upsample as up
+    print("phase upsample: the up blocks' upsample + crop (plain form) and "
+          "the final upsample + seg head (head form), bf16, vs the einsum "
+          "chain, beside F.interpolate + the head's library calls")
+    failures, out = [], {}
+    g = torch.Generator().manual_seed(gen_seed)
+    for batch in UPSAMPLE_BATCHES:
+        res = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound": Bound(), "max_abs_err": 0.0, "calls": {}}
+        for name, shape, scale, crop in UPSAMPLE_SHAPES:
+            x = torch.randn((batch, *shape), generator=g).to(
+                "cuda", torch.bfloat16)
+            c = shape[-1]
+            head = None
+            if crop is None:
+                head = up.Head(
+                    (0.5 + torch.rand(c, generator=g)).cuda(),
+                    torch.randn(c, generator=g).cuda(),
+                    (torch.randn((2, c, 3, 3, 3), generator=g)
+                     / (27 * c) ** 0.5).cuda(),
+                    (0.1 * torch.randn(2, generator=g)).cuda(),
+                    torch.bfloat16)
+                head = head._replace(kernel=up.kernel_operands(
+                    head.weight, head.bias, torch.bfloat16, torch.bfloat16))
+            with torch.inference_mode():
+                ref = up.upsample_reference(x, scale, crop, head=head)
+                got = up.upsample(x, scale, crop, head=head)
+                torch.cuda.synchronize()
+                tag = f"{name} @{batch}x{'x'.join(map(str, shape))}"
+                err = check_close(tag, got, ref, failures)
+                t_k = cuda_ms(lambda: up.upsample(x, scale, crop, head=head))
+                t_p = cuda_ms(lambda: up.upsample_reference(x, scale, crop,
+                                                            head=head))
+                t_l = cuda_ms(lambda: upsample_library(x, scale, crop, head))
+            vin = batch * shape[0] * shape[1] * shape[2]
+            vout = got.numel() // got.shape[-1]
+            if head is None:
+                # bf16 in, bf16 out; 3 axes' multiply-adds per value.
+                res["bound"].add(6 * vout * c, 2 * (vin + vout) * c)
+            else:
+                # bf16 in, fp32 logits out, the conv's products.
+                res["bound"].add(2 * vout * 27 * c * 2 + 6 * vout * c,
+                                 2 * vin * c + 4 * vout * 2
+                                 + 4 * (2 * c + 27 * c * 2 + 2))
+            print(f"    kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+                  f"{t_l:.4f} ms")
+            res["calls"][name] = {"ms": t_k, "plain_ms": t_p,
+                                  "library_ms": t_l, "max_abs_err": err}
+            res["ms"] += t_k
+            res["plain_ms"] += t_p
+            res["library_ms"] += t_l
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+        print(f"  upsample @{batch} windows: {res['ms']:.4f} ms per forward "
+              f"(plain {res['plain_ms']:.4f}, library "
+              f"{res['library_ms']:.4f}, bound {res['bound'].ms:.4f} "
+              f"({res['bound'].by}))")
+        out[batch] = res
+    if failures:
+        raise RuntimeError("phase upsample failed: " + "; ".join(failures))
+    return out
 
 
 def phase_conv_one_input(g, failures):
@@ -902,11 +1011,13 @@ def counters():
         .fused_block_bwd import block_backward
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .fused_pair import fused_swin_pair
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .upsample import upsample
     return {"B1": fused_swin_block, "B2": conv3x3_fused_pair,
             "B3": conv3x3_fused, "B4": block_backward, "B5": fused_swin_pair,
             "B6": wa.fused_window_attention_packed_qkv,
             "B7": wa.fused_window_attention_packed,
-            "B8": wa.fused_window_attention}
+            "B8": wa.fused_window_attention, "upsample": upsample}
 
 
 # The per-sample input shape of each kernel the Swin output layer runs
@@ -1737,6 +1848,7 @@ def phase_cli(card: str):
         want = expect({"B1": 12, "B4": 12}, steps)
         want["B1"] += 12 * val_steps
         want["B2"] = 3 * val_steps
+        want["upsample"] = 4 * val_steps
         print(f"  fit: {steps} steps + {val_steps} validation steps in "
               f"{wall:.3f} s, launches {launches} ({big} B4 in the "
               f"device-memory form); saved "
@@ -1807,6 +1919,7 @@ def phase_cli(card: str):
         want = expect({"B1": 12, "B4": 12}, rsteps)
         want["B1"] += 12 * rval
         want["B2"] = 3 * rval
+        want["upsample"] = 4 * rval
         print(f"  resumed fit: {rsteps} steps + {rval} validation steps "
               f"in {wall:.3f} s, launches {launches} ({rbig} B4 in the "
               "device-memory form)")
@@ -1837,7 +1950,7 @@ def phase_cli(card: str):
                 "--load-ckpt-prompt-tokens", "--load-ckpt-prompt-tokens-path",
                 str(ckpt_dir)))
             forwards, windows = test_forwards(tr, blend)
-            want = expect({"B1": 12, "B2": 3}, forwards)
+            want = expect({"B1": 12, "B2": 3, "upsample": 4}, forwards)
             log = (Path(tr.hparams.log_dir) / "log.txt").read_text()
             lines = [ln.split("Message: ")[-1] for ln in log.splitlines()
                      if "+/-" in ln]
@@ -1894,7 +2007,7 @@ def phase_cli(card: str):
         gauss = preds["gaussian"]["case00.nii"]
         agree = float((labels[crop] == gauss).mean()) \
             if labels[crop].shape == gauss.shape else 0.0
-        want = expect({"B1": 12, "B2": 3}, test_forwards(
+        want = expect({"B1": 12, "B2": 3, "upsample": 4}, test_forwards(
             resumed, "gaussian")[0] // CLI_TEST_VOLUMES)
         print(f"  infer --ckpt: {wall:.3f} s, launches {launches}; labels "
               f"vs the Gaussian test's argmax {agree:.6f} (min "
@@ -1933,13 +2046,19 @@ def phase_cli(card: str):
 # 512 windows per image) and 1 B2 (48 + 48 -> 48) per forward; the
 # "@out" counts are those launches (OUT_SHAPES), of the totals beside them.
 OUTPUT_LAYER = ("out", 48, 4, (128, 128, 8))
-LAYOUT_FORWARD = {"B1": 14, "B2": 4, "B1@out": 2, "B2@out": 1}
+LAYOUT_FORWARD = {"B1": 14, "B2": 4, "B1@out": 2, "B2@out": 1,
+                  "upsample": 4}
 UNETR_FORWARD = {"B1": 6}
+# none/unetr: the final upsample with the head (an fp32 decoder output
+# into the bf16 trunk's head).
+UNETR_NONE_FORWARD = {"B1": 6, "upsample": 1}
 # The output layer's pair shifts the depth axis (128x128x8 > window 8x8x4
 # on every axis), which ``pair_plan`` leaves to two block calls.
-LAYOUT_PAIR = {"B5": 6, "B1": 2, "B2": 4, "B1@out": 2, "B2@out": 1}
+LAYOUT_PAIR = {"B5": 6, "B1": 2, "B2": 4, "B1@out": 2, "B2@out": 1,
+               "upsample": 4}
 # Unfused: the output layer's two blocks run B6 (C <= 128).
-LAYOUT_UNFUSED = {"B6": 10, "B8": 4, "B2": 4, "B6@out": 2, "B2@out": 1}
+LAYOUT_UNFUSED = {"B6": 10, "B8": 4, "B2": 4, "B6@out": 2, "B2@out": 1,
+                  "upsample": 4}
 LAYOUT_TRAIN = {"B1": 14, "B4": 14, "B1@out": 2, "B4@out": 2}
 
 
@@ -2274,7 +2393,7 @@ def phase_layouts(card: str):
         model, LAYOUT_UNFUSED, "unfused", name="full-swin",
         gate_argmax=False, x=x)
     del model
-    for k, (res, up, per) in enumerate((("none", "unetr", UNETR_FORWARD),
+    for k, (res, up, per) in enumerate((("none", "unetr", UNETR_NONE_FORWARD),
                                         ("simple", "unetr", UNETR_FORWARD),
                                         ("simple", "swin", LAYOUT_FORWARD))):
         model = layout_model(res, up, SEED + 15 + k)
@@ -2321,7 +2440,7 @@ STUDENT_CONVS = tuple(
 # step 3 eval forwards of 12 B1 + 3 B2.
 PHASE2_STEP = {"B1": 36, "B4": 24}
 PHASE2_DECODER_STEP = {"B1": 36, "B4": 12}
-PHASE2_VAL = {"B1": 36, "B2": 9}
+PHASE2_VAL = {"B1": 36, "B2": 9, "upsample": 12}
 PHASE2_VOLUMES = 3   # split 0.8: 2 train x 4 crops = 4 steps, 1 val: 2
 
 
@@ -3210,10 +3329,10 @@ def phase_multi_view_mutual(card: str):
 # recompute in plain torch and launches nothing); with it on, the JAX XLA
 # attention and no kernel; per eval forward 8 B6 + 4 B8 + 3 B2.
 UNFUSED_STEP = {"B6": 8, "B8": 4}
-UNFUSED_VAL = {"B6": 8, "B8": 4, "B2": 3}
+UNFUSED_VAL = {"B6": 8, "B8": 4, "B2": 3, "upsample": 4}
 # Phase 2 validates the 2 students and the teacher; phase 1 the encoder
 # on 2 views.
-UNFUSED_PHASE2_VAL = {"B6": 24, "B8": 12, "B2": 9}
+UNFUSED_PHASE2_VAL = {"B6": 24, "B8": 12, "B2": 9, "upsample": 12}
 UNFUSED_PHASE1_VAL = {"B6": 8, "B8": 4}
 # The Functions' backward (fp32 recompute) against torch autograd of the
 # plain version at fp32, TF32 off: float reassociation only.
@@ -4092,9 +4211,11 @@ def phase_dp_nccl(card: str):
         failures.append(f"test metrics {nccl['metrics']} vs {one['metrics']}")
     print(f"  test IoU {nccl['metrics']['iou']} (equal: "
           f"{nccl['metrics'] == one['metrics']})")
-    # 6 steps of 12 B1 + 12 B4, 2 validation forwards of 12 B1 + 3 B2.
+    # 6 steps of 12 B1 + 12 B4, 2 validation forwards of 12 B1 + 3 B2 + 4
+    # upsample.
     if nccl["launches"] != one["launches"] or nccl["launches"] != \
-            expect({"B1": 6 * 12 + 2 * 12, "B2": 2 * 3, "B4": 6 * 12}):
+            expect({"B1": 6 * 12 + 2 * 12, "B2": 2 * 3, "B4": 6 * 12,
+                    "upsample": 2 * 4}):
         failures.append(f"fit launches {nccl['launches']} vs "
                         f"{one['launches']}")
     if nccl["test_launches"] != one["test_launches"]:
@@ -4266,7 +4387,8 @@ def phase_dp_two_ranks(card: str):
         if res["launches"] != want:
             failures.append(f"rank {r} launches {res['launches']}, "
                             f"expected {want}")
-        if res["serve_launches"] != expect({"B1": 12, "B2": 3}):
+        if res["serve_launches"] != expect({"B1": 12, "B2": 3,
+                                            "upsample": 4}):
             failures.append(f"rank {r} serving launches "
                             f"{res['serve_launches']}")
         if res["losses"] != ranks[0]["losses"]:
@@ -4421,7 +4543,8 @@ def phase_native_serve(model, card: str):
                 got = read_counters()
                 if done != (NATIVE_REPEATS, 0):
                     raise RuntimeError(f"phase native-serve failed: {done}")
-                want = expect({"B1": 12, "B2": 3}, NATIVE_REPEATS)
+                want = expect({"B1": 12, "B2": 3, "upsample": 4},
+                              NATIVE_REPEATS)
                 if got != want:
                     failures.append(f"launches {got}, expected {want}")
                 if native_dec and launches is None:
@@ -4473,7 +4596,7 @@ def phase_segment_volume(model, card: str):
     failures = []
     if not np.array_equal(labels, want):
         failures.append("labels differ from predict_device's")
-    if launches != expect({"B1": 12, "B2": 3}):
+    if launches != expect({"B1": 12, "B2": 3, "upsample": 4}):
         failures.append(f"launches {launches}")
     if failures:
         raise RuntimeError("phase segment-volume failed: "
@@ -4612,7 +4735,8 @@ def phase_flops(card: str, serve_vps_mem: float, phase2: dict,
 def kernel_entry(name, source, replaces, launches, by_path, m, **extra):
     bound = m["bound"]
     return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
-            "replaces": f"{JAX_PKG}/{replaces}", "launches": launches,
+            "replaces": replaces and f"{JAX_PKG}/{replaces}",
+            "launches": launches,
             "launches_by_path": by_path, "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound.ms,
             "bound_by": bound.by, "library_ms": m.get("library_ms"), **extra}
@@ -4658,6 +4782,8 @@ def main() -> int:
     clock("B1 done")
     b2, b3 = phase_convs()
     clock("B2, B3 done")
+    ups = phase_upsample()
+    clock("upsample done")
     attn = phase_attention()
     clock("B6-B8 done")
     b1_train, b4 = phase_blocks_train()
@@ -4665,7 +4791,7 @@ def main() -> int:
     b5, b5_train = phase_pair()
     clock("B5 done")
     model = flagship_model()
-    fused = {"B1": 12, "B2": 3}
+    fused = {"B1": 12, "B2": 3, "upsample": 4}
     fwd_ms, _ = phase_model(model, fused)
     serve_launches, vps, vps_mem = phase_serve(model, card, fused)
     clock("model, serve done")
@@ -4676,7 +4802,7 @@ def main() -> int:
     unfused_launches, uvps, uvps_mem = phase_serve(
         model, card, UNFUSED_LAUNCHES, "unfused")
     clock("model-unfused, serve-unfused done")
-    pair = {"B5": 6, "B2": 3}
+    pair = {"B5": 6, "B2": 3, "upsample": 4}
     pfwd_ms, _ = phase_model(model, pair, "pair")
     pair_launches, pvps, pvps_mem = phase_serve(model, card, pair, "pair")
     clock("model-pair, serve-pair done")
@@ -5055,6 +5181,22 @@ def main() -> int:
                      train_unfused=train_unfused("B8"),
                      library_scope="scaled_dot_product_attention of the "
                      "unshifted calls only"),
+        kernel_entry("upsample", "upsample.cu", None,
+                     serve_launches["upsample"], paths("upsample"),
+                     ups[BATCH],
+                     replaces_none="the JAX package resizes with einsums",
+                     calls=f"the 4 calls of a {BATCH}-window forward",
+                     by_call=ups[BATCH]["calls"],
+                     library_scope="F.interpolate trilinear, the crop's "
+                     "copy, and the head's BatchNorm, cast, cuDNN conv",
+                     cell_4={"calls": "the 4 calls of a 128-window forward",
+                             "ms": ups[128]["ms"],
+                             "plain_ms": ups[128]["plain_ms"],
+                             "library_ms": ups[128]["library_ms"],
+                             "bound_ms": ups[128]["bound"].ms,
+                             "bound_by": ups[128]["bound"].by,
+                             "max_abs_err": ups[128]["max_abs_err"],
+                             "by_call": ups[128]["calls"]}),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

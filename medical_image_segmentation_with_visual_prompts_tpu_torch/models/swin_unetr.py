@@ -17,7 +17,9 @@ simple | full x ``unetr_up_block`` swin | unetr):
 * output layer: a x2 trilinear upsample (``align_corners=False``) under
   ``none``, else one more up block at full resolution onto the last skip
   (a ``SwinUpBlock`` with its own two prompt tokens, or a
-  ``UnetrUpBlock``);
+  ``UnetrUpBlock``); in eval mode the x2 upsample is the kernel of
+  ``ops/upsample.py``, and in the downstream mode the seg head is its
+  epilogue (``set_kernels(False)``: the plain chain);
 * seg head: BatchNorm (eps 1e-5) then a 3x3x3 conv: ``head_downstream``
   (``extra_heads.downstream``) in the downstream mode,
   ``head_segmentation`` (``extra_heads.segmentation``, to
@@ -98,9 +100,11 @@ from torch import nn
 
 from ..config import PHASE1_MODE, SUPERVISED_MODES, ModelConfig
 from ..ops.resize import upsample_trilinear
+from ..ops.upsample import Head, head_conv, kernel_operands, upsample
 from .swin_block import ConsecutiveSwinBlocks
 from .unet_blocks import (SwinUpBlock, UnetrBasicBlock, UnetrUpBlock,
-                          batch_norm, conv3d, instance_norm, same_conv)
+                          batch_norm, bn_fold, conv3d, instance_norm,
+                          same_conv)
 
 
 def _env_flag(name: str) -> bool:
@@ -152,6 +156,8 @@ class SwinUnetR(nn.Module):
         else:
             self._build_decoder(conf)
         self.use_checkpoint = conf.use_checkpoint
+        self.use_kernels = True       # False: the plain versions (set_kernels)
+        self._head_cache = None       # _head_operands
         self.data_group = None        # set_data_group
         # Dropout seeds of every block call come from this generator.
         self.dropout_generator = torch.Generator().manual_seed(dropout_seed)
@@ -339,7 +345,13 @@ class SwinUnetR(nn.Module):
                      (self._tokens("dec", 2 * j),
                       self._tokens("dec", 2 * j + 1)))
         if conf.unetr_res_block == "none":
-            out = upsample_trilinear(dec, (2, 2, 2), align_corners=False)
+            if self.training or not self.use_kernels:
+                out = upsample_trilinear(dec, (2, 2, 2), align_corners=False)
+            elif conf.training_mode == "downstream":
+                # Serving: the upsample with the head as its epilogue.
+                return upsample(dec, (2, 2, 2), head=self._head_operands(dec))
+            else:
+                out = upsample(dec, (2, 2, 2))
         else:
             out = self.output_layer(
                 dec, self._skip(conf.depth_unet, feats[-1]),
@@ -351,10 +363,28 @@ class SwinUnetR(nn.Module):
             outputs["seg_pred"] = self._head(out)
         return outputs
 
+    def _head_operands(self, x: torch.Tensor) -> Head:
+        """The head as ``ops/upsample.py`` takes it; on a CUDA card with
+        its kernel operands, kept while no parameter or statistic of the
+        head changes or moves."""
+        norm, conv = self.extra_heads[self.head_name]
+        dtype = self.conf.dtype
+        if not x.is_cuda:
+            return Head(*bn_fold(norm), conv.weight, conv.bias, dtype)
+        leaves = (norm.weight, norm.bias, norm.running_mean,
+                  norm.running_var, conv.weight, conv.bias)
+        stamp = tuple((t.data_ptr(), t._version) for t in leaves) + (x.dtype,)
+        if self._head_cache is None or self._head_cache[0] != stamp:
+            head = Head(*bn_fold(norm), conv.weight, conv.bias, dtype,
+                        kernel_operands(conv.weight, conv.bias, dtype,
+                                        x.dtype))
+            self._head_cache = (stamp, head)
+        return self._head_cache[1]
+
     def _head(self, out: torch.Tensor) -> torch.Tensor:
-        head = self.extra_heads[self.head_name]
-        out = batch_norm(out.float(), head[0]).to(self.conf.dtype)
-        return conv3d(out, head[1]).float()
+        norm, conv = self.extra_heads[self.head_name]
+        return head_conv(batch_norm(out.float(), norm), conv.weight,
+                         conv.bias, self.conf.dtype)
 
     def _ssl_outputs(self, out_vit: list) -> dict:
         heads, outputs = self.extra_heads, {}

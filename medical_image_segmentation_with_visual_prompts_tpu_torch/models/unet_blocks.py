@@ -7,10 +7,11 @@ training), and
 * ``SwinUpBlock`` -- trilinear upsample (``align_corners=False``), crop
   to the skip, ``conv(leaky(bn(concat(x, skip))))`` written in the
   block's dtype, then a no-down Swin block pair with the decoder prompts.
-  In eval mode the conv is the pair-input kernel of ``ops/conv_fused.py``
-  (the concat is never built); in train mode, as in the JAX package, the
-  concat, the batch-statistics BatchNorm, LeakyReLU(0.01) and a library
-  conv.
+  In eval mode the upsample and crop are one kernel
+  (``ops/upsample.py``) and the conv is the pair-input kernel of
+  ``ops/conv_fused.py`` (the concat is never built); in train mode, as in
+  the JAX package, the einsum upsample, the concat, the batch-statistics
+  BatchNorm, LeakyReLU(0.01) and a library conv.
 * the UNETR blocks (MONAI semantics, as the JAX package builds them):
   ``UnetBasicBlock`` (conv-IN-LeakyReLU twice), ``UnetResBlock`` (with a
   1x1 conv + IN projection of the residual where the channel count
@@ -34,7 +35,7 @@ from torch import nn
 from ..ops.conv_fused import (conv3x3_fused_pair, conv_pair_reference,
                               kernel_weight)
 from ..ops.fused_block import kernel_matmul_dtype
-from ..ops.resize import upsample_trilinear
+from ..ops.upsample import upsample, upsample_reference
 from .swin_block import ConsecutiveSwinBlocks
 
 
@@ -252,8 +253,11 @@ class SwinUpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
                 tokens=(None, None)) -> torch.Tensor:
-        x = upsample_trilinear(x, self.strides, align_corners=False)
-        x = x[:, :skip.shape[1], :skip.shape[2], :skip.shape[3]].contiguous()
+        # The upsample cropped to the skip: the kernel in serving, else
+        # the einsum chain.
+        resize = (upsample if self.use_kernels and not self.training
+                  else upsample_reference)
+        x = resize(x, self.strides, tuple(skip.shape[1:4]))
         conv = self.conv_concat.conv
         if self.training:
             # Training (as the JAX package): concat in the promoted dtype,

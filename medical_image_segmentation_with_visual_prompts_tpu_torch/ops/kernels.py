@@ -68,6 +68,13 @@ SIGNATURES = {
     # labels, out, info, bp, m, n, c, heads, p_windows, mode, ph, pw, pd,
     # tabw, scale, pe_scale, activations are fp32, stream
     "mivp_window_attention": [_P] * 13 + [_I] * 11 + [_F, _F, _I, _P],
+    # x, out, b, h, w, d, c, resized h, w, d, out h, w, d, align_corners,
+    # x is fp32, stream
+    "mivp_upsample": [_P] * 2 + [_I] * 13 + [_P],
+    # x, scale, shift, head weights, bias, out, b, h, w, d, c, resized h,
+    # w, d, out h, w, d, align_corners, classes, out's classes, x is fp32,
+    # the head is bf16, stream
+    "mivp_upsample_head": [_P] * 6 + [_I] * 16 + [_P],
 }
 
 _lock = threading.Lock()

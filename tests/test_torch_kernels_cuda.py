@@ -1483,3 +1483,130 @@ def test_flop_counts_match_the_bf16_plain_forward_on_the_card(dev):
     assert flops.counted_flops(model, x) == count.port
     assert flops.model_flops(flagship_conf(), roi=(128, 128, 8)) == \
         count.model
+
+
+# (per-sample input shape, scale, crop) of the serving forward's upsamples
+# (the three SwinUpBlocks), then an odd crop and align_corners=True.
+UPSAMPLE_CASES = [((8, 8, 2, 384), (2, 2, 1), (16, 16, 2), False),
+                  ((16, 16, 2, 192), (2, 2, 1), (32, 32, 2), False),
+                  ((32, 32, 2, 96), (2, 2, 2), (64, 64, 4), False),
+                  ((5, 7, 3, 16), (2, 2, 2), (9, 13, 5), False),
+                  ((8, 8, 2, 48), (2, 2, 2), (16, 16, 4), True)]
+
+
+def _head_case(dev, c, k, seed=2):
+    """Folded BatchNorm and a conv for the head form (``ops/upsample.py::
+    Head`` fields but the dtype)."""
+    g = torch.Generator().manual_seed(seed)
+    scale = (0.5 + torch.rand(c, generator=g)).to(dev)
+    shift = torch.randn(c, generator=g).to(dev)
+    w = (torch.randn((k, c, 3, 3, 3), generator=g) / (27 * c) ** 0.5).to(dev)
+    bias = (0.1 * torch.randn(k, generator=g)).to(dev)
+    return scale, shift, w, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,scale,crop,align_corners", UPSAMPLE_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_upsample_kernel_matches_plain(dev, shape, scale, crop,
+                                       align_corners, dtype):
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import upsample as up
+    x = torch.randn((4, *shape), generator=torch.Generator().manual_seed(1))
+    x = x.to(dev, dtype)
+    with torch.inference_mode():
+        ref = up.upsample_reference(x, scale, crop, align_corners)
+        before = up.upsample.launches
+        got = up.upsample(x, scale, crop, align_corners)
+        torch.cuda.synchronize()
+    assert up.upsample.launches == before + 1
+    assert got.shape == (4, *crop, shape[-1]) and got.dtype == dtype
+    assert got.is_contiguous()
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", [False, True])
+def test_upsample_kernel_takes_a_strided_input(dev, head):
+    """A channels-last view of a channels-first tensor (as the unfused
+    blocks hand the decoder a strided tensor) gives what its contiguous
+    copy gives, in both forms."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import upsample as up
+    x = torch.randn((2, 48, 16, 16, 4), generator=torch.Generator()
+                    .manual_seed(5)).to(dev, torch.bfloat16)
+    x = x.permute(0, 2, 3, 4, 1)
+    hd = up.Head(*_head_case(dev, 48, 2), torch.bfloat16) if head else None
+    crop = None if head else (31, 32, 7)
+    with torch.inference_mode():
+        got = up.upsample(x, (2, 2, 2), crop, head=hd)
+        want = up.upsample(x.contiguous(), (2, 2, 2), crop, head=hd)
+        torch.cuda.synchronize()
+    assert not x.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,classes,x_dtype,head_dtype", [
+    ((4, 64, 64, 4, 48), 2, torch.bfloat16, torch.bfloat16),
+    ((4, 64, 64, 4, 48), 2, torch.float32, torch.float32),
+    ((2, 64, 64, 4, 48), 2, torch.float32, torch.bfloat16),
+    ((2, 13, 9, 5, 16), 5, torch.bfloat16, torch.bfloat16)])
+def test_upsample_head_kernel_matches_plain(dev, shape, classes, x_dtype,
+                                            head_dtype):
+    """The head form against the einsum upsample, BatchNorm, cast, cuDNN
+    conv and ``.float()`` on the card, window borders included (the
+    conv's zero padding); 5 classes take two launches.  fp32: the
+    reference conv runs without TF32 (the ``dev`` fixture), so the bound
+    is the bf16 one, far above the sum order's differences; with TF32 (a
+    serving default of cuDNN) the plain head keeps 10 mantissa bits."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import upsample as up
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    x = x.to(dev, x_dtype)
+    head = up.Head(*_head_case(dev, shape[-1], classes), head_dtype)
+    with torch.inference_mode():
+        ref = up.upsample_reference(x, (2, 2, 2), head=head)
+        before = up.upsample.launches
+        got = up.upsample(x, (2, 2, 2), head=head)
+        torch.cuda.synchronize()
+    assert up.upsample.launches == before + -(-classes // up.MAX_CLASSES)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_upsample_flagship_eval_forward_launches_and_no_sync(dev):
+    """An eval forward of the flagship model runs the kernel 4 times (the
+    three up blocks' plain form, the head form at the end), and nothing
+    under it waits for the card (no ``cudaStreamSynchronize``)."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import flagship_conf
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.models \
+        import SwinUnetR
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import upsample as up
+    model = SwinUnetR(flagship_conf())
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    x = torch.rand((2, 128, 128, 8, 1), generator=torch.Generator()
+                   .manual_seed(1)).to(dev)
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        up.upsample.launches_by_shape.clear()
+        before = up.upsample.launches
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            y = model(x)
+        torch.cuda.synchronize()
+    assert y.shape == (2, 128, 128, 8, 2) and torch.isfinite(y).all()
+    assert up.upsample.launches == before + 4
+    assert dict(up.upsample.launches_by_shape) == {
+        ((8, 8, 2, 384), (16, 16, 2, 384), "plain"): 1,
+        ((16, 16, 2, 192), (32, 32, 2, 192), "plain"): 1,
+        ((32, 32, 2, 96), (64, 64, 4, 96), "plain"): 1,
+        ((64, 64, 4, 48), (128, 128, 8, 2), "head"): 1}
+    names = [e.name for e in prof.events()]
+    assert "cudaStreamSynchronize" not in names
+    assert sum("upsample" in n for n in names) >= 4
