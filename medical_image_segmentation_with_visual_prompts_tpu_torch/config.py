@@ -53,6 +53,20 @@ PHASE2_MODES = TRAINING_MODES[1:5]
 SUPERVISED_MODES = ("supervised_learning_decoder", "supervised_learning_all")
 
 
+def _from_mapping(cls, conf):
+    """``cls`` (a config dataclass) from the keys of a dict or the
+    attributes of a namespace that name its fields."""
+    get = conf.get if isinstance(conf, dict) else \
+        (lambda k, d=None: getattr(conf, k, d))
+    missing = object()
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        v = get(f.name, missing)
+        if v is not missing:
+            kwargs[f.name] = tuple(v) if isinstance(v, list) else v
+    return cls(**kwargs)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     training_mode: str = "downstream"
@@ -119,15 +133,87 @@ class ModelConfig:
     def from_mapping(cls, conf) -> "ModelConfig":
         """Build from a dict or an attribute namespace (YAML, argparse),
         keeping only the model's fields."""
-        get = conf.get if isinstance(conf, dict) else \
-            (lambda k, d=None: getattr(conf, k, d))
-        missing = object()
-        kwargs = {}
-        for f in dataclasses.fields(cls):
-            v = get(f.name, missing)
-            if v is not missing:
-                kwargs[f.name] = tuple(v) if isinstance(v, list) else v
-        return cls(**kwargs)
+        return _from_mapping(cls, conf)
+
+
+MODEL_FAMILIES = ("swin_unetr", "medsam")
+
+
+def model_family(conf) -> str:
+    """The ``model_family`` of a config mapping or namespace: the
+    promptable Swin-UNETR (``swin_unetr``, the default, so every config
+    without the key keeps its meaning) or MedSAM (``medsam``)."""
+    get = conf.get if isinstance(conf, dict) else \
+        (lambda k, d=None: getattr(conf, k, d))
+    family = get("model_family", None) or "swin_unetr"
+    if family not in MODEL_FAMILIES:
+        raise ValueError(f"model_family must be one of {MODEL_FAMILIES}, "
+                         f"got {family!r}")
+    return family
+
+
+@dataclasses.dataclass(frozen=True)
+class SamConfig:
+    """MedSAM's model (SAM ViT-B, ``segment_anything/build_sam.py``'s
+    ``build_sam_vit_b``: the argument names are that function's) and its
+    serving keys: the CT window in HU (``hu_window``), the encoder's
+    batch of slices (``slice_batch``) and the encoder's and mask
+    decoder's ``compute_dtype`` (the prompt encoder's Fourier features
+    stay in float32).  Apart from :class:`ModelConfig`, which the
+    Swin-UNETR path and its checkpoint maps read."""
+
+    image_size: int = 1024
+    patch_size: int = 16
+    in_chans: int = 3
+    encoder_embed_dim: int = 768
+    encoder_depth: int = 12
+    encoder_num_heads: int = 12
+    encoder_global_attn_indexes: Tuple[int, ...] = (2, 5, 8, 11)
+    window_size: int = 14
+    mlp_ratio: float = 4.0
+    prompt_embed_dim: int = 256
+    mask_in_chans: int = 16
+    decoder_depth: int = 2
+    decoder_num_heads: int = 8
+    decoder_mlp_dim: int = 2048
+    num_multimask_outputs: int = 3
+    iou_head_depth: int = 3
+    iou_head_hidden_dim: int = 256
+    attention_downsample_rate: int = 2
+    hu_window: Tuple[float, ...] = (-160.0, 240.0)
+    slice_batch: int = 16
+    compute_dtype: str = "float32"     # float32 | bfloat16
+
+    def __post_init__(self):
+        object.__setattr__(self, "encoder_global_attn_indexes", tuple(
+            int(v) for v in self.encoder_global_attn_indexes))
+        object.__setattr__(self, "hu_window",
+                           tuple(float(v) for v in self.hu_window))
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError("compute_dtype must be float32 or bfloat16, "
+                             f"got {self.compute_dtype!r}")
+        if self.image_size % self.patch_size:
+            raise ValueError(f"image_size {self.image_size} is not a "
+                             f"multiple of patch_size {self.patch_size}")
+        if self.slice_batch < 1:
+            raise ValueError(f"slice_batch must be positive, got "
+                             f"{self.slice_batch}")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" \
+            else torch.float32
+
+    @property
+    def embedding_size(self) -> int:
+        """Side of the image embedding's grid (64 at ViT-B's 1024 / 16)."""
+        return self.image_size // self.patch_size
+
+    @classmethod
+    def from_mapping(cls, conf) -> "SamConfig":
+        """Build from a dict or an attribute namespace, keeping only the
+        fields above."""
+        return _from_mapping(cls, conf)
 
 
 def flagship_conf(**overrides) -> ModelConfig:

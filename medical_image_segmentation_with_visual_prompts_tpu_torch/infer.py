@@ -17,6 +17,16 @@ memory (the JAX package's ``segment_volume``).
 arrives, with the model, the runner and the IO workers kept warm across
 polls (:func:`watch_directory`).
 
+``model_family: medsam`` in the YAML serves MedSAM (SAM ViT-B,
+``models/sam.py``) slice by slice with a box prompt
+(``parallel/sam_slices.py``): ``--ckpt`` is a ``.pt``/``.pth`` state
+dict under segment_anything's names (MedSAM's ``medsam_vit_b.pth``) and
+``--box x0 y0 x1 y1 z0 z1`` the box, in voxels, prompting every input
+(slices ``z0 <= z < z1``; x along a slice's columns, axis 1); the
+Swin-UNETR serving flags (:data:`SWIN_ONLY_FLAGS`) are refused.  The
+family is read once, when the model is built; each volume then takes
+its family's path.
+
 ``mesh_data`` (and ``distributed``) in the YAML serve data parallel, one
 process per device (``torchrun --nproc-per-node N``): each window chunk
 is split over the ranks and its logits gathered, so every rank stitches
@@ -30,6 +40,9 @@ Usage:
     --use-encoder-prompting --use-decoder-prompting \
     --input case.nii.gz --output case_seg.nii.gz
   ... --input incoming/ --output labels/ --watch --watch-interval 5
+  python -m medical_image_segmentation_with_visual_prompts_tpu_torch.infer \
+    --configs medsam_vit_b.yml --ckpt medsam_vit_b.pth \
+    --input case.nii.gz --output case_seg.nii.gz --box 120 96 300 260 20 52
 """
 
 from __future__ import annotations
@@ -42,18 +55,20 @@ from argparse import ArgumentParser
 from collections import deque
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .config import ModelConfig, load_conf
+from .config import ModelConfig, SamConfig, load_conf, model_family
 from .data import load_served, write_labels
 from .data import native as native_lib
 from .models import SwinUnetR
+from .models.sam import Sam
 from .parallel import (BucketedInference, maybe_initialize_distributed,
                        window_starts)
 from .parallel.mesh import mesh_of
+from .parallel.sam_slices import SamSlices
 from .utils import load_reference_checkpoint, trace
 from .utils.checkpoint import load_checkpoint, restore_like
 from .utils.device import resolve_device
@@ -87,15 +102,30 @@ def device_scale_intensity(a_min: float = -1000.0, a_max: float = 1000.0,
     return fn
 
 
-def predict_device(runner: BucketedInference, roi, volume: np.ndarray):
-    """Stitched inference + argmax on the device.  Returns the label crop
-    (uint8 device tensor) and the crop slices within the volume.  One
+Runner = Union[BucketedInference, SamSlices]
+
+
+def predict_device(runner: Runner, roi, volume: np.ndarray,
+                   box: Optional[Sequence[int]] = None):
+    """One volume's labels on the device: the label crop (uint8 device
+    tensor) and the crop slices within the volume.  A Swin-UNETR runner
+    stitches its windows and takes the argmax (``roi``: its window); a
+    MedSAM runner (:class:`SamSlices`) segments the slices of ``box``
+    ``(x0, y0, x1, y1, z0, z1)`` and returns the whole label volume.  One
     unit of the tracer (``serve.volume``)."""
     with trace.unit("serve.volume", runner.device):
-        return _predict(runner, roi, volume)
+        return _predict(runner, roi, volume, box)
 
 
-def _predict(runner: BucketedInference, roi, volume: np.ndarray):
+def _predict(runner: Runner, roi, volume: np.ndarray, box=None):
+    if isinstance(runner, SamSlices):
+        if box is None:
+            raise TypeError("a MedSAM runner needs a box")
+        with torch.inference_mode():
+            return runner(volume, box), tuple(slice(0, d)
+                                              for d in volume.shape[:3])
+    if box is not None:
+        raise TypeError("a box prompts a MedSAM runner, and only it")
     if runner.coverage == "pad":
         slices = tuple(slice(0, d) for d in volume.shape[:3])
         cropped = np.ascontiguousarray(volume)
@@ -161,12 +191,14 @@ def resolve_io(inputs: List[str], output: str) -> List[Tuple[Path, Path]]:
     return pairs
 
 
-def make_runner(conf: dict, model: SwinUnetR, chunk: Optional[int] = None,
-                stride=None, device_windowing: bool = True,
-                coverage: str = "pad", mode: str = "gaussian"
-                ) -> BucketedInference:
+def make_runner(conf: dict, model: Union[SwinUnetR, Sam],
+                chunk: Optional[int] = None, stride=None,
+                device_windowing: bool = True, coverage: str = "pad",
+                mode: str = "gaussian") -> Runner:
     """Serving runner around ``model`` (already on its device; put in
-    eval mode here).
+    eval mode here).  A :class:`Sam` model gets a :class:`SamSlices`
+    runner, which windows its uploads on the device to the model's
+    ``hu_window`` and takes none of the other arguments.
 
     ``device_windowing``: volumes are uploaded raw and windowed on the
     device (pad value -1000 HU, air); otherwise they arrive windowed on
@@ -177,6 +209,9 @@ def make_runner(conf: dict, model: SwinUnetR, chunk: Optional[int] = None,
     """
     model.eval()
     device = next(model.parameters()).device
+    if isinstance(model, Sam):
+        return SamSlices(model, device_scale_intensity(*model.conf.hu_window),
+                         device)
 
     def apply_fn(batch: torch.Tensor) -> torch.Tensor:
         return model(batch)
@@ -199,22 +234,24 @@ def io_pool() -> ProcessPoolExecutor:
     return _io_pool
 
 
-def serve_volumes(conf: dict, model: Optional[SwinUnetR],
+def serve_volumes(conf: dict, model: Optional[Union[SwinUnetR, Sam]],
                   pairs: List[Tuple[Path, Path]], chunk: Optional[int] = None,
-                  runner: Optional[BucketedInference] = None, stride=None,
+                  runner: Optional[Runner] = None, stride=None,
                   device_windowing: bool = True,
                   coverage: str = "pad",
-                  native: bool = True) -> Tuple[int, int]:
+                  native: bool = True,
+                  box: Optional[Sequence[int]] = None) -> Tuple[int, int]:
     """Segment a batch of volumes with pipelined host IO.  Per-volume
     load, inference or write failures are reported and counted.  Returns
     ``(n_done, n_failed)``.  ``native``: the workers decode with the
     native library (``data/native.py``, built here before they start),
-    else with numpy.
+    else with numpy.  ``box``: the box that prompts every volume of a
+    MedSAM runner.
 
     The IO workers are spawned processes, which import the caller's main
     module: a script that calls this runs its work under
     ``if __name__ == "__main__":``."""
-    roi = tuple(conf["roi_size"])
+    roi = tuple(conf["roi_size"]) if "roi_size" in conf else None
     if runner is None:
         runner = make_runner(conf, model, chunk, stride=stride,
                              device_windowing=device_windowing,
@@ -285,7 +322,7 @@ def serve_volumes(conf: dict, model: Optional[SwinUnetR],
             continue
         try:
             with trace.unit("serve.volume", runner.device) as volume_unit:
-                pred_dev, slices = _predict(runner, roi, vol)
+                pred_dev, slices = _predict(runner, roi, vol, box)
         except Exception as e:  # e.g. volume smaller than the roi
             print(f"FAILED inference {src}: {e}")
             n_failed += 1
@@ -309,7 +346,8 @@ def watch_directory(conf: dict, model: SwinUnetR, src: Path, out: Path,
                     chunk: Optional[int] = None, interval: float = 5.0,
                     min_age: float = 1.0, max_polls: Optional[int] = None,
                     stride=None, device_windowing: bool = True,
-                    coverage: str = "pad") -> Tuple[int, int]:
+                    coverage: str = "pad",
+                    box: Optional[Sequence[int]] = None) -> Tuple[int, int]:
     """Watch mode: poll ``src`` for new NIfTI volumes and segment them as
     they arrive, with one runner (and the IO worker processes) kept warm
     across polls.
@@ -350,32 +388,53 @@ def watch_directory(conf: dict, model: SwinUnetR, src: Path, out: Path,
         group = runner.group
         if group is not None and group.group is not None:
             import torch.distributed as dist
-            box = [fresh]       # rank 0's view of the directory
-            dist.broadcast_object_list(box, src=0, group=group.group)
-            fresh = box[0]
+            shared = [fresh]    # rank 0's view of the directory
+            dist.broadcast_object_list(shared, src=0, group=group.group)
+            fresh = shared[0]
         if fresh:
-            d, f = serve_volumes(conf, model, fresh, runner=runner)
+            d, f = serve_volumes(conf, model, fresh, runner=runner, box=box)
             n_done += d
             n_failed += f
     return n_done, n_failed
 
 
-def build_model(conf: dict, state_dict=None, device="cuda") -> SwinUnetR:
-    """The downstream model of ``conf``, loaded (strictly) from a
-    reference-schema state dict, on ``device`` (the card unless
-    ``"cpu"`` is asked for; raises without CUDA), in eval mode."""
+def build_model(conf: dict, state_dict=None, device="cuda"
+                ) -> Union[SwinUnetR, Sam]:
+    """The serving model of ``conf``'s ``model_family``: the downstream
+    Swin-UNETR, loaded (strictly) from a reference-schema state dict, or
+    MedSAM's :class:`Sam`, from a state dict under segment_anything's
+    names; on ``device`` (the card unless ``"cpu"`` is asked for; raises
+    without CUDA), in eval mode."""
     device = resolve_device(device)
-    model = SwinUnetR(ModelConfig.from_mapping(
-        {**conf, "training_mode": "downstream"}))
+    if model_family(conf) == "medsam":
+        mesh = int(conf.get("mesh_data", 0) or 0)
+        dist = torch.distributed
+        if mesh > 1 or (mesh == -1 and dist.is_available()
+                        and dist.is_initialized()
+                        and dist.get_world_size() > 1):
+            raise ValueError(f"mesh_data {mesh}: MedSAM serves a study on "
+                             "one card; data-parallel MedSAM serving is not "
+                             "supported")
+        model = Sam(SamConfig.from_mapping(conf))
+    else:
+        model = SwinUnetR(ModelConfig.from_mapping(
+            {**conf, "training_mode": "downstream"}))
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval()
 
 
-def load_model(conf: dict, ckpt, device="cuda") -> SwinUnetR:
+def load_model(conf: dict, ckpt, device="cuda") -> Union[SwinUnetR, Sam]:
     """:func:`build_model` with the weights of ``ckpt``: a ``.pt`` (by its
     suffix) in the reference schema, else a msgpack checkpoint whose
-    ``model_state_dict`` holds the full model state."""
+    ``model_state_dict`` holds the full model state.  MedSAM: a
+    ``.pt``/``.pth`` state dict under segment_anything's names."""
+    if model_family(conf) == "medsam":
+        if Path(ckpt).suffix not in (".pt", ".pth"):
+            raise ValueError(f"MedSAM loads a .pt/.pth state dict, got "
+                             f"{ckpt}")
+        return build_model(conf, torch.load(ckpt, map_location="cpu",
+                                            weights_only=True), device)
     if Path(ckpt).suffix == ".pt":
         return build_model(conf, load_reference_checkpoint(ckpt), device)
     model = build_model(conf, device=device)
@@ -384,12 +443,17 @@ def load_model(conf: dict, ckpt, device="cuda") -> SwinUnetR:
     return model
 
 
+SWIN_ONLY_FLAGS = ("use_encoder_prompting", "use_decoder_prompting", "chunk",
+                   "stride_factor", "coverage", "host_windowing")
+
+
 def main(argv=None):
     parser = ArgumentParser()
     parser.add_argument("--configs", default="example_configs.yml")
     parser.add_argument("--ckpt", required=True,
                         help="reference-schema .pt (mivp-export-checkpoint) "
-                             "or a trainer's msgpack checkpoint")
+                             "or a trainer's msgpack checkpoint; MedSAM: a "
+                             ".pt/.pth state dict")
     parser.add_argument("--input", required=True, nargs="+",
                         help="NIfTI file(s) or director(ies)")
     parser.add_argument("--output", required=True,
@@ -413,11 +477,25 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda; fails without a "
                              "card unless --device cpu)")
+    parser.add_argument("--box", type=int, nargs=6, default=None,
+                        metavar=("X0", "Y0", "X1", "Y1", "Z0", "Z1"),
+                        help="MedSAM: the box prompting every input, in "
+                             "voxels (slices Z0 <= z < Z1; x along a "
+                             "slice's columns)")
     args = parser.parse_args(argv)
     if args.watch and (len(args.input) != 1
                        or not Path(args.input[0]).is_dir()):
         raise SystemExit("--watch requires a single --input directory")
     conf = load_conf(args.configs, **vars(args))
+    if (model_family(conf) == "medsam") != (args.box is not None):
+        raise SystemExit("--box prompts a MedSAM config (model_family: "
+                         "medsam), and such a config needs one")
+    if model_family(conf) == "medsam":
+        swin_only = [f"--{d.replace('_', '-')}" for d in SWIN_ONLY_FLAGS
+                     if getattr(args, d) != parser.get_default(d)]
+        if swin_only:
+            raise SystemExit(f"{' '.join(swin_only)}: Swin-UNETR serving "
+                             "only; a MedSAM config takes none of them")
     device = resolve_device(args.device)
     maybe_initialize_distributed(conf, device)
     mesh_of(conf)            # mesh_data against the world, before any read
@@ -427,12 +505,13 @@ def main(argv=None):
                         chunk=args.chunk, interval=args.watch_interval,
                         stride=args.stride_factor,
                         device_windowing=not args.host_windowing,
-                        coverage=args.coverage)
+                        coverage=args.coverage, box=args.box)
         return
     pairs = resolve_io(args.input, args.output)
     n_done, n_failed = serve_volumes(
         conf, model, pairs, chunk=args.chunk, stride=args.stride_factor,
-        device_windowing=not args.host_windowing, coverage=args.coverage)
+        device_windowing=not args.host_windowing, coverage=args.coverage,
+        box=args.box)
     if n_failed or not n_done:
         raise SystemExit(1)
 

@@ -66,7 +66,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import PHASE1_MODE, SUPERVISED_MODES, ModelConfig
+from ..config import PHASE1_MODE, SUPERVISED_MODES, ModelConfig, SamConfig
 from ..ops.windows import compute_paddings, fold_geometry, unpad_paddings
 
 # Dense bf16 tensor-core TFLOP/s (no sparsity) and memory TB/s, NVIDIA
@@ -312,3 +312,70 @@ def model_flops(conf, batch: int = 1,
     """The model FLOPs of one forward (:func:`forward_flops`' ``model``):
     what an MFU divides by."""
     return forward_flops(conf, batch, roi).model
+
+
+def medsam_flop_parts(conf, slices: int = 1) -> Dict[str, int]:
+    """The products of MedSAM on one study of ``slices`` slices, one box
+    each (``models/sam.py``; ``conf``: a config mapping, namespace or
+    ``SamConfig``), by part, as ``reference/medsam.py`` computes them:
+    the three-channel patch embed; per encoder block the qkv and
+    projection linears over every row of the windows, the windows padded
+    as the model pads them, the MLP over the grid, the two attention
+    products and the two ``q . R`` products of the relative bias (a
+    materialised bias is not counted); the neck; the box's and the grid's
+    Fourier features (the grid's once per study); per prompt the
+    two-way transformer, the upscaling (a transposed conv at its true
+    multiply-adds), the hypernetwork MLPs, the masks' product and the
+    IoU head."""
+    c = conf if isinstance(conf, SamConfig) else SamConfig.from_mapping(conf)
+    n = int(slices)
+    dim, g, ws = c.encoder_embed_dim, c.embedding_size, c.window_size
+    heads, hd = c.encoder_num_heads, dim // c.encoder_num_heads
+    tokens = g * g
+    p = Counter()
+    p["encoder.patch_embed"] = 2 * n * tokens * c.in_chans \
+        * c.patch_size ** 2 * dim
+    gp = -(-g // ws) * ws
+    for i in range(c.encoder_depth):
+        side = g if i in c.encoder_global_attn_indexes else ws
+        windows = 1 if side == g else (gp // ws) ** 2
+        rows = windows * side * side
+        mlp = int(dim * c.mlp_ratio)
+        p["encoder.linears"] += 2 * n * (rows * dim * 4 * dim
+                                         + tokens * dim * mlp * 2)
+        calls = n * windows * heads
+        p["encoder.attention"] += calls * 4 * side ** 4 * hd
+        p["encoder.rel_pos"] += calls * 4 * side ** 3 * hd
+    out = c.prompt_embed_dim
+    p["encoder.neck"] = 2 * n * tokens * (dim * out + 9 * out * out)
+    feats = out // 2
+    p["prompt"] = 2 * (2 * n + tokens) * 2 * feats
+    t = 4 + c.num_multimask_outputs          # iou, mask tokens, 2 corners
+    inner = out // c.attention_downsample_rate
+
+    def cross(nq, nk):      # q from nq rows, k and v from nk rows
+        return 2 * (nq * out * inner + 2 * nk * out * inner
+                    + 2 * nq * nk * inner + nq * inner * out)
+
+    dec = 0
+    for _ in range(c.decoder_depth):
+        dec += 2 * (4 * t * out * out + 2 * t * t * out)       # self
+        dec += cross(t, tokens) + cross(tokens, t)
+        dec += 4 * t * out * c.decoder_mlp_dim
+    dec += cross(t, tokens)
+    masks = c.num_multimask_outputs + 1
+    dec += 2 * tokens * out * (out // 4) * 4                     # up 1
+    dec += 2 * 4 * tokens * (out // 4) * (out // 8) * 4         # up 2
+    dec += masks * 2 * out * (2 * out + out // 8)                # hyper
+    dec += 2 * masks * (out // 8) * 16 * tokens                  # masks
+    hid = c.iou_head_hidden_dim
+    dec += 2 * (out * hid + (c.iou_head_depth - 2) * hid * hid
+                + hid * masks)
+    p["decoder"] = n * dec
+    return dict(p)
+
+
+def medsam_forward_flops(conf, slices: int = 1) -> int:
+    """The model FLOPs of MedSAM on one study of ``slices`` slices
+    (:func:`medsam_flop_parts`): what an MFU divides by."""
+    return sum(medsam_flop_parts(conf, slices).values())

@@ -48,11 +48,18 @@ coverage), ``serve.pad``, ``serve.upload``, ``serve.preprocess``,
 ``serve.blend_weights``, per window chunk ``serve.gather``,
 ``serve.forward`` and ``serve.stitch``, then ``serve.divide``,
 ``serve.argmax`` and, in ``infer.serve_volumes``'s writer,
-``serve.download``; ``train.step`` (unit), ``train.stage``,
+``serve.download``; in a MedSAM study (``parallel/sam_slices.py``)
+``serve.upload``, ``serve.preprocess`` (window, resize, min-max),
+``serve.sam.encoder`` (one per slice batch), ``serve.sam.prompt``,
+``serve.sam.decoder``, ``serve.sam.postprocess`` (sigmoid, resize,
+threshold, paste) and ``serve.download``; ``train.step`` (unit),
+``train.stage``,
 ``train.views``, ``train.forward`` (each forward), ``train.loss``,
 ``train.backward``, ``train.optimizer``; ``kernels.build`` (unit).
 Counters: ``serve.windows`` and ``serve.forwards`` per volume,
-``kernels.builds`` (0 when the built library was there).
+``serve.sam.slices``, ``serve.sam.prompts`` and
+``serve.sam.encoder_batches`` per MedSAM study, ``kernels.builds`` (0
+when the built library was there).
 """
 
 from __future__ import annotations

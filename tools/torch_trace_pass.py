@@ -38,6 +38,9 @@ PAIRS = 10
 SECONDS = "10"      # the harness's measured window, which nothing here reads
 SERVE_DEVICE = ("serve.preprocess", "serve.gather", "serve.stitch",
                 "serve.divide", "serve.argmax")
+SAM_ENCODER = ("serve.sam.encoder",)
+SAM_DECODER = ("serve.sam.prompt", "serve.sam.decoder")
+SAM_AROUND = ("serve.preprocess", "serve.sam.postprocess")
 
 
 def units_of(spans, root):
@@ -72,7 +75,12 @@ def unit_metrics(spans):
       ``serve.upload``;
     * ``stitch_ms.serve``: device ms between the entry and exit events of
       ``serve.preprocess``, ``serve.gather``, ``serve.stitch``,
-      ``serve.divide`` and ``serve.argmax``, summed;
+      ``serve.divide`` and ``serve.argmax``, summed (Swin-UNETR volumes);
+    * ``encoder_ms.sam``, ``decoder_ms.sam``, ``around_ms.sam`` (MedSAM
+      studies, those with ``serve.sam.*`` spans): device ms of the
+      ``serve.sam.encoder`` spans; of ``serve.sam.prompt`` and
+      ``serve.sam.decoder``; of ``serve.preprocess`` and
+      ``serve.sam.postprocess``;
     * ``dispatch_ms.train``: host ms in ``train.step`` minus
       ``train.stage``;
     * ``stage_ms.train``: host ms in ``train.stage``;
@@ -85,8 +93,19 @@ def unit_metrics(spans):
         whole = [_total(m, {"serve.volume"}, "host_ms") for m in vols]
         out["upload_wait_ms.serve"] = _mean(up)
         out["dispatch_ms.serve"] = _mean([w - u for w, u in zip(whole, up)])
-        out["stitch_ms.serve"] = _mean(
-            [_total(m, SERVE_DEVICE, "device_ms") for m in vols])
+        sam = [m for m in vols if any(s["name"].startswith("serve.sam.")
+                                      for s in m)]
+        swin = [m for m in vols if not any(
+            s["name"].startswith("serve.sam.") for s in m)]
+        if swin:
+            out["stitch_ms.serve"] = _mean(
+                [_total(m, SERVE_DEVICE, "device_ms") for m in swin])
+        for name, spans_of in (("encoder_ms.sam", SAM_ENCODER),
+                               ("decoder_ms.sam", SAM_DECODER),
+                               ("around_ms.sam", SAM_AROUND)):
+            if sam:
+                out[name] = _mean([_total(m, spans_of, "device_ms")
+                                   for m in sam])
     steps = units_of(spans, "train.step")
     if steps:
         stage = [_total(m, {"train.stage"}, "host_ms") for m in steps]
@@ -178,8 +197,9 @@ def main(argv=None) -> int:
     if rc or not found:
         return rc or 1
     snap = found.pop("snap")
-    root = "serve.volume" if args.workload.startswith("serve") \
-        else "train.step"
+    driver = common.load_cell(common.load_manifest(), args.workload, 0, 1.0,
+                              False).traffic["driver"]
+    root = "train.step" if driver.startswith("train") else "serve.volume"
     out = dict(workload=args.workload, seed=args.seed,
                metrics=unit_metrics(snap["spans"]),
                **reduce_spans(snap["spans"], snap["counters"], root),
