@@ -152,7 +152,16 @@ the port's paths:
   Every path counts its launches: 4 per serving forward of the flagship
   (3 plain, 1 head; ``full``/``swin`` and ``simple``/``swin`` 4 plain,
   ``none``/``unetr`` 1 head, ``simple``/``unetr`` 0, a phase-2 forward
-  4 plain), 0 per training step.
+  4 plain), 0 per training step;
+* MedSAM's encoder attention core (phase ``sam_attention``, S1): the
+  kernel at the global (16 64x64 grids) and the windowed (400 14x14
+  windows) call of a 16-slice batch against its plain version in fp32,
+  timed beside its bound (the count of ``benchmark/arith_medsam.py``),
+  the plain version in bf16 and the widened-q form on cuDNN's fused
+  attention (``library_ms``), with each launch's shape; a 32-slice study
+  of ``configurations/medsam_vit_b.yml`` served through ``make_runner``
+  and ``predict_device(..., box=)`` takes 24 launches, and no Swin-UNETR
+  path launches it.
 
 Device busy shares (``print_profile`` and the trace) count kernels,
 copies and fills only, not user-annotation spans.  The peaks that
@@ -606,6 +615,140 @@ def phase_upsample(gen_seed: int = SEED + 23):
     return out
 
 
+# MedSAM's encoder attention core (S1) at the two calls of a 16-slice
+# encoder batch: (name, images or windows, h, w).
+SAM_ATTENTION_CALLS = (("global", 16, 64, 64), ("windows", 400, 14, 14))
+
+
+def sam_attention_work(b, h, w, heads=12, hd=64, item=2):
+    """(flops, bytes) of one attention-core call on ``b`` grids of ``h x
+    w``: ``q k^T``, ``p v`` and the two ``q . R`` products; q, k, v read
+    and o written once, the two tables read (``benchmark/
+    arith_medsam.py::attention_work``'s count of a call)."""
+    n = b * h * w
+    flops = 4 * hd * b * heads * ((h * w) ** 2 + h * w * (h + w) // 2)
+    nbytes = (4 * n * heads + (2 * h - 1) + (2 * w - 1)) * hd * item
+    return flops, nbytes
+
+
+def sam_attention_inputs(b, h, w, g):
+    """bf16 qkv ~ N(0, 1) of 12 heads of 64, and the gathered rel-pos
+    tables drawn as the benchmark's weights draw them (sd 0.10 for the
+    global blocks' 127 rows, 0.15 for the windows' 27)."""
+    import torch
+    qkv = torch.randn(b, h, w, 3 * 768, generator=g).to("cuda",
+                                                         torch.bfloat16)
+
+    def table(side):
+        r = (0.10 if side == 64 else 0.15) * torch.randn(2 * side - 1, 64,
+                                                          generator=g)
+        pos = torch.arange(side)
+        return r[pos[:, None] - pos[None, :] + side - 1].contiguous().to(
+            "cuda", torch.bfloat16)
+    return qkv, table(h), table(w)
+
+
+def phase_sam_attention(gen_seed: int = SEED + 29):
+    """The attention-core kernel at the global and the windowed call of a
+    16-slice batch: against the plain version (fp32, same inputs; within
+    2^-8 max|v|, ``tests/test_torch_kernels_cuda.py``), timed beside its
+    bound (:func:`sam_attention_work`), the plain version in bf16 on
+    SDPA's math path, and, as ``library_ms``, the widened-q form on
+    cuDNN's fused attention, which the port ran before; then one 32-slice
+    study of the shipped configuration through the serving path (2
+    encoder forwards of 16 slices, 24 launches).  Every kernel call counts
+    one launch."""
+    import numpy as np
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import infer
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import load_conf
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import sam_attention as sa
+    print("phase sam_attention: MedSAM's encoder attention core (S1), bf16, "
+          "vs the plain version in fp32; beside it the plain version in bf16 "
+          "(SDPA math) and the widened-q form on cuDNN's SDPA")
+    conf = load_conf(str(ROOT / "configurations" / "medsam_vit_b.yml"))
+    failures, out = [], {"calls": {}}
+    g = torch.Generator().manual_seed(gen_seed)
+    launched = sa.sam_attention.launches
+    calls = 0
+    for name, b, h, w in SAM_ATTENTION_CALLS:
+        qkv, th, tw = sam_attention_inputs(b, h, w, g)
+        bound = Bound()
+        bound.add(*sam_attention_work(b, h, w))
+        info = sa.launch_info(qkv, 12)
+        with torch.inference_mode():
+            got = sa.sam_attention(qkv, th, tw, 12)
+            torch.cuda.synchronize()
+            step = 4 if h == 64 else 100
+            with sdpa_kernel(SDPBackend.MATH):
+                ref = torch.cat([sa.sam_attention_reference(
+                    qkv[i:i + step].float(), th.float(), tw.float(), 12)
+                    for i in range(0, b, step)])
+            vmax = qkv[..., 2 * 768:].float().abs().max().item()
+            err = check_close(f"sam_attention {name} {b}x{h}x{w}", got, ref,
+                              failures, tol=2.0 ** -8, floor=vmax)
+            del ref
+            iters = 10
+            t_k = cuda_ms(lambda: sa.sam_attention(qkv, th, tw, 12), iters)
+            calls += 2 + iters
+            with sdpa_kernel(SDPBackend.MATH):
+                t_p = cuda_ms(lambda: sa.sam_attention_reference(
+                    qkv, th, tw, 12), 3)
+            t_l = cuda_ms(lambda: sa.sam_attention_reference(qkv, th, tw, 12))
+        print(f"    kernel {t_k:.4f} ms (bound {bound.ms:.4f}, {bound.by}; "
+              f"{100 * bound.ms / t_k:.1f} % of it), plain {t_p:.4f} ms, "
+              f"library {t_l:.4f} ms; launch {info}")
+        out["calls"][name] = {"ms": t_k, "bound_ms": bound.ms,
+                              "bound_by": bound.by, "plain_ms": t_p,
+                              "library_ms": t_l, "max_abs_err": err,
+                              "max_abs_v": vmax, "launch": info}
+    launches = sa.sam_attention.launches - launched
+    if launches != calls:
+        failures.append(f"sam_attention: {launches} launches for {calls} "
+                        "calls")
+    runner = infer.make_runner(conf, infer.build_model(conf))
+    vol = np.random.default_rng(gen_seed).normal(40.0, 150.0, (96, 80, 40))
+    vol = vol.astype(np.int16)[..., None]
+    box = (10, 6, 70, 60, 4, 36)                  # slices 4 <= z < 36
+    infer.predict_device(runner, None, vol, box=box)       # warm-up
+    torch.cuda.synchronize()
+    sa.sam_attention.launches = 0
+    labels, _ = infer.predict_device(runner, None, vol, box=box)
+    labels = labels.cpu()
+    served = sa.sam_attention.launches
+    outside = int(labels[..., :4].any()) + int(labels[..., 36:].any())
+    print(f"  a 32-slice study served: {served} launches, labels "
+          f"{tuple(labels.shape)}, {int(labels.sum())} voxels labelled")
+    if served != 24 or tuple(labels.shape) != vol.shape[:3] or outside:
+        failures.append(f"sam_attention: {served} launches in a served "
+                        "32-slice study (24 expected), labels "
+                        f"{tuple(labels.shape)} or labels outside the box's "
+                        "slices")
+    out["serve_launches"] = served
+    # A 32-slice study: 2 encoder forwards, 4 global and 8 windowed calls
+    # each.
+    per_study = {"global": 8, "windows": 16}
+    out["bound"] = Bound()
+    for name, b, h, w in SAM_ATTENTION_CALLS:
+        for _ in range(per_study[name]):
+            out["bound"].add(*sam_attention_work(b, h, w))
+    for key in ("ms", "plain_ms", "library_ms"):
+        out[key] = sum(n * out["calls"][name][key]
+                       for name, n in per_study.items())
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["calls"].values())
+    print(f"  a 32-slice study's 24 calls: {out['ms']:.3f} ms, bound "
+          f"{out['bound'].ms:.3f} ms ({100 * out['bound'].ms / out['ms']:.1f}"
+          f" %), plain {out['plain_ms']:.3f} ms, library "
+          f"{out['library_ms']:.3f} ms")
+    if failures:
+        raise RuntimeError("phase sam_attention failed: " +
+                           "; ".join(failures))
+    return out
+
+
 def phase_conv_one_input(g, failures):
     """B3 (B2's kernel with one input) at 48->48 on 64x64x4, with the BN +
     LeakyReLU prologue and without either; the second is timed beside the
@@ -1012,12 +1155,15 @@ def counters():
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .fused_pair import fused_swin_pair
     from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        .sam_attention import sam_attention
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
         .upsample import upsample
     return {"B1": fused_swin_block, "B2": conv3x3_fused_pair,
             "B3": conv3x3_fused, "B4": block_backward, "B5": fused_swin_pair,
             "B6": wa.fused_window_attention_packed_qkv,
             "B7": wa.fused_window_attention_packed,
-            "B8": wa.fused_window_attention, "upsample": upsample}
+            "B8": wa.fused_window_attention, "upsample": upsample,
+            "S1": sam_attention}
 
 
 # The per-sample input shape of each kernel the Swin output layer runs
@@ -4784,6 +4930,8 @@ def main() -> int:
     clock("B2, B3 done")
     ups = phase_upsample()
     clock("upsample done")
+    sam = phase_sam_attention()
+    clock("sam_attention done")
     attn = phase_attention()
     clock("B6-B8 done")
     b1_train, b4 = phase_blocks_train()
@@ -5197,6 +5345,17 @@ def main() -> int:
                              "bound_by": ups[128]["bound"].by,
                              "max_abs_err": ups[128]["max_abs_err"],
                              "by_call": ups[128]["calls"]}),
+        kernel_entry("sam_attention", "sam_attention.cu", None,
+                     sam["serve_launches"],
+                     paths("S1") | {"medsam-serve": sam["serve_launches"]},
+                     sam,
+                     replaces_none="the JAX package has no SAM",
+                     calls="the 24 calls of a 32-slice MedSAM study (8 "
+                     "global 16x64x64, 16 windowed 400x14x14; 12 heads)",
+                     by_call=sam["calls"],
+                     plain_scope="the plain version in bf16 on SDPA's math "
+                     "path", library_scope="the widened-q form on cuDNN's "
+                     "fused attention (the port's path before S1)"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

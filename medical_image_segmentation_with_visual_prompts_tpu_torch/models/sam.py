@@ -3,12 +3,14 @@
 
 Three modules under segment_anything's parameter names (``image_encoder``,
 ``prompt_encoder``, ``mask_decoder``), so MedSAM's ``medsam_vit_b.pth``
-state dict loads strictly into :class:`Sam`.  Plain torch operations;
-the attention is ``F.scaled_dot_product_attention``, the image encoder's
-decomposed relative position bias folded into its q and k.  The
-encoder and the mask decoder run in ``SamConfig.compute_dtype`` (their
-parameters are held in it); the prompt encoder's Fourier features stay in
-float32.  ``reference/medsam.py`` is the plain float32 reference.
+state dict loads strictly into :class:`Sam`.  Plain torch operations
+but the image encoder's attention core, ``ops/sam_attention.py`` (a
+hand-written kernel on the card, its decomposed relative position bias
+inside); the mask decoder's attention is
+``F.scaled_dot_product_attention``.  The encoder and the mask decoder
+run in ``SamConfig.compute_dtype`` (their parameters are held in it); the
+prompt encoder's Fourier features stay in float32.
+``reference/medsam.py`` is the plain float32 reference.
 
 The published quirks, kept:
 
@@ -18,7 +20,7 @@ The published quirks, kept:
 * the relative position bias takes the *unscaled* q: ``attn[q, (kh,
   kw)] = q.k / sqrt(hd) + <q, Rh[qh - kh + S - 1]> + <q, Rw[qw - kw + S -
   1]>``, one table per axis shared by the heads (S = 64 in the global
-  blocks, 14 in the windowed); :class:`Attention` computes it inside the
+  blocks, 14 in the windowed); the attention core computes it inside the
   attention's scores, never as a ``[N, N]`` bias;
 * LayerNorm eps 1e-6 in the encoder (its blocks and the neck's
   LayerNorm2d) and in the decoder's LayerNorm2d, 1e-5 in the two-way
@@ -47,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SamConfig
+from ..ops import sam_attention
 
 
 class LayerNorm2d(nn.Module):
@@ -118,19 +121,9 @@ def window_unpartition(x: torch.Tensor, ws: int, pad_hw, hw) -> torch.Tensor:
 class Attention(nn.Module):
     """Multi-head attention over a ``[B, H, W, C]`` grid with the
     decomposed relative position bias (segment_anything's image-encoder
-    ``Attention``).
-
-    The bias is not materialised: q and k are widened so that their
-    product is the scaled scores plus the bias,
-
-        q' = [q / sqrt(hd), q . Rh[qh - kh], q . Rw[qw - kw]]  (over kh, kw)
-        k' = [k, onehot(kh), onehot(kw)]
-
-    (zero-padded to a multiple of 8), and ``scaled_dot_product_attention``
-    runs on ``q'``, ``k'`` and ``v`` at scale 1 with no mask: a fused
-    kernel where a ``[B, heads, N, N]`` bias (6.4 GB for 16 slices in a
-    global block) would be written and read.
-    """
+    ``Attention``): ``qkv``, the attention core
+    (``ops/sam_attention.py``: the bias inside one kernel on the card,
+    never a ``[N, N]`` array), ``proj``."""
 
     def __init__(self, dim: int, num_heads: int, side: int):
         super().__init__()
@@ -141,7 +134,6 @@ class Attention(nn.Module):
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * side - 1, head_dim))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * side - 1, head_dim))
         self._index: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
-        self._onehot: Dict[tuple, torch.Tensor] = {}
 
     def rel_table(self, table: torch.Tensor, size: int) -> torch.Tensor:
         """``[size, size, hd]``: the table's row ``q - k + c`` for query
@@ -158,42 +150,15 @@ class Attention(nn.Module):
     def rel_terms(self, q: torch.Tensor, h: int, w: int):
         """``q . Rh`` ``[B, heads, h w, h]`` and ``q . Rw`` ``[B, heads,
         h w, w]`` of the unscaled ``q`` ``[B, heads, h w, hd]``."""
-        b, n, m, hd = q.shape
-        r_q = q.reshape(b, n, h, w, hd)
-        rel_h = torch.einsum("bnhwc,hkc->bnhwk", r_q,
-                             self.rel_table(self.rel_pos_h, h))
-        rel_w = torch.einsum("bnhwc,wkc->bnhwk", r_q,
-                             self.rel_table(self.rel_pos_w, w))
-        return rel_h.reshape(b, n, m, h), rel_w.reshape(b, n, m, w)
-
-    def key_onehots(self, h: int, w: int, pad: int, like: torch.Tensor
-                    ) -> torch.Tensor:
-        """``[h w, h + w + pad]``: key ``(kh, kw)``'s one-hot of ``kh``,
-        then of ``kw``, then zeros."""
-        key = (h, w, pad, like.dtype, like.device)
-        hot = self._onehot.get(key)
-        if hot is None:
-            eye_h = torch.eye(h, dtype=like.dtype, device=like.device)
-            eye_w = torch.eye(w, dtype=like.dtype, device=like.device)
-            hot = torch.cat([eye_h[:, None].expand(h, w, h),
-                             eye_w[None].expand(h, w, w),
-                             like.new_zeros(h, w, pad)], -1).reshape(h * w, -1)
-            self._onehot[key] = hot
-        return hot
+        return sam_attention.rel_terms(q, self.rel_table(self.rel_pos_h, h),
+                                       self.rel_table(self.rel_pos_w, w))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, c = x.shape
-        qkv = self.qkv(x).view(b, h * w, 3, self.num_heads, -1)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        hd = q.shape[-1]
-        rel_h, rel_w = self.rel_terms(q, h, w)
-        pad = -(hd + h + w) % 8
-        q = torch.cat([q * hd ** -0.5, rel_h, rel_w,
-                       q.new_zeros(*q.shape[:3], pad)], -1)
-        k = torch.cat([k, self.key_onehots(h, w, pad, k).expand(
-            *k.shape[:2], -1, -1)], -1)
-        o = F.scaled_dot_product_attention(q, k, v, scale=1.0)
-        return self.proj(o.transpose(1, 2).reshape(b, h, w, c))
+        _, h, w, _ = x.shape
+        o = sam_attention.sam_attention(
+            self.qkv(x), self.rel_table(self.rel_pos_h, h),
+            self.rel_table(self.rel_pos_w, w), self.num_heads)
+        return self.proj(o)
 
 
 class Block(nn.Module):

@@ -75,6 +75,10 @@ SIGNATURES = {
     # w, d, out h, w, d, align_corners, classes, out's classes, x is fp32,
     # the head is bf16, stream
     "mivp_upsample_head": [_P] * 6 + [_I] * 16 + [_P],
+    # qkv, table_h, table_w, out, b, h, w, heads, form, stream
+    "mivp_sam_attention": [_P] * 4 + [_I] * 5 + [_P],
+    # b, h, w, heads, form, out: int[7]
+    "mivp_sam_attention_info": [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1610,3 +1610,133 @@ def test_upsample_flagship_eval_forward_launches_and_no_sync(dev):
     names = [e.name for e in prof.events()]
     assert "cudaStreamSynchronize" not in names
     assert sum("upsample" in n for n in names) >= 4
+
+
+# MedSAM's encoder attention core (S1, ``ops/sam_attention.py``) at the
+# published calls of a 16-slice batch: the global blocks' 16 64x64 grids
+# and the windowed blocks' 400 14x14 windows, 12 heads of 64.
+SAM_CALLS = [(16, 64, 64), (400, 14, 14)]
+
+
+def _sam_case(dev, b, h, w, dtype, seed=1):
+    """qkv ~ N(0, 1) and the two gathered rel-pos tables drawn as
+    ``benchmark/generate.py`` draws the tables (sd 0.10 for the global
+    blocks' 127 rows, 0.15 for the windows' 27): q . R as large as q . k
+    / 8."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, h, w, 3 * 12 * 64, generator=g).to(dev, dtype)
+
+    def table(side):
+        r = (0.10 if side == 64 else 0.15) * torch.randn(2 * side - 1, 64,
+                                                          generator=g)
+        pos = torch.arange(side)
+        return r[pos[:, None] - pos[None, :] + side - 1].contiguous().to(
+            dev, dtype)
+    return qkv, table(h), table(w)
+
+
+def _sam_plain_fp32(sa, qkv, th, tw):
+    """The plain version in fp32 on the same (rounded) inputs, a few
+    images at a time (its scores are materialised by SDPA's math path)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    step = 4 if qkv.shape[1] == 64 else 100
+    with sdpa_kernel(SDPBackend.MATH):
+        return torch.cat([sa.sam_attention_reference(
+            qkv[i:i + step].float(), th.float(), tw.float(), 12)
+            for i in range(0, qkv.shape[0], step)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w", SAM_CALLS, ids=["global", "windows"])
+def test_sam_attention_kernel_matches_plain(dev, b, h, w, dtype):
+    """The kernel against the plain version computed in fp32 on the same
+    inputs.  bf16: the kernel rounds P to bf16 before PV (each weight by
+    at most 2^-9 relative, so o by at most 2^-9 max|v|) and o to bf16
+    (2^-9 |o| <= 2^-9 max|v|); its scores, bias and softmax are fp32, so
+    2^-8 max|v| bounds the difference.  fp32: the same arithmetic with
+    sums of up to 4,096 terms in another order, a few fp32 ulps: 1e-5
+    max|v| leaves tenfold room.  Two runs give the same bits."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import sam_attention as sa
+    qkv, th, tw = _sam_case(dev, b, h, w, dtype)
+    with torch.inference_mode():
+        before = sa.sam_attention.launches
+        got = sa.sam_attention(qkv, th, tw, 12)
+        again = sa.sam_attention(qkv, th, tw, 12)
+        torch.cuda.synchronize()
+        ref = _sam_plain_fp32(sa, qkv, th, tw)
+    assert sa.sam_attention.launches == before + 2
+    assert got.shape == (b, h, w, 768) and got.dtype == dtype
+    assert torch.equal(got, again)
+    vmax = qkv[..., 2 * 768:].float().abs().max().item()
+    tol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    assert torch.isfinite(got).all()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= tol * vmax, (err, vmax)
+
+
+@pytest.mark.cuda
+def test_sam_attention_launch_shapes(dev):
+    """The global calls launch three consumer warpgroups and a producer
+    warp (416 threads, 192 query rows a CTA, one CTA an SM), the windows
+    two (288 threads, two CTAs an SM); no spills."""
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import sam_attention as sa
+    infos = [sa.launch_info(torch.empty(b, h, w, 3 * 768, device=dev,
+                                        dtype=torch.bfloat16), 12)
+             for b, h, w in SAM_CALLS]
+    assert [i["form"] for i in infos] == ["rows", "windows"]
+    assert [i["ctas"] for i in infos] == [16 * 12 * 22, 400 * 12 * 2]
+    assert [i["threads"] for i in infos] == [416, 288]
+    assert all(i["spill_bytes"] == 0 for i in infos)
+    assert [i["ctas_per_sm"] for i in infos] == [1, 2]
+
+
+@pytest.mark.cuda
+def test_sam_served_study_takes_24_launches_and_no_sdpa_in_the_encoder(dev):
+    """A 32-slice study of the shipped bf16 MedSAM through the serving
+    path: two encoder forwards of 16 slices, 12 attention cores each, all
+    through the kernel; ``scaled_dot_product_attention`` runs only in the
+    mask decoder."""
+    import numpy as np
+    import torch.nn.functional as F
+    from pathlib import Path
+    from medical_image_segmentation_with_visual_prompts_tpu_torch import infer
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.config \
+        import load_conf
+    from medical_image_segmentation_with_visual_prompts_tpu_torch.ops \
+        import sam_attention as sa
+    root = Path(__file__).resolve().parent.parent
+    conf = load_conf(str(root / "configurations" / "medsam_vit_b.yml"))
+    model = infer.build_model(conf)
+    runner = infer.make_runner(conf, model)
+    vol = np.random.default_rng(3).normal(40.0, 150.0, (96, 80, 40)).astype(
+        np.int16)[..., None]
+    box = (10, 6, 70, 60, 4, 36)
+    infer.predict_device(runner, None, vol, box=box)       # warm-up
+    torch.cuda.synchronize()
+    calls = {"encoder": 0, "other": 0}
+    inside = [False]
+    real = F.scaled_dot_product_attention
+
+    def counted(*args, **kw):
+        calls["encoder" if inside[0] else "other"] += 1
+        return real(*args, **kw)
+    enc = model.image_encoder
+    hooks = [enc.register_forward_pre_hook(
+                 lambda *_: inside.__setitem__(0, True)),
+             enc.register_forward_hook(
+                 lambda *_: inside.__setitem__(0, False))]
+    F.scaled_dot_product_attention = counted
+    try:
+        before = sa.sam_attention.launches
+        labels, _ = infer.predict_device(runner, None, vol, box=box)
+        torch.cuda.synchronize()
+    finally:
+        F.scaled_dot_product_attention = real
+        for hk in hooks:
+            hk.remove()
+    assert sa.sam_attention.launches - before == 24
+    assert calls["encoder"] == 0 and calls["other"] > 0
+    assert labels.shape == (96, 80, 40)
